@@ -1,0 +1,67 @@
+"""JAX param pytree -> the port's params.
+
+The caller hands over the JAX package's params with numpy leaves (for
+example ``jax.tree.map(np.asarray, params)``); this module imports neither
+JAX nor ``repro``.  bfloat16 leaves arrive as ``ml_dtypes.bfloat16`` arrays,
+which ``torch.from_numpy`` rejects, so they travel as their uint16 bits and
+are viewed as ``torch.bfloat16`` again.
+
+JAX stores ``blocks`` as one entry per layout position, each stacked
+[num_super_blocks, ...]; the port's ``layers`` list is super-block major with
+the layout interleaved inside (models/model.py), the order the JAX scan runs
+the blocks in.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch import DeviceLike, resolve_device
+
+
+def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
+        return t.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+
+
+def _map(tree: Any, fn) -> Any:
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def _index(tree: Any, i: int) -> Any:
+    return _map(tree, lambda a: np.asarray(a)[i])
+
+
+def params_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
+    """The JAX ``init_params`` pytree (numpy leaves) -> port params on
+    ``device`` (the CUDA device unless "cpu" is asked for)."""
+    dev = resolve_device(device)
+    blocks: List[Dict] = list(tree["blocks"])
+    n_super = np.asarray(next(_leaves(blocks[0]))).shape[0] if blocks else 0
+    layers = [_index(blocks[i], sb) for sb in range(n_super)
+              for i in range(len(blocks))]
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    if "encoder" in out:
+        raise NotImplementedError("encoder-decoder params are not ported")
+    out["layers"] = layers
+    return _map(out, lambda a: tensor_from_numpy(a, dev))
+
+
+def _leaves(tree: Any):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree

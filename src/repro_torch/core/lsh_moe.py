@@ -1,0 +1,49 @@
+"""LSH-MoE as a composable module (counterpart of
+``repro/core/lsh_moe.py``).
+
+``lsh_moe_init`` builds the param dict (router, padded expert stack, LSH
+rotations, expert placement permutation) with the JAX package's keys and
+shapes.  ``lsh_moe_apply`` runs the dense-dispatch decode path; the
+expert-parallel train / prefill path with LSH compression is the next
+slice (ROADMAP.md Queue 1).
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core import moe as moe_lib
+from repro_torch.core.hashing import make_rotations
+from repro_torch.models.layers import expert_mlp_init, fanin_init
+
+
+def lsh_moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
+                 mlp_act: str, dtype, device, model_axis: int = 1) -> Dict:
+    e_pad = moe_lib.padded_num_experts(cfg.num_experts, model_axis)
+    p = expert_mlp_init(gen, e_pad, d_model, cfg.expert_ffn_dim, mlp_act,
+                        dtype, device)
+    p["router_w"] = fanin_init(gen, (d_model, cfg.num_experts),
+                               torch.float32, device)
+    p["lsh_rot"] = make_rotations(gen, cfg.lsh.num_hashes, d_model,
+                                  min(cfg.lsh.rotation_dim, d_model), dtype,
+                                  device)
+    p["placement"] = torch.arange(cfg.num_experts, dtype=torch.int32,
+                                  device=device)
+    return p
+
+
+def lsh_moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig, *,
+                  mlp_act: str, mode: str = "train") -> torch.Tensor:
+    """mode "decode" -> dense dispatch (tiny token counts, no compression),
+    y only: the JAX stats are left to ``gating.gating_losses``.
+    "train" and "prefill" (expert-parallel exchange + LSH) raise until the
+    training slice lands."""
+    if mode == "decode":
+        return moe_lib.moe_dense_dispatch(x, params, cfg, mlp_act=mlp_act)
+    if mode in ("train", "prefill"):
+        raise NotImplementedError(
+            f"lsh_moe_apply(mode={mode!r}) is the training slice (ROADMAP "
+            "Queue 1 item 1); only mode='decode' is ported")
+    raise ValueError(f"unknown mode {mode!r}")

@@ -1,0 +1,122 @@
+"""Batched serving loop (counterpart of ``repro/launch/serve.py``): prompts
+fed through teacher-forced decode steps, then greedy generation, in
+batches of ``--batch-slots`` requests.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch granite-moe-3b-a800m --requests 8 --gen 16
+
+Runs on the CUDA device unless ``--device cpu``.  Latency is per request,
+arrival -> completion, with every request arriving at t0 (so it includes
+queueing behind earlier batches), as the JAX launcher defines it.  Prints
+one JSON line per request (``serve_request``) and a final ``serve_summary``
+line with requests, tokens, tokens/s and p50/p99 latency; ``--metrics-dir
+DIR`` appends the same lines to ``DIR/events.jsonl``.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+from typing import Callable, List
+
+
+def _percentile(sorted_vals: List[float], q: float) -> float:
+    """Nearest-rank percentile on an already-sorted list."""
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1,
+            max(0, int(round(q / 100.0 * (len(sorted_vals) - 1)))))
+    return sorted_vals[i]
+
+
+def _event_writer(metrics_dir: str) -> Callable[..., None]:
+    def emit(kind: str, **data) -> None:
+        line = json.dumps({"kind": kind, "ts": time.time(), **data},
+                          sort_keys=True)
+        print(line, flush=True)
+        if metrics_dir:
+            with open(os.path.join(metrics_dir, "events.jsonl"), "a") as f:
+                f.write(line + "\n")
+    return emit
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--batch-slots", type=int, default=4)
+    ap.add_argument("--metrics-dir", default="",
+                    help="also append the events (JSON lines) to "
+                         "DIR/events.jsonl")
+    ap.add_argument("--bench-json", default="",
+                    help="not ported yet (the obs/ bench rows)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.bench_json:
+        raise NotImplementedError(
+            "--bench-json needs the obs/ port (ROADMAP Queue 1 item 8)")
+
+    import torch
+
+    from repro_torch import resolve_device
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.models import model as model_lib
+
+    dev = resolve_device(args.device)
+    if args.metrics_dir:
+        os.makedirs(args.metrics_dir, exist_ok=True)
+    emit = _event_writer(args.metrics_dir)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    B = args.batch_slots
+    max_len = args.prompt_len + args.gen
+    n_dev = 1
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    gen = torch.Generator().manual_seed(1)      # prompts
+    done = 0
+    tokens_out = 0
+    latencies = []
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.time()                    # every request "arrives" at t0
+    while done < args.requests:
+        n = min(B, args.requests - done)
+        prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
+                                generator=gen).to(dev)
+        state = model_lib.init_decode_state(cfg, B, max_len, device=dev)
+        # prefill via teacher-forced decode (exercises the cache path)
+        for i in range(args.prompt_len):
+            logits, state = model_lib.decode_step(params, cfg, state,
+                                                  prompts[:, i:i + 1])
+        tok = torch.argmax(logits, -1)
+        for _ in range(args.gen):
+            logits, state = model_lib.decode_step(params, cfg, state, tok)
+            tok = torch.argmax(logits, -1)
+            tokens_out += n
+        tok.cpu()                       # waits for the batch to finish
+        t_done = time.time()
+        for r in range(done, done + n):
+            latencies.append(t_done - t0)
+            emit("serve_request", request=r, latency_s=t_done - t0,
+                 tokens=args.gen)
+        done += n
+    dt = max(1e-9, time.time() - t0)
+    latencies.sort()
+    emit("serve_summary", requests=args.requests, tokens=tokens_out, dt=dt,
+         tokens_per_s=tokens_out / dt,
+         tokens_per_s_device=tokens_out / dt / n_dev,
+         latency_p50_s=_percentile(latencies, 50),
+         latency_p99_s=_percentile(latencies, 99),
+         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                 else "cpu"),
+         arch=args.arch, smoke=args.smoke)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -1,0 +1,120 @@
+"""Primitive layers: norms, rotary embeddings, MLPs, initializers
+(counterpart of ``repro/models/layers.py``).
+
+Plain functions on explicit param dicts, like the JAX package's.  Compute
+runs in the param dtype with f32 where the JAX package uses it (norms, RoPE,
+the swiglu activation), rounding at the same places.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import torch
+import torch.nn.functional as F
+
+
+def normal_init(gen: torch.Generator, shape, dtype, device,
+                scale: float = 0.02) -> torch.Tensor:
+    return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device) * scale).to(dtype)
+
+
+def fanin_init(gen: torch.Generator, shape, dtype, device) -> torch.Tensor:
+    """Normal with scale 1/sqrt(shape[0]), as the JAX package's (for a
+    stacked [E, H, F] expert weight that is 1/sqrt(E))."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    return normal_init(gen, shape, dtype, device,
+                       scale=1.0 / math.sqrt(max(1, fan_in)))
+
+
+# ---------------------------------------------------------------- RMSNorm --
+
+def rmsnorm_init(d: int, dtype, device) -> Dict:
+    return {"scale": torch.ones((d,), dtype=dtype, device=device)}
+
+
+def rmsnorm(params: Dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Computed in f32 and cast back to x's dtype."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(x.dtype)
+
+
+# ------------------------------------------------------------------ RoPE --
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: [..., S, n, dh]; positions: [..., S] int.  Rotates the two HALVES
+    of the head dim (not interleaved pairs), in f32."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, device=x.device)           # [dh/2]
+    ang = positions[..., None].to(torch.float32) * freqs     # [..., S, dh/2]
+    cos = torch.cos(ang)[..., None, :]                   # [..., S, 1, dh/2]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ MLPs --
+
+def activation(h: torch.Tensor, g: torch.Tensor, act: str) -> torch.Tensor:
+    """swiglu: silu(g) in f32, cast to h's dtype, times h; relu2; gelu
+    (tanh approximation, jax.nn.gelu's default)."""
+    if act == "swiglu":
+        return F.silu(g.to(torch.float32)).to(h.dtype) * h
+    if act == "relu2":
+        return torch.square(torch.relu(h))
+    if act == "gelu":
+        return F.gelu(h, approximate="tanh")
+    raise ValueError(f"unknown act {act}")
+
+
+def mlp_init(gen, d_model: int, d_ff: int, act: str, dtype, device) -> Dict:
+    p = {"w_up": fanin_init(gen, (d_model, d_ff), dtype, device),
+         "w_down": fanin_init(gen, (d_ff, d_model), dtype, device)}
+    if act == "swiglu":
+        p["w_gate"] = fanin_init(gen, (d_model, d_ff), dtype, device)
+    return p
+
+
+def mlp_apply(params: Dict, x: torch.Tensor, act: str) -> torch.Tensor:
+    h = x @ params["w_up"]
+    g = x @ params["w_gate"] if act == "swiglu" else None
+    return activation(h, g, act) @ params["w_down"]
+
+
+def expert_mlp_init(gen, num_experts: int, d_model: int, d_ff: int, act: str,
+                    dtype, device) -> Dict:
+    """Stacked expert FFNs: leading dim = experts."""
+    p = {"w_up": fanin_init(gen, (num_experts, d_model, d_ff), dtype, device),
+         "w_down": fanin_init(gen, (num_experts, d_ff, d_model), dtype,
+                              device)}
+    if act == "swiglu":
+        p["w_gate"] = fanin_init(gen, (num_experts, d_model, d_ff), dtype,
+                                 device)
+    return p
+
+
+# ------------------------------------------------------------- Embedding --
+
+def embedding_init(gen, vocab: int, d_model: int, dtype, device) -> Dict:
+    return {"table": normal_init(gen, (vocab, d_model), dtype, device,
+                                 scale=0.02)}
+
+
+def embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
+    return params["table"][tokens]
+
+
+def unembed(params: Dict, x: torch.Tensor) -> torch.Tensor:
+    """Tied head: logits in f32 from a product in x's dtype."""
+    return (x @ params["table"].T.to(x.dtype)).to(torch.float32)

@@ -1,0 +1,173 @@
+"""The port's routing ops against the JAX package's (``repro.kernels.ref``
+and the Pallas kernels in interpret mode).  The CUDA kernels are held
+against their plain versions on the card in test_torch_cuda.py.
+
+Inputs are made with numpy from a fixed seed and handed to both packages.
+Integer outputs and unique-plan scatter / gather outputs must agree bit
+for bit; a scatter with duplicate (expert, position) pairs sums in another
+order, so each element is held to 1e-6 times the sum of the magnitudes of
+its terms.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from repro.kernels import dispatch as jdispatch
+from repro.kernels import ref as jref
+from repro_torch.kernels import dispatch, ref, scatter_gather, token_position
+
+JAX_BACKENDS = ("reference", "pallas_interpret")
+DUP_RTOL = 1e-6
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _ids(rng, f=300, e=5):
+    """f=300 crosses the Pallas kernels' 128-entry tile edges; ids -1, -3
+    and e+2 exercise the overflow bin."""
+    ids = rng.integers(0, e, size=f).astype(np.int32)
+    ids[0], ids[3], ids[60], ids[200] = -3, -1, e + 2, e + 2
+    return ids
+
+
+def _routing(rng, f=300, e=5, c=16, h=32, src_dtype=np.float32):
+    """A plan from the JAX reference, with drops to capacity (60 entries
+    per expert against c=16) and out-of-range ids."""
+    ids = _ids(rng, f, e)
+    pos, keep, _ = jdispatch.positions_in_expert(jnp.asarray(ids), e, c,
+                                                 backend="reference")
+    flat_ids = np.where(np.asarray(keep), ids, e).astype(np.int32)
+    src = rng.standard_normal((f, h)).astype(src_dtype)
+    w = rng.uniform(size=f).astype(np.float32)
+    return flat_ids, np.asarray(pos), src, w, e, c
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+def test_positions_in_expert_matches_jax(backend):
+    ids = _ids(np.random.default_rng(0))
+    want = jdispatch.positions_in_expert(jnp.asarray(ids), 5, 16,
+                                         backend=backend)
+    got = dispatch.positions_in_expert(_t(ids), 5, 16)
+    for name, a, b in zip(("pos", "keep", "counts"), got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=name)
+    assert int(got[2].sum()) == 296        # four out-of-range ids
+
+
+def test_positions_in_expert_ref_raw_matches_jax():
+    ids = _ids(np.random.default_rng(1), f=1000, e=7)
+    pos, counts = ref.positions_in_expert_ref(_t(ids), 7)
+    jpos, jcounts = jref.positions_in_expert_ref(jnp.asarray(ids), 7)
+    np.testing.assert_array_equal(pos.numpy(), np.asarray(jpos))
+    np.testing.assert_array_equal(counts.numpy(),
+                                  np.asarray(jcounts).astype(np.int32))
+    assert pos.dtype == counts.dtype == torch.int32
+    assert (pos.numpy()[[0, 3, 60, 200]] == 0).all()
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("src_dtype", ["float32", "bfloat16"])
+def test_dispatch_scatter_matches_jax(backend, src_dtype):
+    flat_ids, pos, src, _, e, c = _routing(np.random.default_rng(2))
+    jsrc = jnp.asarray(src).astype(src_dtype)
+    want = jdispatch.dispatch_scatter(jnp.asarray(flat_ids), jnp.asarray(pos),
+                                      jsrc, e, c, backend=backend)
+    tsrc = _t(np.asarray(jsrc.astype(jnp.float32))).to(
+        getattr(torch, src_dtype))
+    got = dispatch.dispatch_scatter(_t(flat_ids), _t(pos), tsrc, e, c)
+    assert got.dtype == torch.float32 and got.shape == (e, c, 32)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+def test_combine_gather_matches_jax(backend):
+    flat_ids, pos, src, w, e, c = _routing(np.random.default_rng(3))
+    buf = np.random.default_rng(4).standard_normal((e, c, 32)).astype(
+        np.float32)
+    want = jdispatch.combine_gather(jnp.asarray(flat_ids), jnp.asarray(pos),
+                                    jnp.asarray(buf), jnp.asarray(w),
+                                    backend=backend)
+    got = dispatch.combine_gather(_t(flat_ids), _t(pos), _t(buf), _t(w))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    dropped = flat_ids == e
+    assert dropped.any()
+    assert (got.numpy()[dropped] == 0.0).all()
+
+
+def test_dispatch_scatter_duplicates_sum():
+    """Duplicate (e, c) pairs sum, as the op's contract says; the order of
+    the sum differs from the JAX one-hot product, hence the tolerance."""
+    rng = np.random.default_rng(5)
+    f, e, c, h = 400, 4, 8, 16
+    ids = rng.integers(-1, e + 1, size=f).astype(np.int32)
+    pos = rng.integers(-1, c + 1, size=f).astype(np.int32)
+    src = rng.standard_normal((f, h)).astype(np.float32)
+    want = np.asarray(jref.dispatch_scatter_ref(
+        jnp.asarray(ids), jnp.asarray(pos), jnp.asarray(src), e, c))
+    got = dispatch.dispatch_scatter(_t(ids), _t(pos), _t(src), e, c).numpy()
+    magnitude = np.asarray(jref.dispatch_scatter_ref(
+        jnp.asarray(ids), jnp.asarray(pos), jnp.abs(jnp.asarray(src)), e, c))
+    assert (np.abs(got - want) <= DUP_RTOL * magnitude).all()
+    assert np.abs(want).max() > 0
+
+
+def test_cpu_tensors_take_the_plain_path():
+    """On the CPU a wrapper runs its plain version and counts no launch."""
+    flat_ids, pos, src, w, e, c = _routing(np.random.default_rng(6))
+    kernels = (token_position.KERNEL, scatter_gather.SCATTER,
+               scatter_gather.GATHER)
+    before = [k.launches for k in kernels]
+    ids_t, pos_t = _t(flat_ids), _t(pos)
+    p, cnt = token_position.positions_in_expert(ids_t, e)
+    rp, rc = ref.positions_in_expert_ref(ids_t, e)
+    assert torch.equal(p, rp) and torch.equal(cnt, rc)
+    buf = scatter_gather.dispatch_scatter(ids_t, pos_t, _t(src), e, c)
+    assert torch.equal(buf, ref.dispatch_scatter_ref(ids_t, pos_t, _t(src),
+                                                     e, c))
+    out = scatter_gather.combine_gather(ids_t, pos_t, buf, _t(w))
+    assert torch.equal(out, ref.combine_gather_ref(ids_t, pos_t, buf, _t(w)))
+    assert [k.launches for k in kernels] == before
+
+
+@pytest.mark.parametrize("bad", ["int64_ids", "2d_ids", "f16_src",
+                                 "f64_weights"])
+def test_wrappers_reject_bad_inputs(bad):
+    ids = torch.zeros(4, dtype=torch.int32)
+    src = torch.zeros(4, 8)
+    buf = torch.zeros(2, 2, 8)
+    w = torch.ones(4)
+    with pytest.raises(ValueError):
+        if bad == "int64_ids":
+            token_position.positions_in_expert(ids.long(), 2)
+        elif bad == "2d_ids":
+            scatter_gather.dispatch_scatter(ids[None], ids[None], src, 2, 2)
+        elif bad == "f16_src":
+            scatter_gather.dispatch_scatter(ids, ids, src.half(), 2, 2)
+        else:
+            scatter_gather.combine_gather(ids, ids, buf, w.double())
+
+
+def test_cuda_tests_skip_without_an_h100_and_say_why():
+    """Without a card of compute capability (9, 0) every test of
+    test_torch_cuda.py skips, and the skip states its reason."""
+    if (torch.cuda.is_available()
+            and torch.cuda.get_device_capability() == (9, 0)):
+        pytest.skip("an H100 is present, so the CUDA tests run instead")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run(
+        [sys.executable, "-m", "pytest", "-q", "-rs", "-p",
+         "no:cacheprovider", "--noconftest", "tests/test_torch_cuda.py"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "passed" not in res.stdout and "skipped" in res.stdout
+    assert "needs a CUDA device with compute capability (9, 0)" in res.stdout
