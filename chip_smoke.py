@@ -9,21 +9,48 @@ Phases, each of which raises (and so exits non-zero) on failure:
   2. build    builds every kernel from src/repro_torch/kernels/csrc with
               nvcc for sm_90a (one nvcc per source, in parallel).
   3. kernels  holds each CUDA kernel against its plain PyTorch version on
-              the card at the decode shape (F=32, E=40, C=4, H=1536) and at
-              a train-like shape (F=32768, E=40, C=1024, H=1536), bitwise
-              for integers and unique plans, and a duplicate-(e, c) scatter
-              at a tolerance relative to the sum of the magnitudes; times
-              kernel, plain version and the nearest single PyTorch call with
-              CUDA events, beside each kernel's bound at 3.35 TB/s.
+              the card, and times kernel, plain version and the nearest
+              single PyTorch call with CUDA events beside each kernel's
+              bound.  Routing kernels at the decode shape (F=32, E=40,
+              C=4, H=1536) and the training shape (F=32768, E=40, C=1024,
+              H=1536): bitwise for integers and unique plans, and a
+              duplicate-(e, c) scatter within 1e-6 of the sum of its
+              terms' magnitudes.  LSH kernels at the training shape
+              (T=40960 hashed rows, L=6, Dr=64; G=40, C=1024, S=208) and a
+              ragged small shape with out-of-range slots: lsh_hash equal
+              wherever the two largest |v| differ by more than 1e-5 of the
+              largest, segment_centroid within 1e-6 of the mean magnitude
+              with exact counts, residual_apply bitwise.  Every kernel
+              called twice gives the same bits, and each autograd.Function
+              backward matches autograd through the plain versions within
+              1e-6 of the sum of the magnitudes of each result's terms.
   4. serve    repro_torch.launch.serve.main at the full granite-moe-3b-a800m
               config (bf16, random weights from a seeded torch.Generator):
-              8 requests, 4 slots, 16 prompt + 16 generated tokens, and
-              checks each kernel ran once per MoE layer per decode step.
+              8 requests, 4 slots, 16 prompt + 16 generated tokens; each
+              routing kernel ran once per MoE layer per decode step (2048
+              launches) and no LSH kernel ran.
   5. parity   the same config cut to 2 layers in f32, 8 teacher-forced
               decode steps on the card (kernels) and on the CPU (plain
               versions) with the same params, TF32 off: logits within 1e-3
               and equal greedy tokens.
-The line before the last is the kernels' JSON record; the last line is
+  6. train    repro_torch.launch.train.main at the full config, bf16,
+              batch 4 x 1024: 3 steps with LSH on, then 2 with it off;
+              finite losses, no skips, every kernel launched on the LSH-on
+              run and no LSH kernel on the other; then one steady-state
+              step under torch.profiler (device busy ms, idle share, top
+              device ops).
+  7. train parity  the config at full width, 2 layers, f32, LSH on, batch
+              2 x 64: one train step (the first of a warm-up) on the card
+              (kernels) and on the CPU (plain versions) from the same
+              params and batch, TF32 off.  With an f32 wire: slots equal
+              in every MoE layer, loss within 1e-5 relative, each gradient
+              leaf within 1e-4 and each param after AdamW within 1e-5
+              relative L2.  With the production bf16 wire, whose roundings
+              turn the two devices' last-bit f32 differences into bf16
+              steps (ROADMAP Queue 3): the first layer's slots equal and
+              the loss within 1e-3; the rest is printed.
+The line before the last is the kernels' JSON record (times at the
+training shape, launches of the LSH-on training run); the last line is
 {"ok": true, "device": {...}}.  Without a CUDA device, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 """
@@ -44,10 +71,19 @@ SRC = ROOT / "src"
 ARCH = "granite-moe-3b-a800m"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 FP32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
 DUP_RTOL = 1e-6
+SUM_RTOL = 1e-6
+NEAR_TIE = 1e-5
 PARITY_ATOL = 1e-3
+LOSS_RTOL = 1e-5
+GRAD_RTOL = 1e-4
+PARAM_RTOL = 1e-5
+BF16_WIRE_LOSS_RTOL = 1e-3
 REPS = 30
 SLEEP_CYCLES = 4_000_000           # ~2 ms at the H100's clocks
+TRAIN_ARGV = ["--arch", ARCH, "--batch", "4", "--seq", "1024",
+              "--log-every", "1"]
 
 
 def log(msg: str) -> None:
@@ -145,31 +181,57 @@ def make_plan(torch, ref, T, k, E, C, H, *, skew, bad_frac, seed):
                 buf=buf, w=w, F=F, E=E, C=C, H=H)
 
 
-def _bound(bytes_moved, ops):
+def _bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
+    """The least time for the work, in ms: the larger of the bytes over
+    the memory rate and the operations over the peak rate of their type."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _timed(torch, kernel, plain, library, bound):
+    """Time the kernel (device time, and the whole call with the host's
+    launch time), the plain version and the library call."""
+    b, by = bound
+    return dict(
+        ms=time_ms(torch, kernel), call_ms=time_ms(torch, kernel,
+                                                   queued=False),
+        plain_ms=time_ms(torch, plain),
+        library_ms=None if library is None else time_ms(torch, library),
+        bound_ms=b, bound_by=by)
+
+
+def _same_twice(torch, label, name, kernel, first):
+    """A second call gives the same bits (the backward pass recomputes the
+    forward under torch.utils.checkpoint and must see the same values)."""
+    again = kernel()
+    for g, r in zip(first, again):
+        if not torch.equal(g, r):
+            raise AssertionError(f"[{label}] {name}: a second call gave other "
+                                 "bits")
+
+
 def _record(torch, label, name, kernel, plain, library, bound):
-    """Hold ``kernel()`` against ``plain()`` bitwise and time the kernel
-    (device time, and the whole call with the host's launch time), the plain
-    version and the library call."""
+    """Hold ``kernel()`` against ``plain()`` bitwise and time both."""
     got, want = kernel(), plain()
     torch.cuda.synchronize()
     for g, r in zip(got, want):
         if not torch.equal(g, r):
             raise AssertionError(f"[{label}] {name} differs from its plain "
                                  "version")
-    b, by = bound
-    return dict(
-        max_abs_err=max(float((g.float() - r.float()).abs().max())
-                        for g, r in zip(got, want)),
-        ms=time_ms(torch, kernel), call_ms=time_ms(torch, kernel,
-                                                   queued=False),
-        plain_ms=time_ms(torch, plain),
-        library_ms=None if library is None else time_ms(torch, library),
-        bound_ms=b, bound_by=by)
+    _same_twice(torch, label, name, kernel, got)
+    return dict(max_abs_err=max(float((g.float() - r.float()).abs().max())
+                                for g, r in zip(got, want)),
+                **_timed(torch, kernel, plain, library, bound))
+
+
+def _log_records(label, out):
+    for name, r in out.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.6f}"
+        log(f"[kernels] {label} {name}: kernel_ms={r['ms']:.6f} "
+            f"call_ms={r['call_ms']:.6f} plain_ms={r['plain_ms']:.6f} "
+            f"library_ms={lib} bound_us={r['bound_ms'] * 1e3:.3f} "
+            f"({r['bound_by']}) max_abs_err={r['max_abs_err']}")
 
 
 def check_kernels(torch, tp, sg, ref, p, label):
@@ -206,16 +268,19 @@ def check_kernels(torch, tp, sg, ref, p, label):
             lambda: buf[ids_c, pos_c] * w_m[:, None],
             _bound(F * 12 + n_kept * H * 4 + F * H * 4, F * H)),
     }
+    # the backward of combine_gather scatters an f32 cotangent
+    out["dispatch_scatter (f32 src)"] = _record(
+        torch, label, "dispatch_scatter (f32 src)",
+        lambda: (sg.dispatch_scatter(flat, pos, src32, E, C),),
+        lambda: (ref.dispatch_scatter_ref(flat, pos, src32, E, C),),
+        lambda: torch.zeros(E * C + 1, H, device="cuda").index_put_(
+            (rows,), src32, accumulate=True),
+        _bound(F * 8 + n_kept * H * 4 + E * C * H * 4, n_kept * H))
     if not bool((sg.combine_gather(flat, pos, buf, w)[~keep] == 0).all()):
         raise AssertionError(f"[{label}] dropped entries must gather zero")
     log(f"[kernels] {label}: F={F} E={E} C={C} H={H} kept={n_kept} "
         f"dropped={F - n_kept} (ids out of range or over capacity)")
-    for name, r in out.items():
-        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.6f}"
-        log(f"[kernels] {label} {name}: kernel_ms={r['ms']:.6f} "
-            f"call_ms={r['call_ms']:.6f} plain_ms={r['plain_ms']:.6f} "
-            f"library_ms={lib} bound_us={r['bound_ms'] * 1e3:.3f} "
-            f"({r['bound_by']}) max_abs_err={r['max_abs_err']}")
+    _log_records(label, out)
     return out
 
 
@@ -231,6 +296,8 @@ def check_duplicates(torch, sg, ref, E, C, H, F, seed):
                         dtype=torch.int32)
     src = torch.randn(F, H, generator=g, device="cuda").to(torch.bfloat16)
     got = sg.dispatch_scatter(ids, pos, src, E, C)
+    _same_twice(torch, "duplicates", "dispatch_scatter",
+                lambda: (sg.dispatch_scatter(ids, pos, src, E, C),), (got,))
     want = ref.dispatch_scatter_ref(ids, pos, src, E, C)
     scale = ref.dispatch_scatter_ref(ids, pos, src.abs(), E, C)
     err = (got - want).abs()
@@ -242,25 +309,251 @@ def check_duplicates(torch, sg, ref, E, C, H, F, seed):
         raise AssertionError("duplicate scatter outside tolerance")
 
 
-def phase_kernels(torch, tp, sg, ref, moe_lib):
+def _vertex_check(torch, lh, label, got, want, x, rot, name="lsh_hash"):
+    """Vertex ids equal wherever the hash is not at a near-tie."""
+    margin = lh.near_tie_margin(x, rot)
+    ok = margin > NEAR_TIE
+    if not torch.equal(got[ok], want[ok]):
+        raise AssertionError(f"[{label}] {name} differs from its plain "
+                             "version away from near-ties")
+    n_tie = int((~ok).sum())
+    log(f"[kernels] {label} {name}: {n_tie} of {ok.numel()} (token, hash) "
+        f"pairs within the near-tie margin {NEAR_TIE} (not compared), "
+        f"{int((got != want).sum())} differ; smallest margin "
+        f"{float(margin.min()):.3g}")
+    return float((got.long() - want.long()).abs().max())
+
+
+def _sum_check(torch, label, name, got, want, scale):
+    """Each element within SUM_RTOL of ``scale`` (the same sum over the
+    terms' magnitudes): an f32 sum in another order."""
+    err = (got - want).abs()
+    if not bool((err <= SUM_RTOL * scale).all()):
+        raise AssertionError(f"[{label}] {name} outside {SUM_RTOL} of the "
+                             "magnitude of its terms")
+    return float(err.max())
+
+
+def lsh_inputs(torch, ref, hashing, p, S, *, L=6, Dr=64, seed=14):
+    """The LSH stage's inputs as the training path makes them from the
+    routing plan ``p``: the bf16 dispatch buffer (unfilled rows zero), the
+    bf16 rotations (the lsh_rot params), the slots of the occupied rows
+    (overflow bin S elsewhere), f32 expert outputs on the centroids and an
+    f32 residual."""
+    E, C, H = p["E"], p["C"], p["H"]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    disp = ref.dispatch_scatter_ref(p["flat"], p["pos"], p["src"], E, C) \
+        .to(torch.bfloat16)
+    rot = (torch.randn(L, H, Dr, generator=g, device="cuda") / H ** 0.5) \
+        .to(torch.bfloat16)
+    counts = torch.bincount(p["flat"][p["keep"]].long(), minlength=E)[:E]
+    occupied = torch.arange(C, device="cuda")[None] < counts[:, None]
+    x = disp.reshape(E * C, H)
+    ids = hashing._fold(ref.lsh_hash_ref(x, rot).reshape(E, C, L))
+    slots = torch.where(occupied, torch.remainder(torch.abs(ids), S),
+                        S).to(torch.int32)
+    eout = torch.randn(E, S, H, generator=g, device="cuda")
+    return dict(x=x, disp=disp, rot=rot, slots=slots, eout=eout,
+                resid=disp.float(), G=E, C=C, S=S, H=H, L=L, Dr=Dr)
+
+
+def check_lsh_kernels(torch, lh, scm, ram, ref, q, label):
+    """lsh_hash, segment_centroid and residual_apply on ``q`` against their
+    plain versions, and timed."""
+    G, C, S, H, L, Dr = q["G"], q["C"], q["S"], q["H"], q["L"], q["Dr"]
+    x, rot, disp, slots = q["x"], q["rot"], q["disp"], q["slots"]
+    eout, resid = q["eout"], q["resid"]
+    T = x.shape[0]
+    in_range = (slots >= 0) & (slots < S)
+    n_in = int(in_range.sum())
+    clamped = torch.clamp(slots, max=S - 1)
+    out = {}
+
+    flops = 2 * T * H * L * Dr
+    log(f"[kernels] {label} lsh_hash bounds: {flops / 1e9:.2f} GFLOP, "
+        f"{flops / FP32_OPS_PER_S * 1e3:.6f} ms at f32 FMA, "
+        f"{flops / BF16_OPS_PER_S * 1e3:.6f} ms at bf16 tensor cores, "
+        f"{(T * H * x.element_size()) / HBM_BYTES_PER_S * 1e3:.6f} ms "
+        "for the bytes")
+    # bf16 x and rotations, as the training path has them, take the tensor
+    # cores; f32 ones (an f32 model) the f32-FMA kernel
+    x32, rot32 = x.float(), rot.float()
+    for name, xi, ri, rate in (
+            ("lsh_hash", x, rot, BF16_OPS_PER_S),
+            ("lsh_hash (f32 x, FMA kernel)", x32, rot32, FP32_OPS_PER_S)):
+        got = lh.lsh_hash(xi, ri)
+        err = _vertex_check(torch, lh, label, got, ref.lsh_hash_ref(xi, ri),
+                            xi, ri, name)
+        _same_twice(torch, label, name, lambda: (lh.lsh_hash(xi, ri),),
+                    (got,))
+        out[name] = dict(max_abs_err=err, **_timed(
+            torch, lambda: lh.lsh_hash(xi, ri),
+            lambda: ref.lsh_hash_ref(xi, ri), None,
+            _bound(T * H * xi.element_size() + ri.numel() * ri.element_size()
+                   + T * L * 4, flops, rate)))
+    del x32, rot32
+
+    cent, counts = scm.segment_centroid(slots, disp, S)
+    rc, rn = ref.segment_centroid_ref(slots, disp, S)
+    if not torch.equal(counts, rn):
+        raise AssertionError(f"[{label}] segment_centroid counts differ")
+    mag, _ = ref.segment_centroid_ref(slots, disp.float().abs(), S)
+    err = _sum_check(torch, label, "segment_centroid", cent, rc, mag)
+    _same_twice(torch, label, "segment_centroid",
+                lambda: scm.segment_centroid(slots, disp, S), (cent, counts))
+    rows = torch.where(in_range, torch.arange(G, device="cuda")[:, None] * S
+                       + slots, G * S).reshape(-1)
+    x32 = disp.reshape(G * C, H).float()
+    out["segment_centroid"] = dict(max_abs_err=err, **_timed(
+        torch, lambda: scm.segment_centroid(slots, disp, S),
+        lambda: ref.segment_centroid_ref(slots, disp, S),
+        lambda: torch.zeros(G * S + 1, H, device="cuda").index_add_(
+            0, rows, x32),
+        _bound(G * C * 4 + n_in * H * disp.element_size() + G * S * H * 4
+               + G * S * 4, n_in * H)))
+
+    rows_c = (torch.arange(G, device="cuda")[:, None] * S + clamped) \
+        .reshape(-1)
+    eflat = eout.reshape(G * S, H)
+    got = ram.residual_apply(clamped, eout, resid)
+    want = ref.residual_apply_ref(clamped, eout, resid)
+    if not torch.equal(got, want):
+        raise AssertionError(f"[{label}] residual_apply differs from its "
+                             "plain version")
+    _same_twice(torch, label, "residual_apply",
+                lambda: (ram.residual_apply(clamped, eout, resid),), (got,))
+    out["residual_apply"] = dict(max_abs_err=float((got - want).abs().max()),
+                                 **_timed(
+        torch, lambda: ram.residual_apply(clamped, eout, resid),
+        lambda: ref.residual_apply_ref(clamped, eout, resid),
+        lambda: (eflat[rows_c].view(G, C, H) + resid),
+        _bound(G * C * 4 + G * S * H * 4 + 2 * G * C * H * 4, G * C * H)))
+    log(f"[kernels] {label}: T={T} L={L} Dr={Dr}; G={G} C={C} S={S} H={H}, "
+        f"{n_in} rows in range of {G * C}")
+    _log_records(label, out)
+    return out
+
+
+def check_lsh_ragged(torch, lh, scm, ram, ref):
+    """A ragged small shape: C and H not multiples of the kernels' tiles
+    (H = 34 takes the one-column paths; H = 40 with bf16 rotations the
+    tensor cores, with 600 rows and Dr = 16), slot ids in the overflow
+    bin, beyond it and negative, and f32 inputs."""
+    g = torch.Generator(device="cuda").manual_seed(15)
+    G, C, S = 3, 200, 24
+    for H, dt, rot_dt in ((40, torch.bfloat16, torch.bfloat16),
+                          (36, torch.bfloat16, torch.float32),
+                          (34, torch.float32, torch.float32)):
+        slots = torch.randint(0, S, (G, C), generator=g, device="cuda",
+                              dtype=torch.int32)
+        slots[0, :7] = S
+        slots[-1, 3], slots[-1, 4] = S + 5, -1
+        x = torch.randn(G, C, H, generator=g, device="cuda").to(dt)
+        x[1, :5] = 0
+        rot = (torch.randn(3, H, 16, generator=g, device="cuda")
+               / H ** 0.5).to(rot_dt)
+        xf = x.reshape(G * C, H)
+        _vertex_check(torch, lh, f"ragged H={H}", lh.lsh_hash(xf, rot),
+                      ref.lsh_hash_ref(xf, rot), xf, rot)
+        cent, counts = scm.segment_centroid(slots, x, S)
+        rc, rn = ref.segment_centroid_ref(slots, x, S)
+        mag, _ = ref.segment_centroid_ref(slots, x.float().abs(), S)
+        if not torch.equal(counts, rn):
+            raise AssertionError("ragged segment_centroid counts differ")
+        _sum_check(torch, "ragged", "segment_centroid", cent, rc, mag)
+        for r in (x.float(), None):
+            if not torch.equal(ram.residual_apply(slots, rc, r),
+                               ref.residual_apply_ref(slots, rc, r)):
+                raise AssertionError("ragged residual_apply differs")
+    log(f"[kernels] ragged: G={G} C={C} S={S}, H=40 / 36 bf16 and H=34 "
+        "f32, overflow-bin / beyond / negative slots: all three agree")
+
+
+def check_backwards(torch, dispatch, ref, p, q):
+    """Each autograd.Function's backward (kernels) against autograd through
+    the plain versions on the card, on the same cotangent, at the training
+    shapes.  Every backward is linear in the cotangent with coefficients
+    that are ones, 1 / count, weights >= 0 or buffer values, so the plain
+    backward at |cotangent| and |inputs| is the sum of the magnitudes of
+    each result's terms: each element within SUM_RTOL of it (f32 sums in
+    another order; the plain versions sum with atomics on the card)."""
+    g = torch.Generator(device="cuda").manual_seed(16)
+    S, H = q["S"], q["H"]
+    slots = torch.clamp(q["slots"], max=S - 1)      # as decompress has them
+
+    def grads(fn, leaves, ct):
+        leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+        return torch.autograd.grad(fn(*leaves), leaves, ct)
+
+    cases = {
+        "segment_centroid": (
+            lambda x: dispatch.segment_centroid(q["slots"], x, S)[0],
+            lambda x: ref.segment_centroid_ref(q["slots"], x, S)[0],
+            [q["disp"]], (q["G"], S, H)),
+        "residual_apply": (
+            lambda e, r: dispatch.residual_apply(slots, e, r),
+            lambda e, r: ref.residual_apply_ref(slots, e, r),
+            [q["eout"], q["resid"]], q["resid"].shape),
+        "dispatch_scatter": (
+            lambda s: dispatch.dispatch_scatter(p["flat"], p["pos"], s,
+                                                p["E"], p["C"]),
+            lambda s: ref.dispatch_scatter_ref(p["flat"], p["pos"], s,
+                                               p["E"], p["C"]),
+            [p["src"]], (p["E"], p["C"], p["H"])),
+        "combine_gather": (
+            lambda b, w: dispatch.combine_gather(p["flat"], p["pos"], b, w),
+            lambda b, w: ref.combine_gather_ref(p["flat"], p["pos"], b, w),
+            [p["buf"], p["w"]], (p["F"], p["H"])),
+    }
+    for name, (kern, plain, leaves, shape) in cases.items():
+        ct = torch.randn(shape, generator=g, device="cuda")
+        got, want = grads(kern, leaves, ct), grads(plain, leaves, ct)
+        scale = grads(plain, [t.abs() for t in leaves], ct.abs())
+        errs = []
+        for a, b, m in zip(got, want, scale):
+            if a.dtype != b.dtype:
+                raise AssertionError(f"{name} backward dtype {a.dtype} vs "
+                                     f"{b.dtype}")
+            err = (a.float() - b.float()).abs()
+            if not bool((err <= SUM_RTOL * m.float()).all()):
+                raise AssertionError(f"{name} backward outside {SUM_RTOL} "
+                                     "of the magnitude of its terms")
+            errs.append(float(err.max()))
+        _same_twice(torch, "backward", name, lambda: grads(kern, leaves, ct),
+                    got)
+        log(f"[kernels] backward {name}: max_abs_err {errs}, within "
+            f"{SUM_RTOL} of the magnitude of the terms "
+            f"({', '.join(str(tuple(a.shape)) for a in got)})")
+
+
+def phase_kernels(torch, mods, ref, moe_lib, hashing):
+    tp, sg = mods["token_position"], mods["scatter_gather"]
     # decode shape: 4 batch slots, top-8 of 40, capacity max(4, ceil(1.6))
     decode = make_plan(torch, ref, T=4, k=8, E=40, C=4, H=1536,
                        skew=False, bad_frac=0.0, seed=11)
-    res_decode = check_kernels(torch, tp, sg, ref, decode, "decode")
+    check_kernels(torch, tp, sg, ref, decode, "decode")
     C_train = moe_lib.expert_capacity(4096, 40, 8, 1.25)
     train = make_plan(torch, ref, T=4096, k=8, E=40, C=C_train, H=1536,
                       skew=True, bad_frac=0.01, seed=12)
     if int(((train["ids"] >= 0) & (train["ids"] < 40)
             & ~train["keep"]).sum()) == 0:
-        raise AssertionError("train-like plan has no over-capacity entries")
-    res_train = check_kernels(torch, tp, sg, ref, train, "train-like")
+        raise AssertionError("train plan has no over-capacity entries")
+    res = check_kernels(torch, tp, sg, ref, train, "train")
     check_duplicates(torch, sg, ref, 40, C_train, 1536, 32768, seed=13)
-    return res_decode, res_train
+    S = moe_lib.num_lsh_slots(C_train, 0.2)
+    q = lsh_inputs(torch, ref, hashing, train, S)
+    res.update(check_lsh_kernels(torch, mods["lsh_hash"],
+                                 mods["segment_centroid"],
+                                 mods["residual_apply"], ref, q, "train"))
+    check_lsh_ragged(torch, mods["lsh_hash"], mods["segment_centroid"],
+                     mods["residual_apply"], ref)
+    check_backwards(torch, mods["dispatch"], ref, train, q)
+    return res
 
 
 # ------------------------------------------------------------- 4. serve --
 
-def phase_serve(serve, kernels, cfg):
+def phase_serve(serve, kernels, routing_kernels, cfg):
     argv = ["--arch", ARCH, "--requests", "8", "--batch-slots", "4",
             "--prompt-len", "16", "--gen", "16"]
     for k in kernels:
@@ -287,32 +580,33 @@ def phase_serve(serve, kernels, cfg):
     if not all(math.isfinite(s[k]) and s[k] > 0
                for k in ("tokens_per_s", "latency_p50_s", "latency_p99_s")):
         raise AssertionError(f"serve_summary metrics not finite: {s}")
-    bad = {n: c for n, c in launches.items() if c != want}
+    routing = {k.name for k in routing_kernels}
+    bad = {n: c for n, c in launches.items()
+           if c != (want if n in routing else 0)}
     if bad:
         raise AssertionError(f"kernel launches on the serve path: {bad}, "
-                             f"want {want} each")
+                             f"want {want} of each routing kernel and none "
+                             "of the LSH kernels")
     return s, launches
 
 
 # ------------------------------------------------------------ 5. parity --
 
+def tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, device) for v in tree]
+    return tree.detach().to(device)
+
+
 def phase_parity(torch, model_lib, kernels, cfg_full):
     """Same params on the card (kernels) and on the CPU (plain versions),
     f32 with TF32 off on the card."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     cfg = cfg_full.replace(num_super_blocks=2, dtype="float32")
     cpu = torch.device("cpu")
     params_cpu = model_lib.init_params(cfg, seed=3, device=cpu)
-
-    def to_cuda(tree):
-        if isinstance(tree, dict):
-            return {k: to_cuda(v) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [to_cuda(v) for v in tree]
-        return tree.to("cuda")
-
-    params_gpu = to_cuda(params_cpu)
+    params_gpu = tree_to(params_cpu, "cuda")
     tokens = torch.randint(0, cfg.vocab_size, (4, 8),
                            generator=torch.Generator().manual_seed(4))
     runs = {}
@@ -327,7 +621,7 @@ def phase_parity(torch, model_lib, kernels, cfg_full):
             outs.append(logits.float().cpu())
         runs[name] = torch.cat(outs, dim=1)
         ran = [k.launches - b for k, b in zip(kernels, before)]
-        if name == "cuda" and ran != [cfg.num_layers * 8] * len(kernels):
+        if name == "cuda" and ran != [cfg.num_layers * 8] * 3 + [0] * 3:
             raise AssertionError(f"parity run launched {ran}")
         if name == "cpu" and any(ran):
             raise AssertionError("the CPU run launched CUDA kernels")
@@ -343,6 +637,189 @@ def phase_parity(torch, model_lib, kernels, cfg_full):
         raise AssertionError("CUDA and CPU decode disagree")
 
 
+# ------------------------------------------------------------- 6. train --
+
+def _events(buf):
+    return [json.loads(line) for line in buf.getvalue().splitlines()
+            if line.startswith("{")]
+
+
+def phase_train(torch, train, kernels, lsh_kernels):
+    """train.main at the full config: 3 steps with LSH on, 2 with it off.
+    Returns {"on": (summary, launches), "off": (...)}, launches counted
+    over the run with every count set to 0 just before it."""
+    out = {}
+    for lsh, steps in (("on", 3), ("off", 2)):
+        for k in kernels:
+            k.launches = 0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(TRAIN_ARGV + ["--lsh", lsh, "--steps",
+                                          str(steps)])
+        launches = {k.name: k.launches for k in kernels}
+        if rc != 0:
+            raise AssertionError(f"train.main returned {rc}")
+        events = _events(buf)
+        step_ev = [e for e in events if e["kind"] == "step"]
+        summary = [e for e in events if e["kind"] == "train_summary"]
+        for e in step_ev:
+            log(f"[train] lsh {lsh} " + json.dumps(e, sort_keys=True))
+        if len(step_ev) != steps or len(summary) != 1:
+            raise AssertionError(f"train printed {len(step_ev)} step lines "
+                                 f"and {len(summary)} summaries")
+        s = summary[0]
+        log(f"[train] lsh {lsh} summary " + json.dumps(s, sort_keys=True))
+        log(f"[train] lsh {lsh} launches per step " + json.dumps(
+            {n: c / steps for n, c in launches.items()}))
+        if not all(math.isfinite(e["loss"]) and e["skips"] == 0
+                   for e in step_ev):
+            raise AssertionError("a training step had a non-finite loss or "
+                                 "skipped")
+        never = [n for n, c in launches.items() if c == 0]
+        if lsh == "on" and never:
+            raise AssertionError(f"kernels never launched with LSH on: "
+                                 f"{never}")
+        if lsh == "off" and any(launches[k.name] for k in lsh_kernels):
+            raise AssertionError("LSH kernels launched with LSH off")
+        out[lsh] = (s, launches)
+    return out
+
+
+def phase_train_profile(torch, cfg, step_lib, data_lib, summarize):
+    """One steady-state training step under torch.profiler (LSH on), after
+    two warm-up steps and a host-clock timing of two more."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import OptimizerConfig
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=8)
+    state = step_lib.init_train_state(cfg, opt, seed=0, device="cuda")
+    step_fn = step_lib.make_train_step(cfg, opt)
+    ds = data_lib.SyntheticLMDataset(cfg.vocab_size, 1024, 4)
+
+    def run(first, n):
+        nonlocal state
+        for s in range(first, first + n):
+            state, m = step_fn(state, step_lib.batch_to_device(
+                ds.batch_at(s), torch.device("cuda")))
+        float(m["loss"])
+        torch.cuda.synchronize()
+
+    run(0, 2)
+    t0 = time.perf_counter()
+    run(2, 2)
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run(4, 1)
+    record, lines = summarize(prof, 1, wall_ms, top=15)
+    for line in lines:
+        log(f"[train-profile] {line}")
+    log("[train-profile] " + json.dumps(record, sort_keys=True))
+    del state
+    return record
+
+
+# ------------------------------------------------------ 7. train parity --
+
+def phase_train_parity(torch, model_lib, step_lib, clustering, lh, kernels,
+                       cfg_full):
+    """One train step on the card (kernels) and on the CPU (plain
+    versions) from the same params and batch, per wire dtype."""
+    import dataclasses
+
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.optim.adam import leaves
+    # the first step of a 10-step warm-up (lr 1e-4): a first AdamW step
+    # moves each param by about lr * sign(g), so a tiny gradient whose sign
+    # the two devices' f32 sums disagree on moves the param by a full lr
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=10, total_steps=100)
+    orig_assign, orig_update = clustering.assign_slots, step_lib.adamw_update
+    cpu = torch.device("cpu")
+    try:
+        for wire in ("float32", "bfloat16"):
+            cfg = cfg_full.replace(num_super_blocks=2, dtype="float32")
+            cfg = cfg.replace(moe=dataclasses.replace(
+                cfg.moe, lsh=dataclasses.replace(cfg.moe.lsh,
+                                                 wire_dtype=wire)))
+            params_cpu = model_lib.init_params(cfg, seed=5, device=cpu)
+            batch = SyntheticLMDataset(cfg.vocab_size, 64, 2).batch_at(0)
+            runs = {}
+            for name, dev in (("cuda", torch.device("cuda")), ("cpu", cpu)):
+                rec = {"slots": [], "inputs": [], "grads": None}
+
+                def spy(tokens, rotations, num_slots, hash_type, rec=rec):
+                    out = orig_assign(tokens, rotations, num_slots,
+                                      hash_type)
+                    rec["slots"].append(out.cpu())
+                    rec["inputs"].append(
+                        (tokens.detach().reshape(-1, tokens.shape[-1])
+                         .float().cpu(), rotations.detach().float().cpu()))
+                    return out
+
+                def update(params, grads, *a, rec=rec, **k):
+                    rec["grads"] = [None if g is None else g.detach().cpu()
+                                    for g in grads]
+                    return orig_update(params, grads, *a, **k)
+
+                clustering.assign_slots = spy
+                step_lib.adamw_update = update
+                params = (tree_to(params_cpu, dev) if dev.type == "cuda"
+                          else params_cpu)
+                state = step_lib.TrainState(
+                    params, step_lib.adamw_init(params, opt))
+                before = [k.launches for k in kernels]
+                state, m = step_lib.make_train_step(cfg, opt)(
+                    state, step_lib.batch_to_device(batch, dev))
+                ran = [k.launches - b for k, b in zip(kernels, before)]
+                if (dev.type == "cuda") != all(ran):
+                    raise AssertionError(f"{name} run launched {ran}")
+                rec["loss"] = float(m["loss"])
+                rec["params"] = [p.detach().cpu()
+                                 for p in leaves(state.params)]
+                runs[name] = rec
+            a, b = runs["cuda"], runs["cpu"]
+            n_moe = cfg.num_layers
+            n_diff = [int((x != y).sum()) for x, y in zip(a["slots"],
+                                                          b["slots"])]
+            margin = min(float(lh.near_tie_margin(x, r).min())
+                         for x, r in b["inputs"][:n_moe])    # forward
+
+            def rel(u, v):
+                return float((u.double() - v.double()).norm()
+                             / v.double().norm().clamp_min(1e-30))
+
+            loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+            g_rel = max(rel(x, y) for x, y in zip(a["grads"], b["grads"])
+                        if y is not None and y.any())
+            p_rel = max(rel(x, y) for x, y in zip(a["params"], b["params"])
+                        if y.is_floating_point())
+            log(f"[train-parity] wire {wire}: slot ids differing per record "
+                f"(forward of {n_moe} MoE layers, then their recompute) "
+                f"{n_diff}; smallest near-tie margin of the forward hashes "
+                f"{margin:.3g}; loss cuda {a['loss']} cpu {b['loss']} "
+                f"(rel {loss_rel:.3g}); worst gradient rel L2 {g_rel:.3g}; "
+                f"worst param-after-AdamW rel L2 {p_rel:.3g}; TF32 off")
+            if wire == "float32":
+                # every layer's slots, and the stated tolerances
+                ok = (not any(n_diff) and loss_rel <= LOSS_RTOL
+                      and g_rel <= GRAD_RTOL and p_rel <= PARAM_RTOL)
+            else:
+                # The bf16 wire rounds the centroids and the cotangents:
+                # where the two devices' f32 sums differ in the last bit,
+                # a value next to a bf16 boundary rounds the other way, so
+                # the next layer's hash input moves by a bf16 step and a
+                # token near a hash tie may change slot.  Only the first
+                # layer's input is free of it.
+                ok = n_diff[0] == 0 and loss_rel <= BF16_WIRE_LOSS_RTOL
+            if not ok:
+                raise AssertionError(f"wire {wire}: CUDA and CPU train steps "
+                                     "disagree")
+    finally:
+        clustering.assign_slots = orig_assign
+        step_lib.adamw_update = orig_update
+
+
 # -------------------------------------------------------------- main --
 
 def main() -> int:
@@ -356,30 +833,55 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import clustering, hashing
     from repro_torch.core import moe as moe_lib
-    from repro_torch.kernels import build, dispatch, ref
-    from repro_torch.kernels import scatter_gather as sg
-    from repro_torch.kernels import token_position as tp
-    from repro_torch.launch import serve
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import (build, dispatch, lsh_hash, ref,
+                                     residual_apply, scatter_gather,
+                                     segment_centroid, token_position)
+    from repro_torch.launch import serve, train
+    from repro_torch.launch.profiling import summarize
     from repro_torch.models import model as model_lib
+    from repro_torch.runtime import step as step_lib
 
     t_start = time.time()
     kernels = list(dispatch.KERNELS)
     smi = phase_device(torch)
+    # every comparison with a plain version runs in full f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("[device] TF32 off (torch.backends.cuda.matmul.allow_tf32 = "
+        "torch.backends.cudnn.allow_tf32 = False)")
     phase_build(build, kernels)
-    res_decode, _ = phase_kernels(torch, tp, sg, ref, moe_lib)
+    mods = dict(token_position=token_position, scatter_gather=scatter_gather,
+                lsh_hash=lsh_hash, segment_centroid=segment_centroid,
+                residual_apply=residual_apply, dispatch=dispatch)
+    res = phase_kernels(torch, mods, ref, moe_lib, hashing)
+    log(f"[time] kernels done at {time.time() - t_start:.1f} s")
     cfg = get_config(ARCH)
-    _, launches = phase_serve(serve, kernels, cfg)
+    _, serve_launches = phase_serve(serve, kernels, dispatch.ROUTING_KERNELS,
+                                    cfg)
     phase_parity(torch, model_lib, kernels, cfg)
+    log(f"[time] serve and decode parity done at "
+        f"{time.time() - t_start:.1f} s")
+    trained = phase_train(torch, train, kernels, dispatch.LSH_KERNELS)
+    torch.cuda.empty_cache()
+    phase_train_profile(torch, cfg, step_lib, synthetic, summarize)
+    torch.cuda.empty_cache()
+    log(f"[time] training done at {time.time() - t_start:.1f} s")
+    phase_train_parity(torch, model_lib, step_lib, clustering, lsh_hash,
+                       kernels, cfg)
 
+    launches = trained["on"][1]
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": build.source_path(k),
          "replaces": k.replaces, "launches": launches[k.name],
-         **{key: res_decode[k.name][key] for key in (
+         **{key: res[k.name][key] for key in (
              "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")}}
         for k in kernels]}
-    log(f"[done] {time.time() - t_start:.1f} s; card {smi}")
+    log(f"[done] {time.time() - t_start:.1f} s; card {smi}; serve launches "
+        f"{serve_launches}")
     print(json.dumps(record), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

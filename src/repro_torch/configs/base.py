@@ -196,3 +196,34 @@ def param_count(cfg: ModelConfig) -> int:
                                       + (n_q * dh) * h + h)
         total += enc + dec_cross
     return total
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"
+    lr: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    moment_dtype: str = "float32"       # float32|bfloat16|int8 (block-quantized)
+    # Error-feedback int8 gradient all-reduce (explicit-DP mode only).
+    grad_compression: bool = False
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    global_batch: int = 8
+    seq_len: int = 128
+    seed: int = 0
+    steps: int = 100
+    log_every: int = 10
+    checkpoint_every: int = 50
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    keep_checkpoints: int = 3
+    microbatch: int = 0                 # 0 = no gradient accumulation

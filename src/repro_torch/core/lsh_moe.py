@@ -3,13 +3,13 @@
 
 ``lsh_moe_init`` builds the param dict (router, padded expert stack, LSH
 rotations, expert placement permutation) with the JAX package's keys and
-shapes.  ``lsh_moe_apply`` runs the dense-dispatch decode path; the
-expert-parallel train / prefill path with LSH compression is the next
-slice (ROADMAP.md Queue 1).
+shapes.  ``lsh_moe_apply`` routes to the expert-parallel path (train /
+prefill, LSH compression on unless ``use_lsh`` says otherwise) or the
+dense-dispatch decode path.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -35,15 +35,17 @@ def lsh_moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
 
 
 def lsh_moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig, *,
-                  mlp_act: str, mode: str = "train") -> torch.Tensor:
-    """mode "decode" -> dense dispatch (tiny token counts, no compression),
-    y only: the JAX stats are left to ``gating.gating_losses``.
-    "train" and "prefill" (expert-parallel exchange + LSH) raise until the
-    training slice lands."""
+                  mlp_act: str, mode: str = "train",
+                  use_lsh: Optional[bool] = None
+                  ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict]]:
+    """mode "train" | "prefill" -> expert-parallel path (+ LSH), returning
+    (y, stats) with "aux_loss", "z_loss" and "expert_load" as the JAX
+    function does.  "decode" -> dense dispatch, returning y only: decode
+    reads no losses, and ``gating.gating_losses`` gives them to a caller
+    that wants them."""
     if mode == "decode":
         return moe_lib.moe_dense_dispatch(x, params, cfg, mlp_act=mlp_act)
     if mode in ("train", "prefill"):
-        raise NotImplementedError(
-            f"lsh_moe_apply(mode={mode!r}) is the training slice (ROADMAP "
-            "Queue 1 item 1); only mode='decode' is ported")
+        return moe_lib.moe_expert_parallel(x, params, cfg, mlp_act=mlp_act,
+                                           use_lsh=use_lsh)
     raise ValueError(f"unknown mode {mode!r}")

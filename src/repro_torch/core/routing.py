@@ -35,6 +35,18 @@ class DispatchPlan(NamedTuple):
     def num_tokens(self) -> int:
         return self.expert_ids.shape[0]
 
+    @property
+    def occupancy(self) -> torch.Tensor:
+        """[E, C] bool: the dispatch-buffer rows that filled.  A property,
+        not a field as in JAX, so that decode (which never reads it)
+        launches nothing for it."""
+        return (torch.arange(self.capacity, device=self.counts.device)[None]
+                < torch.clamp(self.counts, max=self.capacity)[:, None])
+
+    def load(self) -> torch.Tensor:
+        """[E] f32 routed-token counts (uncapped, physical order)."""
+        return self.counts.to(torch.float32)
+
     def drop_fraction(self) -> torch.Tensor:
         F = self.keep.shape[0]
         return 1.0 - self.keep.sum().to(torch.float32) / max(1, F)

@@ -16,15 +16,24 @@
 // a TPU has no fast scatter; here both directions are direct indexed loads
 // and stores.
 //
-// Scatter design: grid (E, column blocks).  Each block owns buf[e, :, cols]:
-// it zero-fills them, then walks the entries f = 0..F-1 IN ORDER (ids and
-// positions staged through shared memory, read by every thread as a
-// broadcast) and adds src[f, cols] as f32 where id == e and 0 <= pos < C.
-// A thread owns its columns, so there are no atomics and the summation order
-// is fixed: the result is deterministic, duplicate (e, c) pairs sum in entry
-// order, and a plan with unique (e, c) (every plan build_dispatch_plan
-// makes) gives bitwise the plain version's buffer.  Each block rereads all F
-// ids from L2; compacting the entries per expert first is later work.
+// Scatter design: grid (E, row chunks of kScatterRows, column chunks; one
+// column chunk unless the grid is small, as at decode).  Block (e, chunk)
+// owns buf[e, c0:c0+kScatterRows, cols] and writes every element of it
+// exactly once.  Phase 1 compacts the expert's entries for its rows: it reads the
+// ids and positions (8 bytes per entry, from L2 after the first block,
+// eight loads in flight a thread) and, for each of its rows, keeps the
+// index of the FIRST entry that lands there and how many do (shared-memory
+// integer atomicMin / atomicAdd: their results do not depend on the order
+// the threads arrive in).  Phase 2 walks only its own rows: each thread
+// takes (row, 4-column vector) items, issues kUnroll independent 16-byte
+// source loads before it stores any of them, and writes 0 + src[first]
+// (empty rows get 0).  A row that several entries hit (duplicates are
+// allowed by the op's contract; plans from build_dispatch_plan never have
+// one) adds the later ones in entry order: a block with such rows first
+// lists their entries in entry order in shared memory (phase 1b).  So: no float atomics, a fixed summation order, and
+// bitwise the plain version (index_add_ into zeros) for unique plans.
+// The output is written once and never read back, so the kernel moves
+// about the bytes of its bound plus the ids re-read from L2 by each block.
 //
 // Gather design: one block per group of kRows entries, threads across H with
 // 16-byte loads and stores.  Each output is a single product, so the result
@@ -32,14 +41,20 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kChunk = 2048;   // entries staged in shared memory per pass
-constexpr int kRows = 4;       // gather entries per block
+constexpr int kThreads = 128;       // gather
+constexpr int kRows = 4;            // gather entries per block
+constexpr int kScatterThreads = 256;
+constexpr int kScatterRows = 128;   // buffer rows of one expert per block
+constexpr int kIndexUnroll = 8;     // phase-1 entry loads in flight
+constexpr int kUnroll = 4;          // phase-2 row loads in flight
+constexpr int kDupList = 2048;      // duplicate entries a block keeps
+constexpr int kScatterWarps = kScatterThreads / 32;
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {
@@ -52,49 +67,142 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
 }
 
 template <typename T, int VEC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kScatterThreads)
 dispatch_scatter_kernel(const int* __restrict__ ids,
                         const int* __restrict__ pos,
                         const T* __restrict__ src, int F, int C, int H,
                         float* __restrict__ out) {
-  __shared__ int s_id[kChunk];
-  __shared__ int s_pos[kChunk];
+  __shared__ int s_first[kScatterRows];
+  __shared__ int s_count[kScatterRows];
   const int e = blockIdx.x;
-  const int col = (blockIdx.y * kThreads + threadIdx.x) * VEC;
-  const bool active = col < H;
-  float* out_e = out + static_cast<size_t>(e) * C * H + col;
-
-  if (active) {
-    Vec<float, VEC> zero;
-#pragma unroll
-    for (int k = 0; k < VEC; ++k) zero.v[k] = 0.f;
-    for (int c = 0; c < C; ++c)
-      *reinterpret_cast<Vec<float, VEC>*>(out_e + static_cast<size_t>(c) * H) =
-          zero;
+  const int c0 = blockIdx.y * kScatterRows;
+  const int rows = min(kScatterRows, C - c0);
+  const int tid = threadIdx.x;
+  for (int r = tid; r < kScatterRows; r += kScatterThreads) {
+    s_first[r] = INT_MAX;
+    s_count[r] = 0;
   }
+  __syncthreads();
 
-  for (int base = 0; base < F; base += kChunk) {
-    const int n = min(kChunk, F - base);
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      s_id[i] = ids[base + i];
-      s_pos[i] = pos[base + i];
-    }
-    __syncthreads();
-    if (active) {
-      for (int j = 0; j < n; ++j) {
-        const int p = s_pos[j];
-        if (s_id[j] != e || p < 0 || p >= C) continue;
-        const Vec<T, VEC> s = *reinterpret_cast<const Vec<T, VEC>*>(
-            src + static_cast<size_t>(base + j) * H + col);
-        auto* dst = reinterpret_cast<Vec<float, VEC>*>(
-            out_e + static_cast<size_t>(p) * H);
-        Vec<float, VEC> acc = *dst;
+  // Phase 1: the first entry and the number of entries of each of this
+  // block's rows.
+  for (int base = tid; base < F; base += kIndexUnroll * kScatterThreads) {
+    int id[kIndexUnroll], p[kIndexUnroll];
 #pragma unroll
-        for (int k = 0; k < VEC; ++k) acc.v[k] += to_f32(s.v[k]);
-        *dst = acc;
+    for (int k = 0; k < kIndexUnroll; ++k) {
+      const int f = base + k * kScatterThreads;
+      id[k] = f < F ? ids[f] : -1;
+      p[k] = f < F ? pos[f] : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < kIndexUnroll; ++k) {
+      const int r = p[k] - c0;
+      if (id[k] == e && r >= 0 && r < rows) {
+        atomicMin(&s_first[r], base + k * kScatterThreads);
+        atomicAdd(&s_count[r], 1);
       }
     }
-    __syncthreads();
+  }
+  __shared__ int s_dup;
+  if (tid == 0) s_dup = 0;
+  __syncthreads();
+  for (int r = tid; r < rows; r += kScatterThreads)
+    if (s_count[r] > 1) s_dup = 1;
+  __syncthreads();
+
+  // Phase 1b, only in a block with a duplicate row: the entries of its
+  // duplicate rows, in entry order (a warp ballot ranks a warp's entries,
+  // a prefix over the warps places them), so that phase 2 sums each such
+  // row over this short list.  Past kDupList entries phase 2 walks the
+  // entries in device memory instead.
+  __shared__ int s_list_f[kDupList];
+  __shared__ int s_list_r[kDupList];
+  __shared__ int s_warp[kScatterWarps];
+  int n_list = 0;
+  if (s_dup) {
+    const int lane = tid & 31;
+    const int warp = tid >> 5;
+    for (int base = 0; base < F; base += kScatterThreads) {
+      const int f = base + tid;
+      const int r = f < F ? pos[f] - c0 : -1;
+      const bool dup = f < F && ids[f] == e && r >= 0 && r < rows &&
+                       s_count[r] > 1;
+      const unsigned ballot = __ballot_sync(0xffffffffu, dup);
+      if (lane == 0) s_warp[warp] = __popc(ballot);
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int w = 0; w < kScatterWarps; ++w) {
+        before += w < warp ? s_warp[w] : 0;
+        total += s_warp[w];
+      }
+      const int at = n_list + before + __popc(ballot & ((1u << lane) - 1u));
+      if (dup && at < kDupList) {
+        s_list_f[at] = f;
+        s_list_r[at] = r;
+      }
+      n_list += total;
+      __syncthreads();
+    }
+  }
+  const bool listed = n_list <= kDupList;
+
+  // Phase 2: every (row, column vector) of the block written once; the
+  // block's column vectors are [v0, v0 + nvec) of the row's H / VEC.
+  const int per_chunk = (H / VEC + gridDim.z - 1) / gridDim.z;
+  const int v0 = blockIdx.z * per_chunk;
+  const int nvec = min(per_chunk, H / VEC - v0);
+  const int items = rows * nvec;
+  float* out_e = out + (static_cast<size_t>(e) * C + c0) * H + v0 * VEC;
+  src += v0 * VEC;
+  for (int i0 = tid; i0 < items; i0 += kUnroll * kScatterThreads) {
+    Vec<T, VEC> s[kUnroll];
+    int first[kUnroll], count[kUnroll];
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int i = i0 + k * kScatterThreads;
+      count[k] = 0;
+      first[k] = 0;
+      if (i < items) {
+        const int r = i / nvec;
+        count[k] = s_count[r];
+        first[k] = s_first[r];
+        if (count[k] > 0)
+          s[k] = *reinterpret_cast<const Vec<T, VEC>*>(
+              src + static_cast<size_t>(first[k]) * H + (i % nvec) * VEC);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kUnroll; ++k) {
+      const int i = i0 + k * kScatterThreads;
+      if (i >= items) continue;
+      const int r = i / nvec;
+      const int col = (i % nvec) * VEC;
+      Vec<float, VEC> acc;
+#pragma unroll
+      for (int j = 0; j < VEC; ++j)
+        acc.v[j] = count[k] > 0 ? 0.f + to_f32(s[k].v[j]) : 0.f;
+      // duplicates: the later entries of this row, in entry order, from
+      // the block's list or, past its capacity, from device memory
+      for (int m = 0, seen = 1; listed && seen < count[k]; ++m) {
+        if (s_list_r[m] != r || s_list_f[m] == first[k]) continue;
+        const Vec<T, VEC> d = *reinterpret_cast<const Vec<T, VEC>*>(
+            src + static_cast<size_t>(s_list_f[m]) * H + col);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc.v[j] += to_f32(d.v[j]);
+        ++seen;
+      }
+      for (int f = first[k] + 1, seen = 1; !listed && seen < count[k]; ++f) {
+        if (ids[f] != e || pos[f] != c0 + r) continue;
+        const Vec<T, VEC> d = *reinterpret_cast<const Vec<T, VEC>*>(
+            src + static_cast<size_t>(f) * H + col);
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) acc.v[j] += to_f32(d.v[j]);
+        ++seen;
+      }
+      *reinterpret_cast<Vec<float, VEC>*>(
+          out_e + static_cast<size_t>(r) * H + col) = acc;
+    }
   }
 }
 
@@ -137,8 +245,14 @@ bool aligned(const void* p, size_t bytes) {
 template <typename T, int VEC>
 void launch_scatter(const void* ids, const void* pos, const void* src, int F,
                     int E, int C, int H, void* out, cudaStream_t stream) {
-  const dim3 grid(E, (H + kThreads * VEC - 1) / (kThreads * VEC));
-  dispatch_scatter_kernel<T, VEC><<<grid, kThreads, 0, stream>>>(
+  // Few (expert, row chunk) blocks (decode: one chunk per expert) also
+  // split the columns, up to about two blocks per SM of the H100's 132, so
+  // that each thread has one round of loads in flight, not several in turn.
+  const int row_chunks = (C + kScatterRows - 1) / kScatterRows;
+  const int vec_rounds = (H / VEC + kScatterThreads - 1) / kScatterThreads;
+  const int want = (2 * 132 + E * row_chunks - 1) / (E * row_chunks);
+  const dim3 grid(E, row_chunks, max(1, min(want, vec_rounds)));
+  dispatch_scatter_kernel<T, VEC><<<grid, kScatterThreads, 0, stream>>>(
       static_cast<const int*>(ids), static_cast<const int*>(pos),
       static_cast<const T*>(src), F, C, H, static_cast<float*>(out));
 }

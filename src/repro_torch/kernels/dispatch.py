@@ -1,4 +1,4 @@
-"""Public routing ops (counterpart of the routing entries of
+"""Public kernel ops (counterpart of the public ops of
 ``repro/kernels/dispatch.py``).
 
 The JAX registry chooses a backend by name, config and environment.  The
@@ -9,17 +9,35 @@ Overflow-bin contract, as in the JAX package: an integer id outside its
 valid range contributes nothing on the scatter direction and gathers zero
 on the gather direction, so "dropped" is encoded by pointing the id at the
 overflow bin instead of carrying a mask.
+
+The differentiable ops are ``torch.autograd.Function`` pairs that mirror the
+JAX custom VJPs (``repro/kernels/dispatch.py:142-253``): segment_centroid
+and residual_apply are each other's backward, and so are dispatch_scatter
+and combine_gather.  Each backward is a kernel call, and returns its
+cotangent in the primal's dtype, as the JAX code does with
+``.astype(proto.dtype)``.  Integer inputs get no gradient.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import scatter_gather, token_position
+from repro_torch.kernels import (lsh_hash as lsh_hash_k, residual_apply as
+                                 residual_apply_k, scatter_gather,
+                                 segment_centroid as segment_centroid_k,
+                                 token_position)
 
-KERNELS = (token_position.KERNEL, scatter_gather.SCATTER,
-           scatter_gather.GATHER)
+# the routing kernels run on every MoE path; the LSH kernels on train and
+# prefill with LSH on
+ROUTING_KERNELS = (token_position.KERNEL, scatter_gather.SCATTER,
+                   scatter_gather.GATHER)
+LSH_KERNELS = (lsh_hash_k.KERNEL, segment_centroid_k.KERNEL,
+               residual_apply_k.KERNEL)
+KERNELS = ROUTING_KERNELS + LSH_KERNELS
+
+# The hash is not differentiable (the JAX caller stop_gradient's it).
+lsh_hash = lsh_hash_k.lsh_hash
 
 
 def positions_in_expert(expert_ids: torch.Tensor, num_experts: int,
@@ -38,6 +56,126 @@ def positions_in_expert(expert_ids: torch.Tensor, num_experts: int,
     return pos, pos < capacity, counts
 
 
-# The scatter and gather wrappers are the public ops as they stand.
-dispatch_scatter = scatter_gather.dispatch_scatter
-combine_gather = scatter_gather.combine_gather
+class _SegmentCentroid(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, slots, x, num_slots):
+        cent, counts = segment_centroid_k.segment_centroid(slots, x,
+                                                           num_slots)
+        ctx.save_for_backward(slots, counts)
+        ctx.x_dtype = x.dtype
+        ctx.mark_non_differentiable(counts)
+        return cent, counts
+
+    @staticmethod
+    def backward(ctx, d_cent, _d_counts):
+        slots, counts = ctx.saved_tensors
+        # centroid_s = sum_c x_c / count_s  =>  dx_c = d_cent[slot_c] / count
+        scaled = d_cent / torch.clamp(counts, min=1.0)[..., None]
+        dx = residual_apply_k.residual_apply(slots, scaled.contiguous())
+        return None, dx.to(ctx.x_dtype), None
+
+
+class _ResidualApply(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, slots, expert_out, residual):
+        ctx.save_for_backward(slots)
+        ctx.num_slots = expert_out.shape[1]
+        return residual_apply_k.residual_apply(slots, expert_out, residual)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (slots,) = ctx.saved_tensors
+        # out = gather(expert_out, slots) + residual: the gather's transpose
+        # is a segment sum over slots -- the centroid kernel times counts.
+        ct = ct.contiguous()
+        d_eout = d_res = None
+        if ctx.needs_input_grad[1]:
+            cent, counts = segment_centroid_k.segment_centroid(
+                slots, ct, ctx.num_slots)
+            d_eout = cent * counts[..., None]
+        if ctx.needs_input_grad[2]:
+            d_res = ct
+        return None, d_eout, d_res
+
+
+class _DispatchScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ids, pos, src, num_experts, capacity):
+        ctx.save_for_backward(ids, pos)
+        ctx.src_dtype = src.dtype
+        return scatter_gather.dispatch_scatter(ids, pos, src, num_experts,
+                                               capacity)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ids, pos = ctx.saved_tensors
+        # the transpose of the scatter: gather the cotangent, unit weights
+        ones = torch.ones(ids.shape, dtype=torch.float32, device=ids.device)
+        dsrc = scatter_gather.combine_gather(ids, pos, ct.contiguous(), ones)
+        return None, None, dsrc.to(ctx.src_dtype), None, None
+
+
+class _CombineGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ids, pos, buf, weights):
+        ctx.save_for_backward(ids, pos, buf, weights)
+        return scatter_gather.combine_gather(ids, pos, buf, weights)
+
+    @staticmethod
+    def backward(ctx, ct):
+        ids, pos, buf, weights = ctx.saved_tensors
+        E, C, _ = buf.shape
+        dbuf = dw = None
+        if ctx.needs_input_grad[2]:
+            wct = ct * weights.to(torch.float32)[:, None]
+            dbuf = scatter_gather.dispatch_scatter(
+                ids, pos, wct.contiguous(), E, C).to(buf.dtype)
+        if ctx.needs_input_grad[3]:
+            ones = torch.ones(ids.shape, dtype=torch.float32,
+                              device=ids.device)
+            gathered = scatter_gather.combine_gather(ids, pos, buf, ones)
+            dw = torch.sum(ct * gathered, dim=-1).to(weights.dtype)
+        return None, None, dbuf, dw
+
+
+def segment_centroid(slots: torch.Tensor, x: torch.Tensor, num_slots: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """slots: [G, C] int32; x: [G, C, H] bf16 / f32 ->
+    (centroids [G, S, H] f32, counts [G, S] f32).  Out-of-range slot ids
+    (>= num_slots) contribute to nothing -- the overflow bin.
+    Differentiable in ``x``."""
+    return _SegmentCentroid.apply(slots, x, num_slots)
+
+
+def residual_apply(slots: torch.Tensor, expert_out: torch.Tensor,
+                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[G, C] ids, [G, S, H] outputs, [G, C, H] residuals (None: zero, with
+    no gradient) -> [G, C, H] f32 = expert_out[g, slots] + residual.
+    Out-of-range slot ids gather zero.  Differentiable in ``expert_out``
+    and ``residual``; both are taken in f32, and the casts to f32 carry
+    their cotangents back to the callers' dtypes."""
+    if residual is not None:
+        residual = residual.to(torch.float32).contiguous()
+    return _ResidualApply.apply(slots, expert_out.to(torch.float32)
+                                .contiguous(), residual)
+
+
+def dispatch_scatter(expert_ids: torch.Tensor, pos: torch.Tensor,
+                     src: torch.Tensor, num_experts: int,
+                     capacity: int) -> torch.Tensor:
+    """[F] ids, [F] positions, [F, H] bf16 / f32 tokens -> [E, C, H] f32
+    dispatch buffer: buf[e, c] = sum of src[f] over entries with
+    (id, pos) == (e, c).  Differentiable in ``src`` (the backward pass is
+    ``combine_gather`` with unit weights)."""
+    return _DispatchScatter.apply(expert_ids, pos, src, num_experts,
+                                  capacity)
+
+
+def combine_gather(expert_ids: torch.Tensor, pos: torch.Tensor,
+                   buf: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """[F] ids, [F] positions, [E, C, H] f32 buffer, [F] f32 weights ->
+    [F, H] f32 = weights[f] * buf[id_f, pos_f]; out-of-range entries give
+    zero.  Differentiable in ``buf`` (the backward is ``dispatch_scatter``
+    of the weighted cotangent) and ``weights`` (a row dot product with the
+    unweighted gather, plain torch as in JAX)."""
+    return _CombineGather.apply(expert_ids, pos, buf, weights)

@@ -1,0 +1,80 @@
+"""``lsh_hash``: CUDA kernel wrapper (counterpart of
+``repro/kernels/lsh_hash.py``; source ``csrc/lsh_hash.cu``).
+
+A CUDA tensor launches the kernel; a CPU tensor takes the plain version in
+``kernels/ref.py``.  Anything else raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import ref
+from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.scatter_gather import check_cuda
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+KERNEL = CudaKernel(
+    name="lsh_hash", source="lsh_hash.cu", symbol="lsh_hash_launch",
+    argtypes=(_P, _I, _P, _I, _I, _I, _I, _I, _P),
+    replaces="src/repro/kernels/lsh_hash.py:38")
+
+MAX_ROTATION_DIM = 64      # one 64-column tile per hash (csrc/lsh_hash.cu)
+
+
+def _tensor_cores(x: torch.Tensor, rotations: torch.Tensor) -> bool:
+    """bf16 x and rotations whose rows the tensor-core kernel can read in
+    16-byte pieces; any other input takes the f32-FMA kernel."""
+    H, Dr = rotations.shape[1], rotations.shape[2]
+    return (x.dtype == rotations.dtype == torch.bfloat16 and H % 8 == 0
+            and Dr % 8 == 0 and x.data_ptr() % 16 == 0
+            and rotations.data_ptr() % 16 == 0)
+
+
+def lsh_hash(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
+    """x: [T, H] bf16 / f32; rotations: [L, H, Dr] -> [T, L] int32
+    vertex ids.  bf16 x with bf16 rotations (the training path) runs on
+    the tensor cores, exact products summed in f32; anything else on the
+    f32-FMA kernel, bf16 x read as it is (its values are exact in f32)."""
+    if x.dim() != 2 or rotations.dim() != 3 or rotations.shape[1] != x.shape[1]:
+        raise ValueError(f"x must be [T, H] and rotations [L, H, Dr], got "
+                         f"{tuple(x.shape)} and {tuple(rotations.shape)}")
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
+    if x.device.type == "cpu" and rotations.device.type == "cpu":
+        return ref.lsh_hash_ref(x, rotations)
+    rot = rotations.contiguous()
+    check_cuda(x, rot)
+    tensor_cores = _tensor_cores(x, rot)
+    if not tensor_cores:
+        rot = rot.to(torch.float32)
+    T, H = x.shape
+    L, _, Dr = rot.shape
+    if not 0 < Dr <= MAX_ROTATION_DIM:
+        raise ValueError(f"rotation_dim={Dr} outside (0, {MAX_ROTATION_DIM}]")
+    out = torch.empty(T, L, dtype=torch.int32, device=x.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(x.device):
+        KERNEL.launch(x.data_ptr(), int(x.dtype == torch.bfloat16),
+                      rot.data_ptr(), int(tensor_cores), T, H, L, Dr,
+                      out.data_ptr(),
+                      stream=torch.cuda.current_stream().cuda_stream)
+    return out
+
+
+def near_tie_margin(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
+    """[T, L] f32: (largest |v| - second largest |v|) / max|v| of each
+    (token, hash), v = x . R_l in f32 (1 where v is all zero: such a row
+    hashes to vertex 0 in any order of summation).  The hash
+    is discontinuous: where this margin is tiny, two f32 products summed in
+    another order may pick another vertex, so comparisons of vertex ids
+    hold only where it exceeds a stated bound."""
+    v = torch.einsum("th,lhd->tld", x.to(torch.float32),
+                     rotations.to(torch.float32)).abs()
+    top = torch.topk(v, 2, dim=-1).values
+    return torch.where(top[..., 0] > 0,
+                       (top[..., 0] - top[..., 1])
+                       / torch.clamp(top[..., 0], min=1e-30), 1.0)

@@ -1,10 +1,11 @@
-"""Plain PyTorch versions of the routing kernels (counterpart of
+"""Plain PyTorch versions of the kernels (counterpart of
 ``repro/kernels/ref.py``).  The kernel wrappers run these for tensors on the
 CPU; ``chip_smoke.py`` holds each CUDA kernel against them on the card.
 
-All three keep the registry's overflow-bin contract: an entry whose expert
-id lies outside [0, E) (or whose position lies outside [0, C)) contributes
-nothing to a scatter and gathers exactly zero.
+All keep the registry's overflow-bin contract: an entry whose id lies
+outside its valid range (expert id outside [0, E), position outside
+[0, C), slot outside [0, S)) contributes nothing to a scatter or segment
+sum and gathers exactly zero.
 """
 from __future__ import annotations
 
@@ -61,3 +62,44 @@ def combine_gather_ref(expert_ids: torch.Tensor, pos: torch.Tensor,
                                      pos.long().clamp(0, C - 1)]
     return gathered * (weights.to(torch.float32)
                        * in_range.to(torch.float32))[:, None]
+
+
+def lsh_hash_ref(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
+    """x: [T, H]; rotations: [L, H, Dr] -> [T, L] int32 cross-polytope
+    vertex ids 2 * argmax|v| + (v[argmax] < 0), v = x . R_l in f32.  Ties
+    go to the first index (``torch.argmax`` and ``jnp.argmax`` agree), the
+    sign is that element's; an all-zero row gives vertex 0."""
+    v = torch.einsum("th,lhd->tld", x.to(torch.float32),
+                     rotations.to(torch.float32))
+    idx = torch.argmax(torch.abs(v), dim=-1)
+    sign = torch.gather(v, -1, idx[..., None])[..., 0] < 0
+    return (2 * idx + sign.to(idx.dtype)).to(torch.int32)
+
+
+def segment_centroid_ref(slots: torch.Tensor, x: torch.Tensor,
+                         num_slots: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """slots: [G, C]; x: [G, C, H] -> (centroids [G, S, H] f32, counts
+    [G, S] f32): the one-hot contraction of the JAX oracle.  Slots outside
+    [0, S) match no one-hot column and count nowhere."""
+    s_range = torch.arange(num_slots, device=slots.device)
+    onehot = (slots[..., None] == s_range).to(torch.float32)   # [G, C, S]
+    counts = onehot.sum(dim=1)
+    sums = torch.einsum("gcs,gch->gsh", onehot, x.to(torch.float32))
+    return sums / torch.clamp(counts, min=1.0)[..., None], counts
+
+
+def residual_apply_ref(slots: torch.Tensor, expert_out: torch.Tensor,
+                       residual: torch.Tensor = None) -> torch.Tensor:
+    """[G, C] ids, [G, S, H] outputs, [G, C, H] residuals (None: zero) ->
+    [G, C, H] f32 = expert_out[g, slots] + residual; out-of-range slots
+    gather zero."""
+    S = expert_out.shape[1]
+    in_range = (slots >= 0) & (slots < S)
+    idx = slots.long().clamp(0, S - 1)[..., None].expand(
+        *slots.shape, expert_out.shape[-1])
+    gathered = torch.gather(expert_out.to(torch.float32), 1, idx)
+    gathered = gathered * in_range[..., None].to(torch.float32)
+    if residual is None:
+        return gathered
+    return gathered + residual.to(torch.float32)

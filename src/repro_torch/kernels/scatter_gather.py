@@ -3,8 +3,9 @@
 ``csrc/scatter_gather.cu``).
 
 A CUDA tensor launches the kernel; a CPU tensor takes the plain version in
-``kernels/ref.py``.  Anything else raises.  Forward only: the training
-slice adds the autograd pair (the two ops are each other's backward).
+``kernels/ref.py``.  Anything else raises.  No autograd here: the
+differentiable pair (each op is the other's backward) is in
+``kernels/dispatch.py``.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ def _check_routing(expert_ids: torch.Tensor, pos: torch.Tensor) -> int:
     return expert_ids.shape[0]
 
 
-def _check_cuda(*tensors: torch.Tensor) -> None:
+def check_cuda(*tensors: torch.Tensor) -> None:
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev:
@@ -49,13 +50,6 @@ def _check_cuda(*tensors: torch.Tensor) -> None:
             raise ValueError("kernel inputs must be contiguous")
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-
-
-def _no_grad(t: torch.Tensor, name: str) -> None:
-    if t.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            f"{name} has no backward yet (it comes with the training slice); "
-            "call it under torch.no_grad()")
 
 
 def dispatch_scatter(expert_ids: torch.Tensor, pos: torch.Tensor,
@@ -69,11 +63,10 @@ def dispatch_scatter(expert_ids: torch.Tensor, pos: torch.Tensor,
         raise ValueError(f"src must be [F={F}, H], got {tuple(src.shape)}")
     if src.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"src must be bfloat16 or float32, got {src.dtype}")
-    _no_grad(src, "dispatch_scatter")
     if expert_ids.device.type == "cpu" and src.device.type == "cpu":
         return ref.dispatch_scatter_ref(expert_ids, pos, src, num_experts,
                                         capacity)
-    _check_cuda(expert_ids, pos, src)
+    check_cuda(expert_ids, pos, src)
     H = src.shape[1]
     out = torch.empty(num_experts, capacity, H, dtype=torch.float32,
                       device=src.device)
@@ -99,11 +92,9 @@ def combine_gather(expert_ids: torch.Tensor, pos: torch.Tensor,
     if weights.shape != (F,) or weights.dtype != torch.float32:
         raise ValueError(f"weights must be [F={F}] float32, got "
                          f"{tuple(weights.shape)} {weights.dtype}")
-    _no_grad(buf, "combine_gather")
-    _no_grad(weights, "combine_gather")
     if all(t.device.type == "cpu" for t in (expert_ids, pos, buf, weights)):
         return ref.combine_gather_ref(expert_ids, pos, buf, weights)
-    _check_cuda(expert_ids, pos, buf, weights)
+    check_cuda(expert_ids, pos, buf, weights)
     E, C, H = buf.shape
     out = torch.empty(F, H, dtype=torch.float32, device=buf.device)
     if out.numel() == 0:

@@ -33,12 +33,12 @@ def main(argv=None) -> int:
     batch_slots = 4                       # serve.py's default
 
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import resolve_device
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import dispatch
+    from repro_torch.launch.profiling import summarize
     from repro_torch.models import model as model_lib
 
     dev = resolve_device("cuda")
@@ -69,40 +69,23 @@ def main(argv=None) -> int:
     run(args.steps)
     wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
-    before = {k.name: k.launches for k in dispatch.KERNELS}
+    before = {k.name: k.launches for k in dispatch.ROUTING_KERNELS}
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run(args.steps)
     launches = {k.name: (k.launches - before[k.name]) / args.steps
-                for k in dispatch.KERNELS}
+                for k in dispatch.ROUTING_KERNELS}
     if args.trace:
         prof.export_chrome_trace(args.trace)
 
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    busy_ms = idle = None                 # not measured without device events
-    if kernels:
-        busy_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 \
-            / args.steps
-        idle = max(0.0, 1.0 - busy_ms / wall_ms)
-    avgs = prof.key_averages()
-    by_dev = sorted(avgs, key=lambda a: a.self_device_time_total,
-                    reverse=True)[:args.top]
-    by_cpu = sorted(avgs, key=lambda a: a.self_cpu_time_total,
-                    reverse=True)[:args.top]
-    for a in by_dev:
-        print(f"[device] {a.self_device_time_total / 1e3 / args.steps:9.4f} "
-              f"ms/step  {a.count / args.steps:7.1f} calls/step  {a.key}")
-    for a in by_cpu:
-        print(f"[host]   {a.self_cpu_time_total / 1e3 / args.steps:9.4f} "
-              f"ms/step  {a.count / args.steps:7.1f} calls/step  {a.key}")
+    record, lines = summarize(prof, args.steps, wall_ms, args.top)
+    for line in lines:
+        print(line)
     print(json.dumps({
         "kind": "decode_profile", "arch": args.arch,
         "layers": cfg.num_layers, "batch_slots": batch_slots,
         "steps": args.steps, "warmup_ms_per_step": warmup_ms,
-        "wall_ms_per_step": wall_ms,
-        "device_busy_ms_per_step": busy_ms,
-        "device_idle_share": idle,
-        "device_kernels_per_step": len(kernels) / args.steps,
+        **record,
         "routing_launches_per_step": launches,
         "device": torch.cuda.get_device_name(dev)}, sort_keys=True))
     return 0

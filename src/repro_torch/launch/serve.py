@@ -30,7 +30,7 @@ def _percentile(sorted_vals: List[float], q: float) -> float:
     return sorted_vals[i]
 
 
-def _event_writer(metrics_dir: str) -> Callable[..., None]:
+def event_writer(metrics_dir: str) -> Callable[..., None]:
     def emit(kind: str, **data) -> None:
         line = json.dumps({"kind": kind, "ts": time.time(), **data},
                           sort_keys=True)
@@ -70,7 +70,7 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     if args.metrics_dir:
         os.makedirs(args.metrics_dir, exist_ok=True)
-    emit = _event_writer(args.metrics_dir)
+    emit = event_writer(args.metrics_dir)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     B = args.batch_slots

@@ -1,8 +1,10 @@
-"""GQA attention, single-token decode against a KV cache (counterpart of
-the decode half of ``repro/models/attention.py``; the chunked training /
-prefill attention comes with the training slice)."""
+"""GQA attention (counterpart of ``repro/models/attention.py``): the
+chunked, exact online-softmax training / prefill path, and single-token
+decode against a KV cache.  Plain torch, with the JAX package's f32
+softmax; no SDPA, so that the two packages stay like for like."""
 from __future__ import annotations
 
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -22,6 +24,63 @@ def attention_init(gen, d_model: int, num_heads: int, num_kv_heads: int,
                          device),
         "wo": fanin_init(gen, (num_heads * head_dim, d_model), dtype, device),
     }
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, kv_chunk: int,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Exact flash-style attention: a loop over KV chunks with an online
+    softmax in f32.  q: [B, Sq, nh, dh], k / v: [B, Sk, nkv, dh] ->
+    [B, Sq, nh, dh] in q's dtype.  KV heads are expanded with
+    ``repeat_interleave`` (``jnp.repeat``)."""
+    B, Sq, nh, dh = q.shape
+    Sk, nkv = k.shape[1], k.shape[2]
+    g = nh // nkv
+    if g > 1:
+        k = k.repeat_interleave(g, dim=2)
+        v = v.repeat_interleave(g, dim=2)
+    kv_chunk = min(kv_chunk, Sk)
+    n_chunks = math.ceil(Sk / kv_chunk)
+    qf = q.to(torch.float32) * dh ** -0.5
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    m = torch.full((B, Sq, nh), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, Sq, nh), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, Sq, nh, dh), dtype=torch.float32, device=q.device)
+    for c in range(n_chunks):
+        kb = k[:, c * kv_chunk:(c + 1) * kv_chunk].to(torch.float32)
+        vb = v[:, c * kv_chunk:(c + 1) * kv_chunk].to(torch.float32)
+        kv_pos = c * kv_chunk + torch.arange(kb.shape[1], device=q.device)
+        s = torch.einsum("bqhd,bchd->bqhc", qf, kb)
+        if causal:
+            mask = kv_pos[None, :] <= q_pos[:, None]
+            s = torch.where(mask[None, :, None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqhc,bchd->bqhd", p, vb)
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype)
+
+
+def attention_apply(params: Dict, x: torch.Tensor, *, num_heads: int,
+                    num_kv_heads: int, head_dim: int, rope_theta: float,
+                    causal: bool = True, kv_chunk: int = 1024,
+                    pos_offset: int = 0,
+                    use_rope: bool = True) -> torch.Tensor:
+    """Full-sequence self-attention (training / prefill).  x: [B, S, H]."""
+    B, S, _ = x.shape
+    q = (x @ params["wq"]).reshape(B, S, num_heads, head_dim)
+    k = (x @ params["wk"]).reshape(B, S, num_kv_heads, head_dim)
+    v = (x @ params["wv"]).reshape(B, S, num_kv_heads, head_dim)
+    if use_rope:
+        pos = pos_offset + torch.arange(S, device=x.device)[None, :]
+        q = apply_rope(q, pos, rope_theta)
+        k = apply_rope(k, pos, rope_theta)
+    out = chunked_attention(q, k, v, causal=causal, kv_chunk=kv_chunk,
+                            q_offset=pos_offset)
+    return out.reshape(B, S, num_heads * head_dim) @ params["wo"]
 
 
 def init_kv_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int,

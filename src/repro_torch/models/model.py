@@ -1,5 +1,7 @@
-"""Model assembly for decoding (counterpart of ``init_params``,
-``init_decode_state`` and ``decode_step`` in ``repro/models/model.py``).
+"""Model assembly (counterpart of ``repro/models/model.py``):
+``init_params``, the training forward and loss (``forward``,
+``head_logits``, ``loss_from_logits``, ``loss_fn``), and decoding
+(``init_decode_state``, ``decode_step``).
 
 The JAX package stacks block params per layout entry, [num_super_blocks,
 ...], and scans over super-blocks with the layout unrolled inside.  The
@@ -13,9 +15,11 @@ embedding.  Other mixers, learned positions and encoder-decoder raise.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from functools import partial
+from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.configs.base import ATTN, DENSE, MOE, NONE, ModelConfig
@@ -94,6 +98,95 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     return params
 
 
+def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, ffn: str, *,
+           use_lsh: Optional[bool]):
+    """One (mixer, ffn) block of the training forward -> (x, aux, z,
+    load); aux / z / load are None without a MoE FFN."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + attn_lib.attention_apply(
+        p["mixer"], h, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        rope_theta=cfg.rope_theta, causal=True, kv_chunk=cfg.kv_chunk,
+        use_rope=(cfg.pos_emb == "rope"))
+    aux = z = load = None
+    if ffn == DENSE:
+        x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps),
+                          cfg.mlp_act)
+    elif ffn == MOE:
+        y, stats = lsh_moe_apply(p["ffn"], rmsnorm(p["norm2"], x,
+                                                   cfg.norm_eps),
+                                 cfg.moe, mlp_act=cfg.mlp_act,
+                                 mode="train", use_lsh=use_lsh)
+        x = x + y
+        aux, z, load = (stats["aux_loss"], stats["z_loss"],
+                        stats["expert_load"])
+    return x, aux, z, load
+
+
+def head_logits(params: Dict, cfg: ModelConfig,
+                x: torch.Tensor) -> torch.Tensor:
+    """Final norm + (tied) unembedding -> f32 logits."""
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        return unembed(params["embed"], x)
+    return (x @ params["head"]["w"]).to(torch.float32)
+
+
+def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            use_lsh: Optional[bool] = None) -> Tuple[torch.Tensor, Dict]:
+    """tokens [B, S] -> (logits [B, S, V] f32, stats with "aux_loss",
+    "z_loss" summed over the MoE layers and "expert_load" summed per
+    expert).  Each block is recomputed in the backward pass
+    (``torch.utils.checkpoint``) when ``remat_policy`` is "nothing" or
+    "dots", and kept when it is "full": the JAX rule, at block
+    granularity."""
+    check_supported(cfg)
+    remat = cfg.remat_policy in ("nothing", "dots")
+    x = embed(params["embed"], tokens)
+    dev = x.device
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    z = torch.zeros((), dtype=torch.float32, device=dev)
+    load = None
+    for (_, ffn), p in zip(layer_kinds(cfg), params["layers"]):
+        fn = partial(_block, p, cfg=cfg, ffn=ffn, use_lsh=use_lsh)
+        if remat:
+            x, a, zz, ld = checkpoint(fn, x, use_reentrant=False)
+        else:
+            x, a, zz, ld = fn(x)
+        if ld is not None:
+            aux, z = aux + a, z + zz
+            load = ld if load is None else load + ld
+    if load is None:
+        load = torch.zeros((1,), dtype=torch.float32, device=dev)
+    return head_logits(params, cfg, x), {"aux_loss": aux, "z_loss": z,
+                                         "expert_load": load}
+
+
+def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,
+                     labels: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """CE over labels >= 0, + z-loss on the logits' log-sum-exp + the MoE
+    aux and router-z losses.  The label log-prob is a gather, which picks
+    the same value as JAX's mask-and-reduce."""
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1,
+                      labels.clamp(min=0).long()[..., None])[..., 0]
+    mask = (labels >= 0).to(torch.float32)
+    ce = torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+    zl = cfg.z_loss_weight * torch.mean(torch.square(lse))
+    moe_aux = (cfg.moe.router_aux_weight * stats["aux_loss"]
+               + cfg.moe.router_z_weight * stats["z_loss"])
+    total = ce + zl + moe_aux
+    return total, {"ce": ce, "z_loss": zl, "moe_aux": stats["aux_loss"],
+                   "expert_load": stats["expert_load"], "loss": total}
+
+
+def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
+            use_lsh: Optional[bool] = None) -> Tuple[torch.Tensor, Dict]:
+    """batch {"tokens", "labels"}: [B, S] int -> (loss, metrics)."""
+    logits, stats = forward(params, cfg, batch["tokens"], use_lsh=use_lsh)
+    return loss_from_logits(cfg, logits, stats, batch["labels"])
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device: DeviceLike = None) -> Dict:
     """One KV cache per layer, and the decode position."""
@@ -131,9 +224,5 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
                                                     cfg.norm_eps),
                                   cfg.moe, mlp_act=cfg.mlp_act,
                                   mode="decode")
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    if cfg.tie_embeddings:
-        logits = unembed(params["embed"], x)
-    else:
-        logits = (x @ params["head"]["w"]).to(torch.float32)
-    return logits, {"layers": state["layers"], "position": pos + 1}
+    return head_logits(params, cfg, x), {"layers": state["layers"],
+                                         "position": pos + 1}

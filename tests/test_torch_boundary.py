@@ -21,7 +21,8 @@ from repro_torch.configs.registry import get_config, get_smoke_config
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
 CONFIG_CLASSES = ("LSHConfig", "CommConfig", "ObsConfig", "MoEConfig",
-                  "SSMConfig", "XLSTMConfig", "ModelConfig")
+                  "SSMConfig", "XLSTMConfig", "ModelConfig", "OptimizerConfig",
+                  "TrainConfig")
 
 
 def _port_modules():
@@ -44,7 +45,7 @@ def test_port_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert "repro_torch.launch.serve" in mods
+    assert {"repro_torch.launch.serve", "repro_torch.launch.train"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -99,7 +100,7 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
     """With no CUDA device and no explicit CPU request, entry points raise
     instead of running quietly on the CPU."""
     from repro_torch.convert import params_from_jax
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import model as tmodel
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -112,4 +113,6 @@ def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):
         params_from_jax({"blocks": [], "x": np.zeros(2)})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "granite-moe-3b-a800m", "--smoke"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(["--arch", "granite-moe-3b-a800m", "--smoke"])
     assert tmodel.init_params(cfg, device="cpu")["layers"]

@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import dispatch, ref, scatter_gather, token_position
+from repro_torch.kernels import (dispatch, lsh_hash, ref, residual_apply,
+                                 scatter_gather, segment_centroid,
+                                 token_position)
 
 DUP_RTOL = 1e-6
 
@@ -94,3 +96,111 @@ def test_cuda_wrappers_reject_cpu_cuda_mix(h100):
     flat, pos, src, w, e, c = _plan(np.random.default_rng(10))
     with pytest.raises(ValueError, match="different devices"):
         scatter_gather.dispatch_scatter(flat.to(h100), pos, src.to(h100), e, c)
+
+
+# ------------------------------------------------- the LSH kernels (PR 12) --
+
+NEAR_TIE = 1e-5
+
+
+def _lsh_inputs(rng, g=3, c=200, s=24, h=36, dtype=torch.bfloat16):
+    """A ragged shape (C = 200; H = 34 takes the kernels' one-column
+    paths), with slot ids in the overflow bin and beyond it."""
+    slots = rng.integers(0, s, size=(g, c)).astype(np.int32)
+    slots[0, :7] = s
+    slots[-1, 3] = s + 5
+    x = torch.from_numpy(rng.standard_normal((g, c, h)).astype(np.float32))
+    return torch.from_numpy(slots), x.to(dtype), s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rot_dtype", [
+    (torch.bfloat16, torch.bfloat16),       # the tensor-core kernel
+    (torch.bfloat16, torch.float32), (torch.float32, torch.float32)])
+@pytest.mark.parametrize("t,h,dr", [(300, 48, 16), (4100, 1536, 64),
+                                    (70, 36, 12)])
+def test_cuda_lsh_hash_near_tie_rule(h100, dtype, rot_dtype, t, h, dr):
+    rng = np.random.default_rng(20)
+    x = torch.from_numpy(rng.standard_normal((t, h)).astype(np.float32))
+    x[:3] = 0.0
+    x = x.to(dtype)
+    rot = torch.from_numpy((rng.standard_normal((6, h, dr)) / np.sqrt(h))
+                           .astype(np.float32)).to(rot_dtype)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = lsh_hash.KERNEL.launches
+    got = lsh_hash.lsh_hash(x.to(h100), rot.to(h100))
+    again = lsh_hash.lsh_hash(x.to(h100), rot.to(h100))
+    assert lsh_hash.KERNEL.launches == before + 2
+    assert torch.equal(got, again)
+    want = ref.lsh_hash_ref(x, rot)
+    ok = lsh_hash.near_tie_margin(x, rot) > NEAR_TIE
+    assert torch.equal(got.cpu()[ok], want[ok])
+    assert (got.cpu()[:3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [36, 34])
+def test_cuda_segment_centroid_and_residual_apply(h100, dtype, h):
+    """Counts exact; centroids within 1e-6 of the mean magnitude (an f32
+    sum in another order); residual_apply bitwise; both deterministic."""
+    slots, x, s = _lsh_inputs(np.random.default_rng(21), h=h, dtype=dtype)
+    cent, counts = segment_centroid.segment_centroid(slots.to(h100),
+                                                     x.to(h100), s)
+    cent2, _ = segment_centroid.segment_centroid(slots.to(h100), x.to(h100),
+                                                 s)
+    assert torch.equal(cent, cent2)
+    rc, rn = ref.segment_centroid_ref(slots, x, s)
+    mag, _ = ref.segment_centroid_ref(slots, x.float().abs(), s)
+    assert torch.equal(counts.cpu(), rn)
+    assert ((cent.cpu() - rc).abs() <= 1e-6 * mag).all()
+    resid = torch.randn(x.shape, generator=torch.Generator().manual_seed(1))
+    for r in (resid, None):
+        got = residual_apply.residual_apply(
+            slots.to(h100), rc.to(h100), None if r is None else r.to(h100))
+        assert torch.equal(got.cpu(), ref.residual_apply_ref(slots, rc, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["segment_centroid", "residual_apply",
+                                "dispatch_scatter", "combine_gather"])
+def test_cuda_backward_matches_plain(h100, op):
+    """Each autograd.Function backward with the kernels against the same
+    Function on the CPU (the plain versions), on the same cotangent."""
+
+    def run(dev):
+        gen = torch.Generator().manual_seed(5)
+        if op in ("segment_centroid", "residual_apply"):
+            slots, x, s = _lsh_inputs(np.random.default_rng(23),
+                                      dtype=torch.float32)
+            if op == "segment_centroid":
+                leaf = x.to(dev).requires_grad_(True)
+                out = dispatch.segment_centroid(slots.to(dev), leaf, s)[0]
+                leaves = [leaf]
+            else:
+                e = torch.randn(3, s, 36, generator=gen).to(dev) \
+                    .requires_grad_(True)
+                r = x.to(dev).requires_grad_(True)
+                out = dispatch.residual_apply(slots.to(dev), e, r)
+                leaves = [e, r]
+        else:
+            flat, pos, src, w, e, c = _plan(np.random.default_rng(24))
+            if op == "dispatch_scatter":
+                leaf = src.to(torch.bfloat16).to(dev).requires_grad_(True)
+                out = dispatch.dispatch_scatter(flat.to(dev), pos.to(dev),
+                                                leaf, e, c)
+                leaves = [leaf]
+            else:
+                buf = torch.randn(e, c, src.shape[1], generator=gen) \
+                    .to(dev).requires_grad_(True)
+                wl = w.to(dev).requires_grad_(True)
+                out = dispatch.combine_gather(flat.to(dev), pos.to(dev), buf,
+                                              wl)
+                leaves = [buf, wl]
+        ct = torch.randn(out.shape, generator=gen).to(dev)
+        return [g.cpu() for g in torch.autograd.grad(out, leaves, ct)]
+
+    for got, want in zip(run(h100), run(torch.device("cpu"))):
+        assert got.dtype == want.dtype
+        assert ((got.float() - want.float()).abs()
+                <= 1e-6 * (1 + want.float().abs())).all()

@@ -21,7 +21,9 @@ import jax.numpy as jnp
 
 from repro.kernels import dispatch as jdispatch
 from repro.kernels import ref as jref
-from repro_torch.kernels import dispatch, ref, scatter_gather, token_position
+from repro_torch.kernels import (dispatch, lsh_hash, ref, residual_apply,
+                                 scatter_gather, segment_centroid,
+                                 token_position)
 
 JAX_BACKENDS = ("reference", "pallas_interpret")
 DUP_RTOL = 1e-6
@@ -140,14 +142,28 @@ def test_cpu_tensors_take_the_plain_path():
 
 
 @pytest.mark.parametrize("bad", ["int64_ids", "2d_ids", "f16_src",
-                                 "f64_weights"])
+                                 "f64_weights", "f16_hash_x", "hash_h_mismatch",
+                                 "int64_slots", "bf16_eout",
+                                 "residual_shape"])
 def test_wrappers_reject_bad_inputs(bad):
     ids = torch.zeros(4, dtype=torch.int32)
     src = torch.zeros(4, 8)
     buf = torch.zeros(2, 2, 8)
     w = torch.ones(4)
+    slots = torch.zeros(2, 4, dtype=torch.int32)
     with pytest.raises(ValueError):
-        if bad == "int64_ids":
+        if bad == "f16_hash_x":
+            lsh_hash.lsh_hash(src.half(), torch.zeros(2, 8, 4))
+        elif bad == "hash_h_mismatch":
+            lsh_hash.lsh_hash(src, torch.zeros(2, 6, 4))
+        elif bad == "int64_slots":
+            segment_centroid.segment_centroid(slots.long(), buf.new_zeros(
+                2, 4, 8), 3)
+        elif bad == "bf16_eout":
+            residual_apply.residual_apply(slots, buf.bfloat16())
+        elif bad == "residual_shape":
+            residual_apply.residual_apply(slots, buf, torch.zeros(2, 3, 8))
+        elif bad == "int64_ids":
             token_position.positions_in_expert(ids.long(), 2)
         elif bad == "2d_ids":
             scatter_gather.dispatch_scatter(ids[None], ids[None], src, 2, 2)
@@ -155,6 +171,26 @@ def test_wrappers_reject_bad_inputs(bad):
             scatter_gather.dispatch_scatter(ids, ids, src.half(), 2, 2)
         else:
             scatter_gather.combine_gather(ids, ids, buf, w.double())
+
+
+def test_lsh_kernels_on_cpu_take_the_plain_path():
+    """The three LSH wrappers run their plain versions on the CPU and count
+    no launch."""
+    rng = np.random.default_rng(8)
+    kernels = (lsh_hash.KERNEL, segment_centroid.KERNEL,
+               residual_apply.KERNEL)
+    before = [k.launches for k in kernels]
+    x = _t(rng.standard_normal((2, 50, 16)).astype(np.float32))
+    rot = _t(rng.standard_normal((3, 16, 8)).astype(np.float32))
+    slots = _t(rng.integers(0, 7, size=(2, 50)).astype(np.int32))
+    assert torch.equal(lsh_hash.lsh_hash(x[0], rot),
+                       ref.lsh_hash_ref(x[0], rot))
+    cent, counts = segment_centroid.segment_centroid(slots, x, 6)
+    rc, rn = ref.segment_centroid_ref(slots, x, 6)
+    assert torch.equal(cent, rc) and torch.equal(counts, rn)
+    assert torch.equal(residual_apply.residual_apply(slots, cent, x),
+                       ref.residual_apply_ref(slots, cent, x))
+    assert [k.launches for k in kernels] == before
 
 
 def test_cuda_tests_skip_without_an_h100_and_say_why():

@@ -1,0 +1,313 @@
+"""The port's LSH ops against the JAX package's: the plain versions of
+``lsh_hash``, ``segment_centroid`` and ``residual_apply`` against
+``repro.kernels.ref`` and the Pallas kernels in interpret mode; the four
+``torch.autograd.Function`` backwards against ``jax.vjp`` of the JAX custom
+VJPs; the hash folding and slot assignment; and ``compress`` /
+``decompress``.  The CUDA kernels are held against these plain versions on
+the card (test_torch_cuda.py, chip_smoke.py).
+
+Inputs are made with numpy from fixed seeds.  Tolerances:
+- vertex ids: equal on every row whose two largest |v| differ by more than
+  NEAR_TIE times the largest (the hash is discontinuous, and two f32
+  products summed in another order may pick another vertex at a near-tie);
+  the other rows are counted and printed;
+- integer outputs, gathers and counts: exact;
+- sums (centroids, scatters, and backwards that sum): within 1e-6 of the
+  sum of the magnitudes of their terms, or absolute 1e-6 where stated.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro.core import clustering as jclust
+from repro.core import hashing as jhash
+from repro.kernels import dispatch as jdispatch
+from repro.kernels import ref as jref
+from repro_torch.core import clustering as tclust
+from repro_torch.core import hashing as thash
+from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels.lsh_hash import near_tie_margin
+
+JAX_BACKENDS = ("reference", "pallas_interpret")
+NEAR_TIE = 1e-5
+RTOL = 1e-6
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _slots(rng, g, c, s):
+    """Slot ids with the overflow bin (s), a far id (s + 5) and -1."""
+    slots = rng.integers(0, s, size=(g, c)).astype(np.int32)
+    slots[0, :7] = s
+    slots[-1, 3] = s + 5
+    slots[-1, 4] = -1
+    return slots
+
+
+def _assert_vertices(got, want, margin, what):
+    ok = margin > NEAR_TIE
+    np.testing.assert_array_equal(got[ok], want[ok], err_msg=what)
+    print(f"{what}: {int((~ok).sum())} of {ok.size} (token, hash) pairs "
+          f"within the near-tie margin; smallest margin {margin.min():.3g}")
+
+
+# ------------------------------------------------------------- lsh_hash --
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_lsh_hash_matches_jax(backend, x_dtype):
+    """T = 300 crosses the Pallas 128-token tiles; rows 0 and 1 are zero
+    (vertex 0, as unfilled dispatch-buffer rows)."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((300, 48)).astype(np.float32)
+    x[:2] = 0.0
+    rot = (rng.standard_normal((3, 48, 16)) / np.sqrt(48)).astype(np.float32)
+    jx = jnp.asarray(x).astype(x_dtype)
+    want = np.asarray(jdispatch.lsh_hash(jx.astype(jnp.float32),
+                                         jnp.asarray(rot), backend=backend))
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, x_dtype))
+    got = dispatch.lsh_hash(tx, _t(rot))
+    assert got.dtype == torch.int32 and got.shape == (300, 3)
+    assert (got[:2] == 0).all()
+    _assert_vertices(got.numpy(), want, near_tie_margin(tx, _t(rot)).numpy(),
+                     f"lsh_hash vs {backend}")
+
+
+def test_lsh_hash_exact_tie_takes_first_index_and_its_sign():
+    """Columns 5 and 9 of R equal column 2 negated: three exactly tied |v|.
+    The ref rule takes index 2 with the sign of v[2] (the Pallas body would
+    sum v over the tie instead, which this port does not follow)."""
+    rng = np.random.default_rng(1)
+    x = rng.standard_normal((40, 32)).astype(np.float32)
+    rot = rng.standard_normal((2, 32, 12)).astype(np.float32) * 0.01
+    rot[:, :, 2] = rng.standard_normal((2, 32)) * 10.0
+    rot[:, :, 5] = -rot[:, :, 2]
+    rot[:, :, 9] = -rot[:, :, 2]
+    want = np.asarray(jref.lsh_hash_ref(jnp.asarray(x), jnp.asarray(rot)))
+    got = dispatch.lsh_hash(_t(x), _t(rot)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert set(np.unique(got // 2)) == {2}
+    assert set(np.unique(got % 2)) == {0, 1}
+
+
+def test_fold_wraps_int32_like_jax():
+    rng = np.random.default_rng(2)
+    ids = rng.integers(0, 128, size=(50, 6)).astype(np.int32)
+    ids[0] = 127                         # 127 * 1000003^5 wraps many times
+    want = np.asarray(jhash._fold(jnp.asarray(ids)))
+    got = thash._fold(_t(ids))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want < 0).any()              # the fold did overflow
+
+
+def test_assign_slots_floor_mod_of_int_min(monkeypatch):
+    """abs(INT_MIN) stays negative; JAX's % is a floor-mod, so the slot is
+    still in [0, S)."""
+    special = np.array([np.iinfo(np.int32).min, -7, 0, 13, 2 ** 31 - 1],
+                       np.int32)
+    monkeypatch.setattr(thash, "lsh_hash", lambda *a: _t(special))
+    monkeypatch.setattr(tclust, "lsh_hash", lambda *a: _t(special))
+    got = tclust.assign_slots(None, None, 24, "cross_polytope")
+    want = np.abs(special) % np.int32(24)           # numpy: floor-mod too
+    want_j = np.asarray(jnp.abs(jnp.asarray(special)) % jnp.int32(24))
+    np.testing.assert_array_equal(want, want_j)
+    np.testing.assert_array_equal(got.numpy(), want_j)
+    assert got.dtype == torch.int32 and (got.numpy() >= 0).all()
+
+
+def test_spherical_hash_matches_jax():
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((4, 9, 32)).astype(np.float32)
+    rot = rng.standard_normal((5, 32, 8)).astype(np.float32)
+    want = np.asarray(jhash.spherical_hash(jnp.asarray(x), jnp.asarray(rot)))
+    got = thash.lsh_hash(_t(x), _t(rot), "spherical")
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+# --------------------------------------------- segment_centroid / residual --
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_segment_centroid_matches_jax(backend, x_dtype):
+    """C = 200 is not a multiple of the Pallas 128-row tile; the overflow
+    bin and the out-of-range ids count nowhere."""
+    rng = np.random.default_rng(4)
+    g, c, s, h = 3, 200, 24, 20
+    slots = _slots(rng, g, c, s)
+    jx = jnp.asarray(rng.standard_normal((g, c, h)).astype(np.float32)
+                     ).astype(x_dtype)
+    cent, counts = jdispatch.segment_centroid(jnp.asarray(slots), jx, s,
+                                              backend=backend)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, x_dtype))
+    tcent, tcounts = dispatch.segment_centroid(_t(slots), tx, s)
+    np.testing.assert_array_equal(tcounts.numpy(), np.asarray(counts))
+    assert tcounts.sum() == g * c - 9
+    mag, _ = ref.segment_centroid_ref(_t(slots), tx.float().abs(), s)
+    assert (np.abs(tcent.numpy() - np.asarray(cent))
+            <= RTOL * mag.numpy()).all()
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("residual", [True, False])
+def test_residual_apply_matches_jax(backend, residual):
+    rng = np.random.default_rng(5)
+    g, c, s, h = 3, 200, 24, 20
+    slots = _slots(rng, g, c, s)
+    eout = rng.standard_normal((g, s, h)).astype(np.float32)
+    res = rng.standard_normal((g, c, h)).astype(np.float32)
+    want = np.asarray(jdispatch.residual_apply(
+        jnp.asarray(slots), jnp.asarray(eout),
+        jnp.asarray(res if residual else np.zeros_like(res)),
+        backend=backend))
+    got = dispatch.residual_apply(_t(slots), _t(eout),
+                                  _t(res) if residual else None)
+    np.testing.assert_array_equal(got.numpy(), want)
+    out_of_range = (slots >= s) | (slots < 0)
+    np.testing.assert_array_equal(
+        got.numpy()[out_of_range], res[out_of_range] if residual else 0.0)
+
+
+# --------------------------------------------------------- the backwards --
+
+def _routing(rng, f=300, e=5, c=16, h=24):
+    ids = rng.integers(0, e, size=f).astype(np.int32)
+    ids[[0, 3, 60]] = [-1, e + 2, e]
+    pos, keep, _ = jdispatch.positions_in_expert(jnp.asarray(ids), e, c,
+                                                 backend="reference")
+    flat = np.where(np.asarray(keep), ids, e).astype(np.int32)
+    return flat, np.asarray(pos), e, c, h
+
+
+@pytest.mark.parametrize("op", ["segment_centroid", "residual_apply",
+                                "dispatch_scatter", "combine_gather"])
+@pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
+def test_backward_matches_jax_vjp(op, x_dtype):
+    """Each autograd.Function backward against jax.vjp of the
+    pallas_interpret custom VJP on the same cotangent, within 1e-6; the
+    cotangent comes back in the primal's dtype."""
+    rng = np.random.default_rng(6)
+    be = "pallas_interpret"
+    dt = getattr(torch, x_dtype)
+
+    def pair(a):
+        j = jnp.asarray(a).astype(x_dtype)
+        return j, _t(np.asarray(j.astype(jnp.float32))).to(dt) \
+            .requires_grad_(True)
+
+    if op in ("segment_centroid", "residual_apply"):
+        g, c, s, h = 2, 150, 16, 12
+        slots = _slots(rng, g, c, s)
+        if op == "segment_centroid":
+            jx, tx = pair(rng.standard_normal((g, c, h)))
+            ct = rng.standard_normal((g, s, h)).astype(np.float32)
+            _, vjp = jax.vjp(lambda x: jdispatch.segment_centroid(
+                jnp.asarray(slots), x, s, backend=be)[0], jx)
+            want = vjp(jnp.asarray(ct))
+            out = dispatch.segment_centroid(_t(slots), tx, s)[0]
+            got = torch.autograd.grad(out, [tx], _t(ct))
+        else:
+            je, te = pair(rng.standard_normal((g, s, h)))
+            jr, tr = pair(rng.standard_normal((g, c, h)))
+            ct = rng.standard_normal((g, c, h)).astype(np.float32)
+            _, vjp = jax.vjp(lambda e, r: jdispatch.residual_apply(
+                jnp.asarray(slots), e, r, backend=be), je, jr)
+            want = vjp(jnp.asarray(ct))
+            out = dispatch.residual_apply(_t(slots), te, tr)
+            got = torch.autograd.grad(out, [te, tr], _t(ct))
+    else:
+        flat, pos, e, c, h = _routing(rng)
+        if op == "dispatch_scatter":
+            js, ts = pair(rng.standard_normal((flat.shape[0], h)))
+            ct = rng.standard_normal((e, c, h)).astype(np.float32)
+            _, vjp = jax.vjp(lambda x: jdispatch.dispatch_scatter(
+                jnp.asarray(flat), jnp.asarray(pos), x, e, c, backend=be), js)
+            want = vjp(jnp.asarray(ct))
+            out = dispatch.dispatch_scatter(_t(flat), _t(pos), ts, e, c)
+            got = torch.autograd.grad(out, [ts], _t(ct))
+        else:
+            jb = jnp.asarray(rng.standard_normal((e, c, h)).astype(
+                np.float32))
+            tb = _t(np.asarray(jb)).requires_grad_(True)
+            jw = jnp.asarray(rng.uniform(size=flat.shape[0]).astype(
+                np.float32))
+            tw = _t(np.asarray(jw)).requires_grad_(True)
+            ct = rng.standard_normal((flat.shape[0], h)).astype(np.float32)
+            _, vjp = jax.vjp(lambda b, w: jdispatch.combine_gather(
+                jnp.asarray(flat), jnp.asarray(pos), b, w, backend=be),
+                jb, jw)
+            want = vjp(jnp.asarray(ct))
+            out = dispatch.combine_gather(_t(flat), _t(pos), tb, tw)
+            got = torch.autograd.grad(out, [tb, tw], _t(ct))
+    assert len(got) == len(want)
+    for gt, wt in zip(got, want):
+        assert str(gt.dtype).split(".")[-1] == str(wt.dtype)
+        np.testing.assert_allclose(gt.float().numpy(),
+                                   np.asarray(wt.astype(jnp.float32)),
+                                   rtol=RTOL, atol=RTOL)
+
+
+# ------------------------------------------------- compress / decompress --
+
+@pytest.mark.parametrize("wire_format", [None, "bf16"])
+@pytest.mark.parametrize("compensation", [True, False])
+def test_compress_decompress_match_jax(wire_format, compensation):
+    """The same tokens, occupancy and rotations: equal slots and counts,
+    centroids and the decompressed expert outputs (an identity-plus-scale
+    'expert') within 1e-6; gradients of the round trip within 1e-6."""
+    rng = np.random.default_rng(7)
+    g, c, h, s = 3, 40, 32, 8
+    tokens = rng.standard_normal((g, c, h)).astype(np.float32)
+    valid = rng.uniform(size=(g, c)) < 0.8
+    rot = (rng.standard_normal((4, h, 16)) / np.sqrt(h)).astype(np.float32)
+    ct = rng.standard_normal((g, c, h)).astype(np.float32)
+
+    def j_round(tok):
+        comp = jclust.compress(tok, jnp.asarray(valid), jnp.asarray(rot), s,
+                               "cross_polytope", compensation,
+                               backend="reference", wire_format=wire_format)
+        y = jclust.decompress(comp.centroids.astype(jnp.float32) * 1.5,
+                              comp, backend="reference")
+        return y, comp
+
+    jy, jcomp = j_round(jnp.asarray(tokens))
+    _, vjp = jax.vjp(lambda t: j_round(t)[0], jnp.asarray(tokens))
+    (jdx,) = vjp(jnp.asarray(ct))
+
+    tt = _t(tokens).requires_grad_(True)
+    tcomp = tclust.compress(tt, _t(valid), _t(rot), s, "cross_polytope",
+                            compensation, wire_format=wire_format)
+    ty = tclust.decompress(tcomp.centroids.float() * 1.5, tcomp)
+    (tdx,) = torch.autograd.grad(ty, [tt], _t(ct))
+
+    np.testing.assert_array_equal(tcomp.slots.numpy(), np.asarray(jcomp.slots))
+    np.testing.assert_array_equal(tcomp.counts.numpy(),
+                                  np.asarray(jcomp.counts))
+    np.testing.assert_allclose(tcomp.centroids.detach().numpy(),
+                               np.asarray(jcomp.centroids), atol=1e-6)
+    np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
+                               atol=1e-6)
+    np.testing.assert_allclose(tdx.numpy(), np.asarray(jdx), atol=1e-6)
+    if compensation:
+        assert tcomp.residuals is None and tcomp.tokens is tt
+        # the diagnostic view JAX returns: tokens - centroids[slot]
+        unclamped = np.where(valid, np.asarray(jcomp.slots), s)
+        view = tokens - ref.residual_apply_ref(
+            _t(unclamped.astype(np.int32)),
+            tcomp.centroids.detach().float()).numpy()
+        np.testing.assert_allclose(view, np.asarray(jcomp.residuals),
+                                   atol=1e-6)
+    else:
+        assert tcomp.tokens is None and (tcomp.residuals == 0).all()
+    stats = tclust.compression_stats(tcomp, _t(valid), wire_format)
+    jstats = jclust.compression_stats(jcomp, jnp.asarray(valid), wire_format)
+    for k in ("configured_rate", "wire_bytes", "wire_bytes_ratio_vs_bf16"):
+        assert stats[k] == jstats[k], k
+    for k in ("occupied_slots", "effective_rate"):
+        np.testing.assert_allclose(float(stats[k]), float(jstats[k]),
+                                   rtol=1e-6, err_msg=k)
