@@ -24,6 +24,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
               called twice gives the same bits, and each autograd.Function
               backward matches autograd through the plain versions within
               1e-6 of the sum of the magnitudes of each result's terms.
+              The wire kernels (wire_quantize from f32 centroids and from
+              bf16 expert outputs, wire_dequantize, and the fused
+              dispatch_scatter_quantize, dequantize_combine_gather,
+              dequantize_residual_apply with and without base) for int8
+              and fp8 at the training shape (G=40, S=208) and the decode
+              one: bitwise (payload bits, scales, values), each fused
+              kernel bitwise the unfused kernels it replaces, timed
+              beside the shortest PyTorch chain; and an fp8 encode sweep
+              of every 97th f32 bit pattern in [-448, 448] (23,479,456
+              values) bitwise torch's CUDA cast, every non-NaN code's
+              decode bitwise torch's.
   4. serve    repro_torch.launch.serve.main at the full granite-moe-3b-a800m
               config (bf16, random weights from a seeded torch.Generator):
               8 requests, 4 slots, 16 prompt + 16 generated tokens; each
@@ -38,7 +49,15 @@ Phases, each of which raises (and so exits non-zero) on failure:
               finite losses, no skips, every kernel launched on the LSH-on
               run and no LSH kernel on the other; then one steady-state
               step under torch.profiler (device busy ms, idle share, top
-              device ops).
+              device ops).  Then the int8 / fp8 wire (LSHConfig.
+              wire_format by dataclasses.replace, through
+              init_train_state + make_train_step): int8 with LSH on (3
+              steps), fp8 with LSH on (2), int8 with LSH off (2); finite
+              losses, and each wire kernel of the setting launched its
+              expected count a step (LSH on: wire_quantize 128,
+              wire_dequantize 128, dequantize_residual_apply 64; off:
+              dispatch_scatter_quantize 64, wire_quantize 64,
+              wire_dequantize 64, dequantize_combine_gather 96).
   7. train parity  the config at full width, 2 layers, f32, LSH on, batch
               2 x 64: one train step (the first of a warm-up) on the card
               (kernels) and on the CPU (plain versions) from the same
@@ -47,11 +66,13 @@ Phases, each of which raises (and so exits non-zero) on failure:
               leaf within 1e-4 and each param after AdamW within 1e-5
               relative L2.  With the production bf16 wire, whose roundings
               turn the two devices' last-bit f32 differences into bf16
-              steps (ROADMAP Queue 3): the first layer's slots equal and
-              the loss within 1e-3; the rest is printed.
+              steps (ROADMAP Queue 3), and with the int8 wire, whose
+              roundings do the same by whole quanta: the first layer's
+              slots equal and the loss within 1e-3; the rest is printed.
 The line before the last is the kernels' JSON record (times at the
-training shape, launches of the LSH-on training run); the last line is
-{"ok": true, "device": {...}}.  Without a CUDA device, or without the rest
+training shape, int8 for the wire kernels; launches of the bf16-wire
+LSH-on training run for the routing and LSH kernels, of the int8 runs
+for the wire kernels); the last line is {"ok": true, "device": {...}}.  Without a CUDA device, or without the rest
 of the repository beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -84,6 +105,19 @@ REPS = 30
 SLEEP_CYCLES = 4_000_000           # ~2 ms at the H100's clocks
 TRAIN_ARGV = ["--arch", ARCH, "--batch", "4", "--seq", "1024",
               "--log-every", "1"]
+WIRE_FORMATS = ("int8", "fp8")
+# (wire format, LSH on, steps) of the quantized training runs, and the
+# wire kernels' launches per MoE layer and step of each setting: each
+# forward runs twice (the checkpoint's recompute); with LSH on it encodes
+# and decodes the centroids (compress) and the expert outputs, and with
+# it off the backward adds a dequantize-gather for the combine weights'
+# gradient
+WIRE_RUNS = (("int8", True, 3), ("fp8", True, 2), ("int8", False, 2))
+WIRE_LAUNCHES_PER_LAYER = {
+    True: {"wire_quantize": 4, "wire_dequantize": 4,
+           "dequantize_residual_apply": 2},
+    False: {"dispatch_scatter_quantize": 2, "wire_quantize": 2,
+            "wire_dequantize": 2, "dequantize_combine_gather": 3}}
 
 
 def log(msg: str) -> None:
@@ -526,6 +560,223 @@ def check_backwards(torch, dispatch, ref, p, q):
             f"({', '.join(str(tuple(a.shape)) for a in got)})")
 
 
+def _u8(t):
+    """A payload as comparable bytes: fp8 through its uint8 bits (torch
+    compares no float8 tensors)."""
+    import torch
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _quantize_chain(torch, x, fmt):
+    """The shortest PyTorch chain for the wire quantize: amax, exp2(ceil(
+    log2)) of the quotient, div, round and clamp (int8) or clamp (fp8),
+    cast.  A yardstick of time only: log2 in floats is not exact at the
+    power-of-two boundaries the kernel's bit arithmetic is."""
+    xf = x.float()
+    qm = 127.0 if fmt == "int8" else 448.0
+    sc = torch.exp2(torch.ceil(torch.log2(
+        xf.abs().amax(-1, keepdim=True) / qm)))
+    y = xf / sc
+    if fmt == "int8":
+        return torch.clamp(torch.round(y), -127, 127).to(torch.int8), sc
+    return torch.clamp(y, -448, 448).to(torch.float8_e4m3fn), sc
+
+
+def check_wire_kernels(torch, mods, ref, p, q, label, fmt):
+    """The five wire kernels on the training path's inputs for ``fmt``:
+    bitwise against their plain versions (and the same bits on a second
+    call), each fused kernel bitwise against the unfused kernels it
+    replaces on the card, and timed beside its bound and its library
+    chain."""
+    wq, fw = mods["wire_quant"], mods["fused_wire"]
+    sg, ram = mods["scatter_gather"], mods["residual_apply"]
+    E, C, F, H = p["E"], p["C"], p["F"], p["H"]
+    G, S = q["G"], q["S"]
+    flat, pos, src, buf, w, keep = (p["flat"], p["pos"], p["src"], p["buf"],
+                                    p["w"], p["keep"])
+    n_kept = int(keep.sum())
+    cent, _ = ref.segment_centroid_ref(q["slots"], q["disp"], S)
+    eo16 = q["eout"].to(torch.bfloat16)
+    slots = torch.clamp(q["slots"], max=S - 1).contiguous()
+    resid = q["resid"]
+    qc, sc = ref.wire_quantize_ref(cent, fmt)
+    qe, se = ref.wire_quantize_ref(q["eout"], fmt)
+    base = ref.wire_dequantize_ref(qc, sc)
+    qb, sb = ref.wire_quantize_ref(buf, fmt)
+    n_ref = int(torch.unique(torch.arange(G, device="cuda")[:, None] * S
+                             + slots).numel())
+    ids_c, pos_c = flat.long().clamp(0, E - 1), pos.long().clamp(0, C - 1)
+    w_m = w * keep.float()
+    rows = torch.where(keep, flat.long() * C + pos.long(), E * C)
+    rows_c = (torch.arange(G, device="cuda")[:, None] * S + slots) \
+        .reshape(-1)
+    src32 = src.float()
+
+    def quant(x):
+        return lambda: tuple(map(_u8, wq.wire_quantize(x, fmt)))
+
+    def quant_ref(x):
+        return lambda: tuple(map(_u8, ref.wire_quantize_ref(x, fmt)))
+
+    out = {}
+    for name, x in (("wire_quantize", cent), ("wire_quantize (bf16)", eo16)):
+        out[name] = _record(
+            torch, label, f"{name} {fmt}", quant(x), quant_ref(x),
+            lambda x=x: _quantize_chain(torch, x, fmt),
+            _bound(x.numel() * (x.element_size() + 1) + G * S * 4,
+                   4 * x.numel()))
+    out["wire_dequantize"] = _record(
+        torch, label, f"wire_dequantize {fmt}",
+        lambda: (wq.wire_dequantize(qc, sc),),
+        lambda: (ref.wire_dequantize_ref(qc, sc),),
+        lambda: qc.float() * sc[..., None],
+        _bound(qc.numel() * 5 + G * S * 4, qc.numel()))
+    out["dispatch_scatter_quantize"] = _record(
+        torch, label, f"dispatch_scatter_quantize {fmt}",
+        lambda: tuple(map(_u8, fw.dispatch_scatter_quantize(
+            flat, pos, src, E, C, fmt))),
+        lambda: tuple(map(_u8, ref.dispatch_scatter_quantize_ref(
+            flat, pos, src, E, C, fmt))),
+        lambda: _quantize_chain(torch, torch.zeros(
+            E * C + 1, H, device="cuda").index_put_(
+                (rows,), src32, accumulate=True), fmt),
+        _bound(F * 8 + n_kept * H * src.element_size() + E * C * (H + 4),
+               n_kept * H + 4 * E * C * H))
+    out["dequantize_combine_gather"] = _record(
+        torch, label, f"dequantize_combine_gather {fmt}",
+        lambda: (fw.dequantize_combine_gather(flat, pos, qb, sb, w),),
+        lambda: (ref.dequantize_combine_gather_ref(flat, pos, qb, sb, w),),
+        lambda: (qb[ids_c, pos_c].float() * sb[ids_c, pos_c][:, None])
+        * w_m[:, None],
+        _bound(F * 12 + n_kept * (H + 4) + F * H * 4, 2 * F * H))
+    out["dequantize_residual_apply"] = _record(
+        torch, label, f"dequantize_residual_apply {fmt}",
+        lambda: (fw.dequantize_residual_apply(slots, qe, se, resid, base),),
+        lambda: (ref.dequantize_residual_apply_ref(slots, qe, se, resid,
+                                                   base),),
+        lambda: (qe.float() * se[..., None] - base).reshape(G * S, H)[
+            rows_c].view(G, C, H) + resid,
+        _bound(G * C * 4 + n_ref * (H * 5 + 4) + 2 * G * C * H * 4,
+               3 * G * C * H))
+    out["dequantize_residual_apply (no base)"] = _record(
+        torch, label, f"dequantize_residual_apply (no base) {fmt}",
+        lambda: (fw.dequantize_residual_apply(slots, qe, se, resid),),
+        lambda: (ref.dequantize_residual_apply_ref(slots, qe, se, resid),),
+        lambda: (qe.float() * se[..., None]).reshape(G * S, H)[
+            rows_c].view(G, C, H) + resid,
+        _bound(G * C * 4 + n_ref * (H + 4) + 2 * G * C * H * 4,
+               2 * G * C * H))
+
+    # fused == composed, on the card
+    fq, fs = fw.dispatch_scatter_quantize(flat, pos, src, E, C, fmt)
+    cq, cs = wq.wire_quantize(sg.dispatch_scatter(flat, pos, src, E, C), fmt)
+    same = [torch.equal(_u8(fq), _u8(cq)) and torch.equal(fs, cs)]
+    same.append(torch.equal(
+        fw.dequantize_combine_gather(flat, pos, qb, sb, w),
+        sg.combine_gather(flat, pos, wq.wire_dequantize(qb, sb), w)))
+    dq = wq.wire_dequantize(qe, se)
+    same.append(torch.equal(
+        fw.dequantize_residual_apply(slots, qe, se, resid, base),
+        ram.residual_apply(slots, dq - base, resid)))
+    same.append(torch.equal(
+        fw.dequantize_residual_apply(slots, qe, se, resid),
+        ram.residual_apply(slots, dq, resid)))
+    if not all(same):
+        raise AssertionError(f"[{label}] {fmt}: a fused kernel differs from "
+                             f"the composed kernels: {same}")
+    log(f"[kernels] {label} {fmt}: fused == composed on the card, bitwise "
+        "(scatter-quantize, dequantize-gather, dequantize-residual with "
+        f"and without base); {n_ref} payload rows referenced of {G * S}")
+    _log_records(f"{label} {fmt}", out)
+    return out
+
+
+def check_wire_decode_shape(torch, mods, ref, p, label):
+    """The fused routing kernels at the decode shape and the quantize /
+    dequantize / residual kernels at a decode-sized [E, C, H], bitwise and
+    timed (printed only)."""
+    wq, fw = mods["wire_quant"], mods["fused_wire"]
+    E, C, H = p["E"], p["C"], p["H"]
+    flat, pos, src, buf, w = p["flat"], p["pos"], p["src"], p["buf"], p["w"]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    slots = torch.randint(0, 2 * C, (E, 2 * C), generator=g, device="cuda",
+                          dtype=torch.int32)
+    resid = torch.randn(E, 2 * C, H, generator=g, device="cuda")
+    for fmt in WIRE_FORMATS:
+        qb, sb = ref.wire_quantize_ref(buf, fmt)
+        base = ref.wire_dequantize_ref(qb, sb)
+        out = {
+            "wire_quantize": _record(
+                torch, label, f"wire_quantize {fmt}",
+                lambda: tuple(map(_u8, wq.wire_quantize(buf, fmt))),
+                lambda: tuple(map(_u8, ref.wire_quantize_ref(buf, fmt))),
+                None, _bound(buf.numel() * 5, 0)),
+            "wire_dequantize": _record(
+                torch, label, f"wire_dequantize {fmt}",
+                lambda: (wq.wire_dequantize(qb, sb),),
+                lambda: (ref.wire_dequantize_ref(qb, sb),), None,
+                _bound(buf.numel() * 5, 0)),
+            "dispatch_scatter_quantize": _record(
+                torch, label, f"dispatch_scatter_quantize {fmt}",
+                lambda: tuple(map(_u8, fw.dispatch_scatter_quantize(
+                    flat, pos, src, E, C, fmt))),
+                lambda: tuple(map(_u8, ref.dispatch_scatter_quantize_ref(
+                    flat, pos, src, E, C, fmt))), None,
+                _bound(E * C * H * 3, 0)),
+            "dequantize_combine_gather": _record(
+                torch, label, f"dequantize_combine_gather {fmt}",
+                lambda: (fw.dequantize_combine_gather(flat, pos, qb, sb,
+                                                      w),),
+                lambda: (ref.dequantize_combine_gather_ref(
+                    flat, pos, qb, sb, w),), None,
+                _bound(p["F"] * H * 5, 0)),
+            "dequantize_residual_apply": _record(
+                torch, label, f"dequantize_residual_apply {fmt}",
+                lambda: (fw.dequantize_residual_apply(slots, qb, sb, resid,
+                                                      base),),
+                lambda: (ref.dequantize_residual_apply_ref(
+                    slots, qb, sb, resid, base),), None,
+                _bound(resid.numel() * 8, 0)),
+        }
+        _log_records(f"{label} {fmt}", out)
+
+
+def check_fp8_sweep(torch, wq):
+    """Every 97th f32 bit pattern in [0, 448], both signs (23,479,456
+    values), through the quantize kernel at scale 1 (each row carries a
+    448 pilot, so its po2 scale is exactly 1 and the kernel encodes the
+    value itself): payload bits against torch's CUDA cast after the
+    clamp.  Then every non-NaN fp8 code through the dequantize kernel
+    against torch's cast to f32."""
+    bits = torch.arange(0, 0x43E00000 + 1, 97, device="cuda",
+                        dtype=torch.int64).to(torch.int32)
+    vals = torch.cat([bits.view(torch.float32), -bits.view(torch.float32)])
+    n, width = vals.numel(), 1536
+    rows = -(-n // (width - 1))
+    body = torch.zeros(rows * (width - 1), device="cuda")
+    body[:n] = vals
+    x = torch.cat([torch.full((rows, 1), 448.0, device="cuda"),
+                   body.view(rows, width - 1)], dim=1)
+    q, s = wq.wire_quantize(x[None], "fp8")
+    got = q[0, :, 1:].reshape(-1)[:n].view(torch.uint8)
+    want = torch.clamp(vals, -448.0, 448.0).to(torch.float8_e4m3fn) \
+        .view(torch.uint8)
+    n_diff = int((got != want).sum())
+    codes = torch.arange(256, device="cuda", dtype=torch.int32) \
+        .to(torch.uint8)
+    codes = codes[(codes & 0x7F) != 0x7F].view(torch.float8_e4m3fn)
+    dq = wq.wire_dequantize(codes.reshape(1, 1, -1),
+                            torch.ones(1, 1, device="cuda"))
+    dec_ok = torch.equal(dq.reshape(-1), codes.float())
+    log(f"[kernels] fp8 sweep: {n} values, scales all 1: "
+        f"{bool((s == 1).all())}, {n_diff} payloads differ from torch's "
+        f"CUDA cast; {codes.numel()} non-NaN codes decode as torch's: "
+        f"{dec_ok}")
+    if n_diff or not dec_ok or not bool((s == 1).all()):
+        raise AssertionError("fp8 sweep: the kernel's encode or decode "
+                             "differs from torch's cast")
+
+
 def phase_kernels(torch, mods, ref, moe_lib, hashing):
     tp, sg = mods["token_position"], mods["scatter_gather"]
     # decode shape: 4 batch slots, top-8 of 40, capacity max(4, ceil(1.6))
@@ -548,6 +799,12 @@ def phase_kernels(torch, mods, ref, moe_lib, hashing):
     check_lsh_ragged(torch, mods["lsh_hash"], mods["segment_centroid"],
                      mods["residual_apply"], ref)
     check_backwards(torch, mods["dispatch"], ref, train, q)
+    for fmt in WIRE_FORMATS:
+        wire = check_wire_kernels(torch, mods, ref, train, q, "train", fmt)
+        if fmt == "int8":                   # the JSON record's times
+            res.update(wire)
+    check_wire_decode_shape(torch, mods, ref, decode, "decode")
+    check_fp8_sweep(torch, mods["wire_quant"])
     return res
 
 
@@ -600,7 +857,7 @@ def tree_to(tree, device):
     return tree.detach().to(device)
 
 
-def phase_parity(torch, model_lib, kernels, cfg_full):
+def phase_parity(torch, model_lib, kernels, routing_kernels, cfg_full):
     """Same params on the card (kernels) and on the CPU (plain versions),
     f32 with TF32 off on the card."""
     cfg = cfg_full.replace(num_super_blocks=2, dtype="float32")
@@ -621,8 +878,10 @@ def phase_parity(torch, model_lib, kernels, cfg_full):
             outs.append(logits.float().cpu())
         runs[name] = torch.cat(outs, dim=1)
         ran = [k.launches - b for k, b in zip(kernels, before)]
-        if name == "cuda" and ran != [cfg.num_layers * 8] * 3 + [0] * 3:
-            raise AssertionError(f"parity run launched {ran}")
+        want = [cfg.num_layers * 8 if k in routing_kernels else 0
+                for k in kernels]
+        if name == "cuda" and ran != want:
+            raise AssertionError(f"parity run launched {ran}, want {want}")
         if name == "cpu" and any(ran):
             raise AssertionError("the CPU run launched CUDA kernels")
     a, b = runs["cuda"], runs["cpu"]
@@ -644,10 +903,12 @@ def _events(buf):
             if line.startswith("{")]
 
 
-def phase_train(torch, train, kernels, lsh_kernels):
-    """train.main at the full config: 3 steps with LSH on, 2 with it off.
-    Returns {"on": (summary, launches), "off": (...)}, launches counted
-    over the run with every count set to 0 just before it."""
+def phase_train(torch, train, kernels, routing_kernels, lsh_kernels,
+                wire_kernels):
+    """train.main at the full config (the bf16 wire): 3 steps with LSH on,
+    2 with it off.  Returns {"on": (summary, launches), "off": (...)},
+    launches counted over the run with every count set to 0 just before
+    it."""
     out = {}
     for lsh, steps in (("on", 3), ("off", 2)):
         for k in kernels:
@@ -675,13 +936,90 @@ def phase_train(torch, train, kernels, lsh_kernels):
                    for e in step_ev):
             raise AssertionError("a training step had a non-finite loss or "
                                  "skipped")
-        never = [n for n, c in launches.items() if c == 0]
+        never = [k.name for k in routing_kernels + lsh_kernels
+                 if launches[k.name] == 0]
         if lsh == "on" and never:
             raise AssertionError(f"kernels never launched with LSH on: "
                                  f"{never}")
         if lsh == "off" and any(launches[k.name] for k in lsh_kernels):
             raise AssertionError("LSH kernels launched with LSH off")
+        if any(launches[k.name] for k in wire_kernels):
+            raise AssertionError("wire kernels launched with the bf16 wire")
         out[lsh] = (s, launches)
+    return out
+
+
+def with_wire(cfg, **lsh):
+    """``cfg`` with LSHConfig fields replaced (dataclasses.replace)."""
+    import dataclasses
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, lsh=dataclasses.replace(cfg.moe.lsh, **lsh)))
+
+
+def phase_train_wire(torch, cfg, step_lib, data_lib, kernels,
+                     routing_kernels, lsh_kernels):
+    """The full config, 4 x 1024 tokens, with the int8 and fp8 wires
+    (LSHConfig.wire_format, by dataclasses.replace) through
+    init_train_state + make_train_step: int8 with LSH on (3 steps), fp8
+    with LSH on (2) and int8 with LSH off (2, the coded baseline).  Each
+    run's loss is finite, each wire kernel of its setting launches
+    WIRE_LAUNCHES_PER_LAYER times the MoE layers a step (32 layers: 128,
+    128 and 64 with LSH on; 64, 64, 64 and 96 with it off), the routing
+    (and with LSH on the LSH) kernels launch, and no other.  Returns {(fmt, lsh): (summary,
+    launches)}."""
+    from repro_torch.configs.base import OptimizerConfig
+    dev = torch.device("cuda")
+    out = {}
+    for fmt, lsh, steps in WIRE_RUNS:
+        c = with_wire(cfg, wire_format=fmt)
+        opt = OptimizerConfig(lr=1e-3, warmup_steps=min(20, steps // 5),
+                              total_steps=steps)
+        ds = data_lib.SyntheticLMDataset(c.vocab_size, 1024, 4)
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = step_lib.init_train_state(c, opt, seed=0, device=dev)
+        step_fn = step_lib.make_train_step(c, opt, use_lsh=lsh)
+        for k in kernels:
+            k.launches = 0
+        losses, dts = [], []
+        for s in range(steps):
+            batch = step_lib.batch_to_device(ds.batch_at(s), dev)
+            t0 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            losses.append(float(m["loss"]))       # waits for the step
+            dts.append(time.perf_counter() - t0)
+            if int(m["grad_skips"]):
+                raise AssertionError(f"{fmt} lsh={lsh}: step {s} skipped")
+        launches = {k.name: k.launches for k in kernels}
+        steady = dts[1:]
+        summary = dict(
+            wire_format=fmt, lsh=lsh, steps=steps, batch=4, seq=1024,
+            losses=losses, step_ms=[d * 1e3 for d in dts],
+            mean_step_ms_after_first=sum(steady) / len(steady) * 1e3,
+            tokens_per_s=4 * 1024 * len(steady) / sum(steady),
+            peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+        tag = f"{fmt} lsh {'on' if lsh else 'off'}"
+        log(f"[train-wire] {tag} summary " + json.dumps(summary,
+                                                        sort_keys=True))
+        per_step = {n: cnt / steps for n, cnt in launches.items()}
+        log(f"[train-wire] {tag} launches per step " + json.dumps(per_step))
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{tag}: a loss is not finite: {losses}")
+        want = {n: 0 for n in launches}
+        want.update({n: cnt * c.num_layers
+                     for n, cnt in WIRE_LAUNCHES_PER_LAYER[lsh].items()})
+        ran = {k.name for k in routing_kernels + (lsh_kernels if lsh
+                                                  else ())}
+        bad = {n: cnt for n, cnt in per_step.items()
+               if (n in ran and cnt == 0)
+               or (n not in ran and cnt != want[n])}
+        if bad:
+            raise AssertionError(f"{tag}: launches per step {bad}, want "
+                                 f"{want} of the wire kernels, the routing"
+                                 f"{' and LSH' if lsh else ''} kernels, and "
+                                 "nothing else")
+        out[(fmt, lsh)] = (summary, launches)
+        del state, step_fn
+        torch.cuda.empty_cache()
     return out
 
 
@@ -722,11 +1060,10 @@ def phase_train_profile(torch, cfg, step_lib, data_lib, summarize):
 # ------------------------------------------------------ 7. train parity --
 
 def phase_train_parity(torch, model_lib, step_lib, clustering, lh, kernels,
-                       cfg_full):
+                       path_kernels, cfg_full):
     """One train step on the card (kernels) and on the CPU (plain
-    versions) from the same params and batch, per wire dtype."""
-    import dataclasses
-
+    versions) from the same params and batch, per wire: f32, bf16 and
+    int8 (``path_kernels``: the kernels each launches on the card)."""
     from repro_torch.configs.base import OptimizerConfig
     from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.optim.adam import leaves
@@ -737,11 +1074,12 @@ def phase_train_parity(torch, model_lib, step_lib, clustering, lh, kernels,
     orig_assign, orig_update = clustering.assign_slots, step_lib.adamw_update
     cpu = torch.device("cpu")
     try:
-        for wire in ("float32", "bfloat16"):
-            cfg = cfg_full.replace(num_super_blocks=2, dtype="float32")
-            cfg = cfg.replace(moe=dataclasses.replace(
-                cfg.moe, lsh=dataclasses.replace(cfg.moe.lsh,
-                                                 wire_dtype=wire)))
+        for wire, fmt in (("float32", "bf16"), ("bfloat16", "bf16"),
+                          ("bfloat16", "int8")):
+            cfg = with_wire(cfg_full.replace(num_super_blocks=2,
+                                             dtype="float32"),
+                            wire_dtype=wire, wire_format=fmt)
+            expect = {k.name for k in path_kernels[fmt]}
             params_cpu = model_lib.init_params(cfg, seed=5, device=cpu)
             batch = SyntheticLMDataset(cfg.vocab_size, 64, 2).batch_at(0)
             runs = {}
@@ -771,8 +1109,10 @@ def phase_train_parity(torch, model_lib, step_lib, clustering, lh, kernels,
                 before = [k.launches for k in kernels]
                 state, m = step_lib.make_train_step(cfg, opt)(
                     state, step_lib.batch_to_device(batch, dev))
-                ran = [k.launches - b for k, b in zip(kernels, before)]
-                if (dev.type == "cuda") != all(ran):
+                ran = {k.name: k.launches - b
+                       for k, b in zip(kernels, before)}
+                if {n for n, c in ran.items() if c} != (
+                        expect if dev.type == "cuda" else set()):
                     raise AssertionError(f"{name} run launched {ran}")
                 rec["loss"] = float(m["loss"])
                 rec["params"] = [p.detach().cpu()
@@ -794,7 +1134,8 @@ def phase_train_parity(torch, model_lib, step_lib, clustering, lh, kernels,
                         if y is not None and y.any())
             p_rel = max(rel(x, y) for x, y in zip(a["params"], b["params"])
                         if y.is_floating_point())
-            log(f"[train-parity] wire {wire}: slot ids differing per record "
+            log(f"[train-parity] wire {fmt} ({wire}): slot ids differing "
+                "per record "
                 f"(forward of {n_moe} MoE layers, then their recompute) "
                 f"{n_diff}; smallest near-tie margin of the forward hashes "
                 f"{margin:.3g}; loss cuda {a['loss']} cpu {b['loss']} "
@@ -810,11 +1151,14 @@ def phase_train_parity(torch, model_lib, step_lib, clustering, lh, kernels,
                 # a value next to a bf16 boundary rounds the other way, so
                 # the next layer's hash input moves by a bf16 step and a
                 # token near a hash tie may change slot.  Only the first
-                # layer's input is free of it.
+                # layer's input is free of it.  The int8 wire sends the
+                # same bf16 cotangents and rounds the centroids and
+                # expert outputs to a quantum of their row's absmax / 127,
+                # so it is held to the same bound.
                 ok = n_diff[0] == 0 and loss_rel <= BF16_WIRE_LOSS_RTOL
             if not ok:
-                raise AssertionError(f"wire {wire}: CUDA and CPU train steps "
-                                     "disagree")
+                raise AssertionError(f"wire {fmt} ({wire}): CUDA and CPU "
+                                     "train steps disagree")
     finally:
         clustering.assign_slots = orig_assign
         step_lib.adamw_update = orig_update
@@ -836,9 +1180,10 @@ def main() -> int:
     from repro_torch.core import clustering, hashing
     from repro_torch.core import moe as moe_lib
     from repro_torch.data import synthetic
-    from repro_torch.kernels import (build, dispatch, lsh_hash, ref,
-                                     residual_apply, scatter_gather,
-                                     segment_centroid, token_position)
+    from repro_torch.kernels import (build, dispatch, fused_wire, lsh_hash,
+                                     ref, residual_apply, scatter_gather,
+                                     segment_centroid, token_position,
+                                     wire_quant)
     from repro_torch.launch import serve, train
     from repro_torch.launch.profiling import summarize
     from repro_torch.models import model as model_lib
@@ -855,24 +1200,41 @@ def main() -> int:
     phase_build(build, kernels)
     mods = dict(token_position=token_position, scatter_gather=scatter_gather,
                 lsh_hash=lsh_hash, segment_centroid=segment_centroid,
-                residual_apply=residual_apply, dispatch=dispatch)
+                residual_apply=residual_apply, dispatch=dispatch,
+                wire_quant=wire_quant, fused_wire=fused_wire)
+    routing_k, lsh_k = dispatch.ROUTING_KERNELS, dispatch.LSH_KERNELS
     res = phase_kernels(torch, mods, ref, moe_lib, hashing)
     log(f"[time] kernels done at {time.time() - t_start:.1f} s")
     cfg = get_config(ARCH)
-    _, serve_launches = phase_serve(serve, kernels, dispatch.ROUTING_KERNELS,
-                                    cfg)
-    phase_parity(torch, model_lib, kernels, cfg)
+    _, serve_launches = phase_serve(serve, kernels, routing_k, cfg)
+    phase_parity(torch, model_lib, kernels, routing_k, cfg)
     log(f"[time] serve and decode parity done at "
         f"{time.time() - t_start:.1f} s")
-    trained = phase_train(torch, train, kernels, dispatch.LSH_KERNELS)
+    trained = phase_train(torch, train, kernels, routing_k, lsh_k,
+                          dispatch.WIRE_KERNELS)
     torch.cuda.empty_cache()
     phase_train_profile(torch, cfg, step_lib, synthetic, summarize)
     torch.cuda.empty_cache()
     log(f"[time] training done at {time.time() - t_start:.1f} s")
+    wired = phase_train_wire(torch, cfg, step_lib, synthetic, kernels,
+                             routing_k, lsh_k)
+    log(f"[time] quantized training done at {time.time() - t_start:.1f} s")
+    fused_lsh = (wire_quant.QUANTIZE, wire_quant.DEQUANTIZE,
+                 fused_wire.DEQUANTIZE_RESIDUAL)
     phase_train_parity(torch, model_lib, step_lib, clustering, lsh_hash,
-                       kernels, cfg)
+                       kernels, {"bf16": routing_k + lsh_k,
+                                 "int8": routing_k + lsh_k + fused_lsh},
+                       cfg)
 
-    launches = trained["on"][1]
+    # launches of the main path's runs: the bf16 wire with LSH on for the
+    # routing and LSH kernels, the int8 wire with LSH on for the kernels
+    # of its fused path, and with LSH off for the fused routing kernels
+    launches = dict(trained["on"][1])
+    launches.update({k.name: wired[("int8", True)][1][k.name]
+                     for k in fused_lsh})
+    launches.update({k.name: wired[("int8", False)][1][k.name]
+                     for k in (fused_wire.SCATTER_QUANTIZE,
+                               fused_wire.DEQUANTIZE_GATHER)})
     record = {"kernels": [
         {"name": k.name, "route": "cuda", "source": build.source_path(k),
          "replaces": k.replaces, "launches": launches[k.name],

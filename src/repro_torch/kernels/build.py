@@ -3,8 +3,9 @@
 Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  Builds
 happen at first use (or all at once, in parallel, through ``build_all``),
-into ``_build/`` beside this file, named by a hash of the source and flags so
-that an edited source is rebuilt.  Nothing here runs at import.
+into ``_build/`` beside this file, named by a hash of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so that an edited source is
+rebuilt.  Nothing here runs at import.
 
 A ``CudaKernel`` is one C entry point plus what the port reports about it:
 the TPU kernel it replaces and ``launches``, the number of times its wrapper
@@ -42,9 +43,13 @@ def nvcc_path() -> str:
 
 
 def library_path(source: str) -> Path:
+    """The library of ``source``, named by a hash of the source, the shared
+    headers of csrc/ and the flags."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    text = src.read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode()
+                            ).hexdigest()[:12]
     return BUILD_DIR / f"lib{src.stem}_{digest}.so"
 
 

@@ -16,24 +16,19 @@
 // a TPU has no fast scatter; here both directions are direct indexed loads
 // and stores.
 //
-// Scatter design: grid (E, row chunks of kScatterRows, column chunks; one
-// column chunk unless the grid is small, as at decode).  Block (e, chunk)
-// owns buf[e, c0:c0+kScatterRows, cols] and writes every element of it
-// exactly once.  Phase 1 compacts the expert's entries for its rows: it reads the
-// ids and positions (8 bytes per entry, from L2 after the first block,
-// eight loads in flight a thread) and, for each of its rows, keeps the
-// index of the FIRST entry that lands there and how many do (shared-memory
-// integer atomicMin / atomicAdd: their results do not depend on the order
-// the threads arrive in).  Phase 2 walks only its own rows: each thread
-// takes (row, 4-column vector) items, issues kUnroll independent 16-byte
-// source loads before it stores any of them, and writes 0 + src[first]
-// (empty rows get 0).  A row that several entries hit (duplicates are
-// allowed by the op's contract; plans from build_dispatch_plan never have
-// one) adds the later ones in entry order: a block with such rows first
-// lists their entries in entry order in shared memory (phase 1b).  So: no float atomics, a fixed summation order, and
-// bitwise the plain version (index_add_ into zeros) for unique plans.
-// The output is written once and never read back, so the kernel moves
-// about the bytes of its bound plus the ids re-read from L2 by each block.
+// Scatter design: grid (E, row chunks of scatter_rows::kRows, column
+// chunks; one column chunk unless the grid is small, as at decode).  Block
+// (e, chunk) owns buf[e, c0:c0+kRows, cols] and writes every element of it
+// exactly once.  Phase 1 finds each of its rows' first entry and count
+// (scatter_rows.cuh, which also orders the entries of duplicate rows).
+// Phase 2 walks only its own rows: each thread takes (row, 4-column vector)
+// items, issues kUnroll independent 16-byte source loads before it stores
+// any of them, and writes 0 + src[first] (empty rows get 0), then adds a
+// duplicate row's later entries in entry order.  So: no float atomics, a
+// fixed summation order, and bitwise the plain version (index_add_ into
+// zeros) for unique plans.  The output is written once and never read
+// back, so the kernel moves about the bytes of its bound plus the ids
+// re-read from L2 by each block.
 //
 // Gather design: one block per group of kRows entries, threads across H with
 // 16-byte loads and stores.  Each output is a single product, so the result
@@ -41,20 +36,18 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <climits>
 #include <cstddef>
 #include <cstdint>
+
+#include "scatter_rows.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;       // gather
 constexpr int kRows = 4;            // gather entries per block
-constexpr int kScatterThreads = 256;
-constexpr int kScatterRows = 128;   // buffer rows of one expert per block
-constexpr int kIndexUnroll = 8;     // phase-1 entry loads in flight
+constexpr int kScatterThreads = scatter_rows::kThreads;
+constexpr int kScatterRows = scatter_rows::kRows;
 constexpr int kUnroll = 4;          // phase-2 row loads in flight
-constexpr int kDupList = 2048;      // duplicate entries a block keeps
-constexpr int kScatterWarps = kScatterThreads / 32;
 
 template <typename T, int VEC>
 struct alignas(sizeof(T) * VEC) Vec {
@@ -72,80 +65,12 @@ dispatch_scatter_kernel(const int* __restrict__ ids,
                         const int* __restrict__ pos,
                         const T* __restrict__ src, int F, int C, int H,
                         float* __restrict__ out) {
-  __shared__ int s_first[kScatterRows];
-  __shared__ int s_count[kScatterRows];
+  __shared__ scatter_rows::Shared sh;
   const int e = blockIdx.x;
   const int c0 = blockIdx.y * kScatterRows;
   const int rows = min(kScatterRows, C - c0);
   const int tid = threadIdx.x;
-  for (int r = tid; r < kScatterRows; r += kScatterThreads) {
-    s_first[r] = INT_MAX;
-    s_count[r] = 0;
-  }
-  __syncthreads();
-
-  // Phase 1: the first entry and the number of entries of each of this
-  // block's rows.
-  for (int base = tid; base < F; base += kIndexUnroll * kScatterThreads) {
-    int id[kIndexUnroll], p[kIndexUnroll];
-#pragma unroll
-    for (int k = 0; k < kIndexUnroll; ++k) {
-      const int f = base + k * kScatterThreads;
-      id[k] = f < F ? ids[f] : -1;
-      p[k] = f < F ? pos[f] : -1;
-    }
-#pragma unroll
-    for (int k = 0; k < kIndexUnroll; ++k) {
-      const int r = p[k] - c0;
-      if (id[k] == e && r >= 0 && r < rows) {
-        atomicMin(&s_first[r], base + k * kScatterThreads);
-        atomicAdd(&s_count[r], 1);
-      }
-    }
-  }
-  __shared__ int s_dup;
-  if (tid == 0) s_dup = 0;
-  __syncthreads();
-  for (int r = tid; r < rows; r += kScatterThreads)
-    if (s_count[r] > 1) s_dup = 1;
-  __syncthreads();
-
-  // Phase 1b, only in a block with a duplicate row: the entries of its
-  // duplicate rows, in entry order (a warp ballot ranks a warp's entries,
-  // a prefix over the warps places them), so that phase 2 sums each such
-  // row over this short list.  Past kDupList entries phase 2 walks the
-  // entries in device memory instead.
-  __shared__ int s_list_f[kDupList];
-  __shared__ int s_list_r[kDupList];
-  __shared__ int s_warp[kScatterWarps];
-  int n_list = 0;
-  if (s_dup) {
-    const int lane = tid & 31;
-    const int warp = tid >> 5;
-    for (int base = 0; base < F; base += kScatterThreads) {
-      const int f = base + tid;
-      const int r = f < F ? pos[f] - c0 : -1;
-      const bool dup = f < F && ids[f] == e && r >= 0 && r < rows &&
-                       s_count[r] > 1;
-      const unsigned ballot = __ballot_sync(0xffffffffu, dup);
-      if (lane == 0) s_warp[warp] = __popc(ballot);
-      __syncthreads();
-      int before = 0, total = 0;
-#pragma unroll
-      for (int w = 0; w < kScatterWarps; ++w) {
-        before += w < warp ? s_warp[w] : 0;
-        total += s_warp[w];
-      }
-      const int at = n_list + before + __popc(ballot & ((1u << lane) - 1u));
-      if (dup && at < kDupList) {
-        s_list_f[at] = f;
-        s_list_r[at] = r;
-      }
-      n_list += total;
-      __syncthreads();
-    }
-  }
-  const bool listed = n_list <= kDupList;
+  const int n_list = scatter_rows::index_rows(ids, pos, F, e, c0, rows, sh);
 
   // Phase 2: every (row, column vector) of the block written once; the
   // block's column vectors are [v0, v0 + nvec) of the row's H / VEC.
@@ -165,8 +90,8 @@ dispatch_scatter_kernel(const int* __restrict__ ids,
       first[k] = 0;
       if (i < items) {
         const int r = i / nvec;
-        count[k] = s_count[r];
-        first[k] = s_first[r];
+        count[k] = sh.count[r];
+        first[k] = sh.first[r];
         if (count[k] > 0)
           s[k] = *reinterpret_cast<const Vec<T, VEC>*>(
               src + static_cast<size_t>(first[k]) * H + (i % nvec) * VEC);
@@ -182,24 +107,13 @@ dispatch_scatter_kernel(const int* __restrict__ ids,
 #pragma unroll
       for (int j = 0; j < VEC; ++j)
         acc.v[j] = count[k] > 0 ? 0.f + to_f32(s[k].v[j]) : 0.f;
-      // duplicates: the later entries of this row, in entry order, from
-      // the block's list or, past its capacity, from device memory
-      for (int m = 0, seen = 1; listed && seen < count[k]; ++m) {
-        if (s_list_r[m] != r || s_list_f[m] == first[k]) continue;
-        const Vec<T, VEC> d = *reinterpret_cast<const Vec<T, VEC>*>(
-            src + static_cast<size_t>(s_list_f[m]) * H + col);
+      scatter_rows::for_later(
+          sh, n_list, ids, pos, e, c0, r, first[k], count[k], [&](int f) {
+            const Vec<T, VEC> d = *reinterpret_cast<const Vec<T, VEC>*>(
+                src + static_cast<size_t>(f) * H + col);
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) acc.v[j] += to_f32(d.v[j]);
-        ++seen;
-      }
-      for (int f = first[k] + 1, seen = 1; !listed && seen < count[k]; ++f) {
-        if (ids[f] != e || pos[f] != c0 + r) continue;
-        const Vec<T, VEC> d = *reinterpret_cast<const Vec<T, VEC>*>(
-            src + static_cast<size_t>(f) * H + col);
-#pragma unroll
-        for (int j = 0; j < VEC; ++j) acc.v[j] += to_f32(d.v[j]);
-        ++seen;
-      }
+            for (int j = 0; j < VEC; ++j) acc.v[j] += to_f32(d.v[j]);
+          });
       *reinterpret_cast<Vec<float, VEC>*>(
           out_e + static_cast<size_t>(r) * H + col) = acc;
     }

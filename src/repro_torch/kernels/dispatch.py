@@ -16,6 +16,12 @@ and residual_apply are each other's backward, and so are dispatch_scatter
 and combine_gather.  Each backward is a kernel call, and returns its
 cotangent in the primal's dtype, as the JAX code does with
 ``.astype(proto.dtype)``.  Integer inputs get no gradient.
+
+The wire codec ops are forward only: a one-byte payload carries no
+cotangent.  ``wire_roundtrip`` / ``wire_encode_roundtrip`` are the
+quantize-dequantize pair as one unit with a straight-through backward
+(``repro/kernels/dispatch.py:509-563``), and the fused codec ops are
+differentiated one level up, by the transfers of ``comm/wire.py``.
 """
 from __future__ import annotations
 
@@ -23,18 +29,22 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import (lsh_hash as lsh_hash_k, residual_apply as
-                                 residual_apply_k, scatter_gather,
+from repro_torch.kernels import (fused_wire, lsh_hash as lsh_hash_k,
+                                 residual_apply as residual_apply_k,
+                                 scatter_gather,
                                  segment_centroid as segment_centroid_k,
-                                 token_position)
+                                 token_position, wire_quant)
 
 # the routing kernels run on every MoE path; the LSH kernels on train and
-# prefill with LSH on
+# prefill with LSH on; the wire kernels with an int8 / fp8 wire format
 ROUTING_KERNELS = (token_position.KERNEL, scatter_gather.SCATTER,
                    scatter_gather.GATHER)
 LSH_KERNELS = (lsh_hash_k.KERNEL, segment_centroid_k.KERNEL,
                residual_apply_k.KERNEL)
-KERNELS = ROUTING_KERNELS + LSH_KERNELS
+WIRE_KERNELS = (wire_quant.QUANTIZE, wire_quant.DEQUANTIZE,
+                fused_wire.SCATTER_QUANTIZE, fused_wire.DEQUANTIZE_GATHER,
+                fused_wire.DEQUANTIZE_RESIDUAL)
+KERNELS = ROUTING_KERNELS + LSH_KERNELS + WIRE_KERNELS
 
 # The hash is not differentiable (the JAX caller stop_gradient's it).
 lsh_hash = lsh_hash_k.lsh_hash
@@ -75,6 +85,15 @@ class _SegmentCentroid(torch.autograd.Function):
         return None, dx.to(ctx.x_dtype), None
 
 
+def residual_apply_transpose(slots: torch.Tensor, ct: torch.Tensor,
+                             num_slots: int) -> torch.Tensor:
+    """The transpose of out = expert_out[g, slots] + residual in its
+    [G, S, H] operand: the segment sums of the [G, C, H] f32 cotangent
+    over the slots, the centroid kernel times the counts."""
+    cent, counts = segment_centroid_k.segment_centroid(slots, ct, num_slots)
+    return cent * counts[..., None]
+
+
 class _ResidualApply(torch.autograd.Function):
     @staticmethod
     def forward(ctx, slots, expert_out, residual):
@@ -90,9 +109,7 @@ class _ResidualApply(torch.autograd.Function):
         ct = ct.contiguous()
         d_eout = d_res = None
         if ctx.needs_input_grad[1]:
-            cent, counts = segment_centroid_k.segment_centroid(
-                slots, ct, ctx.num_slots)
-            d_eout = cent * counts[..., None]
+            d_eout = residual_apply_transpose(slots, ct, ctx.num_slots)
         if ctx.needs_input_grad[2]:
             d_res = ct
         return None, d_eout, d_res
@@ -179,3 +196,86 @@ def combine_gather(expert_ids: torch.Tensor, pos: torch.Tensor,
     of the weighted cotangent) and ``weights`` (a row dot product with the
     unweighted gather, plain torch as in JAX)."""
     return _CombineGather.apply(expert_ids, pos, buf, weights)
+
+
+# ------------------------------------------------------------ wire codec --
+
+def wire_quantize(x: torch.Tensor, fmt: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [G, S, H] -> (q [G, S, H] int8 | float8_e4m3fn, scales [G, S]
+    f32): one power-of-two absmax scale per row; empty rows get scale 1
+    and a zero payload.  Forward only."""
+    return wire_quant.wire_quantize(x, fmt)
+
+
+def wire_dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """(q [G, S, H], scales [G, S]) -> [G, S, H] f32 = q * scale.  Forward
+    only."""
+    return wire_quant.wire_dequantize(q, scales)
+
+
+class _WireRoundtrip(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, fmt):
+        q, scales = wire_quant.wire_quantize(x.contiguous(), fmt)
+        dq = wire_quant.wire_dequantize(q, scales)
+        ctx.mark_non_differentiable(q, scales)
+        ctx.x_dtype = x.dtype
+        return dq, q, scales
+
+    @staticmethod
+    def backward(ctx, ct_dq, _ct_q, _ct_scales):
+        # straight-through: d/dx [dequantize(quantize(x))] := identity
+        return ct_dq.to(ctx.x_dtype), None
+
+
+def wire_roundtrip(x: torch.Tensor, fmt: str
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(dequantize(quantize(x)) [G, S, H] f32, scales [G, S] f32) with a
+    straight-through backward: the values the expert will see on the far
+    side of the wire, with the input still on the gradient path."""
+    dq, _q, scales = _WireRoundtrip.apply(x, fmt)
+    return dq, scales
+
+
+def wire_encode_roundtrip(x: torch.Tensor, fmt: str
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+    """``wire_roundtrip`` that also returns the payload: (dq f32, q int8 |
+    float8_e4m3fn, scales f32); q and scales are not differentiable.  The
+    payload lets the LSH dispatch leg ship the encoded centroids as they
+    are (comm/wire.precoded_transfer)."""
+    return _WireRoundtrip.apply(x, fmt)
+
+
+def dispatch_scatter_quantize(expert_ids: torch.Tensor, pos: torch.Tensor,
+                              src: torch.Tensor, num_experts: int,
+                              capacity: int, fmt: str
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``wire_quantize(dispatch_scatter(...))`` bit for bit, without the f32
+    buffer: (q [E, C, H], scales [E, C] f32).  Forward only."""
+    return fused_wire.dispatch_scatter_quantize(
+        expert_ids, pos, src.contiguous(), num_experts, capacity, fmt)
+
+
+def dequantize_combine_gather(expert_ids: torch.Tensor, pos: torch.Tensor,
+                              q: torch.Tensor, scales: torch.Tensor,
+                              weights: torch.Tensor) -> torch.Tensor:
+    """``combine_gather(ids, pos, wire_dequantize(q, scales), weights)``
+    bit for bit: [F, H] f32.  Forward only."""
+    return fused_wire.dequantize_combine_gather(
+        expert_ids, pos, q.contiguous(), scales.contiguous(),
+        weights.to(torch.float32).contiguous())
+
+
+def dequantize_residual_apply(slots: torch.Tensor, q: torch.Tensor,
+                              scales: torch.Tensor, residual: torch.Tensor,
+                              base: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """``residual_apply(slots, wire_dequantize(q, scales) - base,
+    residual)`` bit for bit (no subtraction when ``base`` is None):
+    [G, C, H] f32.  Forward only."""
+    return fused_wire.dequantize_residual_apply(
+        slots, q.contiguous(), scales.contiguous(),
+        residual.to(torch.float32).contiguous(),
+        None if base is None else base.to(torch.float32).contiguous())

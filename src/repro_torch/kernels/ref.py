@@ -6,12 +6,22 @@ All keep the registry's overflow-bin contract: an entry whose id lies
 outside its valid range (expert id outside [0, E), position outside
 [0, C), slot outside [0, S)) contributes nothing to a scatter or segment
 sum and gathers exactly zero.
+
+The wire codec (``po2_scale``, ``encode``, ``wire_quantize_ref`` and the
+fused ops) follows ``repro/kernels/wire_quant.py`` and ``ref.py`` op for op
+in f32.  One difference is emulated: the reference runs where subnormal
+floats flush to zero (a TPU, and XLA on the CPU), so a row whose absmax is
+below 2**-126 counts as empty there (scale 1, zero payload).  ``po2_scale``
+tests ``absmax >= TINY`` where the reference tests ``absmax > 0``; nothing
+else flushes.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+
+TINY = 2.0 ** -126          # the smallest normal f32
 
 
 def positions_in_expert_ref(expert_ids: torch.Tensor, num_experts: int
@@ -103,3 +113,79 @@ def residual_apply_ref(slots: torch.Tensor, expert_out: torch.Tensor,
     if residual is None:
         return gathered
     return gathered + residual.to(torch.float32)
+
+
+# ------------------------------------------------------------ wire codec --
+
+def po2_scale(absmax: torch.Tensor, qmax_val: float) -> torch.Tensor:
+    """Smallest power of two >= absmax / qmax, by exponent-bit arithmetic
+    on the int32 view of the f32 quotient (exact at every power-of-two
+    boundary), clipped to [2**-126, 2**126].  A row with absmax below
+    TINY (or NaN) is empty: scale 1."""
+    v = absmax.to(torch.float32) / qmax_val
+    bits = v.view(torch.int32)
+    exp = ((bits >> 23) & 0xFF) - 127                  # floor(log2 v)
+    frac = ((bits & 0x7FFFFF) != 0).to(torch.int32)
+    k = torch.clamp(exp + frac, -126, 126)             # ceil(log2 v)
+    scale = ((k + 127) << 23).to(torch.int32).view(torch.float32)
+    return torch.where(absmax >= TINY, scale, torch.ones_like(scale))
+
+
+def encode(y: torch.Tensor, fmt: str) -> torch.Tensor:
+    """Scaled f32 values -> payload: int8 rounds half to even and clips to
+    +-127; fp8-e4m3 clips to +-448, then rounds to nearest even."""
+    if fmt == "int8":
+        return torch.clamp(torch.round(y), -127.0, 127.0).to(torch.int8)
+    if fmt == "fp8":
+        return torch.clamp(y, -448.0, 448.0).to(torch.float8_e4m3fn)
+    raise ValueError(f"unknown quantized wire format {fmt!r}")
+
+
+def wire_quantize_ref(x: torch.Tensor, fmt: str
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [G, S, H] -> (q [G, S, H] int8 | float8_e4m3fn, scales [G, S]
+    f32): one power-of-two absmax scale per row; empty rows get scale 1
+    and a zero payload."""
+    xf = x.to(torch.float32)
+    qmax_val = 127.0 if fmt == "int8" else 448.0
+    scales = po2_scale(torch.amax(torch.abs(xf), dim=-1), qmax_val)
+    return encode(xf / scales[..., None], fmt), scales
+
+
+def wire_dequantize_ref(q: torch.Tensor, scales: torch.Tensor
+                        ) -> torch.Tensor:
+    """(q [G, S, H], scales [G, S]) -> [G, S, H] f32 = q * scale."""
+    return q.to(torch.float32) * scales[..., None].to(torch.float32)
+
+
+def dispatch_scatter_quantize_ref(expert_ids: torch.Tensor, pos: torch.Tensor,
+                                  src: torch.Tensor, num_experts: int,
+                                  capacity: int, fmt: str
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wire_quantize_ref(dispatch_scatter_ref(...)): (q [E, C, H], scales
+    [E, C] f32)."""
+    return wire_quantize_ref(dispatch_scatter_ref(
+        expert_ids, pos, src, num_experts, capacity), fmt)
+
+
+def dequantize_combine_gather_ref(expert_ids: torch.Tensor, pos: torch.Tensor,
+                                  q: torch.Tensor, scales: torch.Tensor,
+                                  weights: torch.Tensor) -> torch.Tensor:
+    """combine_gather_ref(ids, pos, wire_dequantize_ref(q, scales), w):
+    [F, H] f32."""
+    return combine_gather_ref(expert_ids, pos,
+                              wire_dequantize_ref(q, scales), weights)
+
+
+def dequantize_residual_apply_ref(slots: torch.Tensor, q: torch.Tensor,
+                                  scales: torch.Tensor,
+                                  residual: torch.Tensor,
+                                  base: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
+    """residual_apply_ref(slots, wire_dequantize_ref(q, scales) - base,
+    residual), the subtraction skipped when ``base`` is None: [G, C, H]
+    f32."""
+    dq = wire_dequantize_ref(q, scales)
+    if base is not None:
+        dq = dq - base.to(torch.float32)
+    return residual_apply_ref(slots, dq, residual)

@@ -9,15 +9,19 @@ JAX nor the JAX package, so it also runs on a machine without them:
 Integer outputs and unique-plan scatter / gather outputs must agree bit for
 bit; a scatter with duplicate (expert, position) pairs sums in another
 order (the plain version's index_add_ uses atomics on the card), so each
-element is held to 1e-6 times the sum of the magnitudes of its terms.
+element is held to 1e-6 times the sum of the magnitudes of its terms.  The
+wire kernels (payload bits, scales, dequantized values, the fused ops) are
+held bitwise to their plain versions, and each fused kernel bitwise to the
+unfused kernels it replaces on the card.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (dispatch, lsh_hash, ref, residual_apply,
-                                 scatter_gather, segment_centroid,
-                                 token_position)
+from repro_torch.kernels import (dispatch, fused_wire, lsh_hash, ref,
+                                 residual_apply, scatter_gather,
+                                 segment_centroid, token_position,
+                                 wire_quant)
 
 DUP_RTOL = 1e-6
 
@@ -204,3 +208,95 @@ def test_cuda_backward_matches_plain(h100, op):
         assert got.dtype == want.dtype
         assert ((got.float() - want.float()).abs()
                 <= 1e-6 * (1 + want.float().abs())).all()
+
+
+# ------------------------------------------------------ the wire kernels --
+
+def _bits(q):
+    return q.view(torch.uint8) if q.dtype == torch.float8_e4m3fn else q
+
+
+def _wire_rows(rng, fmt, g=3, s=17, h=48):
+    """A per-row dynamic range, an all-zero row, a subnormal row, and rows
+    whose absmax is qmax * 2**k one ulp below, at and one ulp above."""
+    x = rng.standard_normal((g, s, h)) * np.exp(
+        3.0 * rng.standard_normal((g, s, 1)))
+    x[0, 5] = 0.0
+    x[2, 3] = rng.standard_normal(h) * 1e-39
+    qm = wire_quant.qmax(fmt)
+    for i, k in enumerate((-20, 0, 7)):
+        edge = np.float32(qm * 2.0 ** k)
+        for j, v in enumerate((np.nextafter(edge, np.float32(0)), edge,
+                               np.nextafter(edge, np.float32(np.inf)))):
+            x[i, 8 + j] = rng.uniform(-0.9, 0.9, h) * edge
+            x[i, 8 + j, j] = v
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [48, 40, 36])
+def test_cuda_wire_quantize_dequantize_bitwise(h100, fmt, dtype, h):
+    """h = 48 takes the 16-wide paths, 40 and 36 the one-column ones."""
+    x = _wire_rows(np.random.default_rng(30), fmt, h=h).to(dtype)
+    before = (wire_quant.QUANTIZE.launches, wire_quant.DEQUANTIZE.launches)
+    q, s = wire_quant.wire_quantize(x.to(h100), fmt)
+    dq = wire_quant.wire_dequantize(q, s)
+    assert (wire_quant.QUANTIZE.launches,
+            wire_quant.DEQUANTIZE.launches) == (before[0] + 1, before[1] + 1)
+    rq, rs = ref.wire_quantize_ref(x, fmt)
+    assert torch.equal(_bits(q).cpu(), _bits(rq))
+    assert torch.equal(s.cpu(), rs)
+    assert torch.equal(dq.cpu(), ref.wire_dequantize_ref(rq, rs))
+    q2, s2 = wire_quant.wire_quantize(x.to(h100), fmt)
+    assert torch.equal(_bits(q2), _bits(q)) and torch.equal(s2, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("src_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [32, 30])
+def test_cuda_fused_wire_ops_bitwise(h100, fmt, src_dtype, h):
+    """The three fused kernels against their plain versions and against
+    the unfused kernels they replace, on a unique plan; the
+    scatter-quantize also on duplicate (expert, position) pairs, against
+    the unfused kernels (both sum in entry order)."""
+    rng = np.random.default_rng(31)
+    flat, pos, src, w, e, c = _plan(rng, h=h)
+    src = src.to(src_dtype)
+    d = [t.to(h100) for t in (flat, pos, src, w)]
+    q, s = fused_wire.dispatch_scatter_quantize(d[0], d[1], d[2], e, c, fmt)
+    rq, rs = ref.dispatch_scatter_quantize_ref(flat, pos, src, e, c, fmt)
+    assert torch.equal(_bits(q).cpu(), _bits(rq)) and torch.equal(s.cpu(), rs)
+    cq, cs = wire_quant.wire_quantize(
+        scatter_gather.dispatch_scatter(d[0], d[1], d[2], e, c), fmt)
+    assert torch.equal(_bits(q), _bits(cq)) and torch.equal(s, cs)
+
+    out = fused_wire.dequantize_combine_gather(d[0], d[1], q, s, d[3])
+    assert torch.equal(out.cpu(), ref.dequantize_combine_gather_ref(
+        flat, pos, rq, rs, w))
+    assert torch.equal(out, scatter_gather.combine_gather(
+        d[0], d[1], wire_quant.wire_dequantize(q, s), d[3]))
+
+    slots, x, n_slots = _lsh_inputs(rng, h=h, dtype=torch.float32)
+    eq, es = ref.wire_quantize_ref(torch.randn(3, n_slots, h) * 10, fmt)
+    resid = torch.randn(x.shape)
+    for base in (torch.randn(3, n_slots, h), None):
+        dv = [t.to(h100) for t in (slots, eq, es, resid)]
+        b = None if base is None else base.to(h100)
+        got = fused_wire.dequantize_residual_apply(*dv, b)
+        assert torch.equal(got.cpu(), ref.dequantize_residual_apply_ref(
+            slots, eq, es, resid, base))
+        dq = wire_quant.wire_dequantize(dv[1], dv[2])
+        assert torch.equal(got, residual_apply.residual_apply(
+            dv[0], dq if b is None else dq - b, dv[3]))
+
+    ids = torch.from_numpy(rng.integers(-1, 5, size=3000).astype(np.int32))
+    dpos = torch.from_numpy(rng.integers(-1, 9, size=3000).astype(np.int32))
+    dsrc = torch.randn(3000, h).to(src_dtype)
+    dd = [t.to(h100) for t in (ids, dpos, dsrc)]
+    q, s = fused_wire.dispatch_scatter_quantize(*dd, 4, 8, fmt)
+    cq, cs = wire_quant.wire_quantize(
+        scatter_gather.dispatch_scatter(*dd, 4, 8), fmt)
+    assert torch.equal(_bits(q), _bits(cq)) and torch.equal(s, cs)

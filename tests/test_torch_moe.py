@@ -138,15 +138,36 @@ def test_lsh_moe_decode_matches_jax(mesh, backend):
 
 
 @pytest.mark.parametrize("mode", ["train", "prefill"])
-def test_lsh_moe_train_modes_not_ported(mode):
-    """The train / prefill path is ported for the bf16 wire; the int8 and
-    fp8 wire formats are not, and say where they are queued."""
-    _, tcfg = _moe_cfgs("reference")
-    tcfg = dataclasses.replace(tcfg, lsh=dataclasses.replace(
-        tcfg.lsh, wire_format="int8"))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 4"):
-        lsh_moe_apply({"w_up": torch.zeros(6, 4, 8)}, torch.zeros(1, 1, 4),
-                      tcfg, mlp_act="swiglu", mode=mode)
+def test_lsh_moe_train_modes_int8_wire_match_jax(mesh, mode):
+    """The train / prefill path with LSH on and the int8 wire (the fused
+    precoded dispatch and decode + decompress): output, aux / z losses
+    within 1e-5 and equal load, as the bf16 wire's layer."""
+    jcfg, _ = _moe_cfgs("reference")
+    jcfg = dataclasses.replace(jcfg, lsh=dataclasses.replace(
+        jcfg.lsh, wire_format="int8"))
+    tcfg = tbase.MoEConfig(**{
+        k: v for k, v in dataclasses.asdict(jcfg).items()
+        if k not in ("lsh", "comm", "obs")},
+        lsh=tbase.LSHConfig(**dataclasses.asdict(jcfg.lsh)))
+    params = j_lsh_moe_init(jax.random.PRNGKey(0), 16, jcfg, mesh,
+                            mlp_act="swiglu", dtype=jnp.float32)
+    params["placement"] = jnp.asarray(_placement(6, seed=3))
+    x = np.random.default_rng(4).standard_normal((2, 12, 16)).astype(
+        np.float32)
+    with set_mesh(mesh):
+        y, stats = jax.jit(lambda p, x: j_lsh_moe_apply(
+            p, x, jcfg, mesh, mlp_act="swiglu", mode=mode))(
+                params, jnp.asarray(x))
+    tparams = {k: tensor_from_numpy(v, CPU) for k, v in params.items()}
+    ty, tstats = lsh_moe_apply(tparams, torch.from_numpy(x), tcfg,
+                               mlp_act="swiglu", mode=mode)
+    assert ty.shape == (2, 12, 16) and ty.dtype == torch.float32
+    np.testing.assert_allclose(ty.numpy(), np.asarray(y), atol=1e-5)
+    for k in ("aux_loss", "z_loss"):
+        np.testing.assert_allclose(float(tstats[k]), float(stats[k]),
+                                   atol=1e-5, err_msg=k)
+    np.testing.assert_array_equal(tstats["expert_load"].numpy(),
+                                  np.asarray(stats["expert_load"]))
 
 
 def test_moe_dense_dispatch_is_one_card_only():
