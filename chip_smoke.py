@@ -20,7 +20,12 @@ Phases, each of which raises (and so exits non-zero) on failure:
               ragged small shape with out-of-range slots: lsh_hash equal
               wherever the two largest |v| differ by more than 1e-5 of the
               largest, segment_centroid within 1e-6 of the mean magnitude
-              with exact counts, residual_apply bitwise.  Every kernel
+              with exact counts, residual_apply bitwise; lsh_hash's
+              tensor-core kernel also at T=4100 with H=40 / 1096 / 1536
+              and (L, Dr)=(5, 16), (1, 8), (3, 16), (6, 64), zero rows and
+              exact three-way ties (first index), and timed beside its
+              bound and a cuBLAS chain (bf16 mm, abs, argmax, sign).
+              Every kernel
               called twice gives the same bits, and each autograd.Function
               backward matches autograd through the plain versions within
               1e-6 of the sum of the magnitudes of each result's terms.
@@ -31,7 +36,11 @@ Phases, each of which raises (and so exits non-zero) on failure:
               and fp8 at the training shape (G=40, S=208) and the decode
               one: bitwise (payload bits, scales, values), each fused
               kernel bitwise the unfused kernels it replaces, timed
-              beside the shortest PyTorch chain; and an fp8 encode sweep
+              beside the shortest PyTorch chain; dispatch_scatter_quantize
+              also at ragged shapes (E x C = 315 and 32 rows, H = 1536
+              and 1000, bf16 and f32 src, duplicates few and many,
+              out-of-range ids and positions) bitwise the plain version
+              on the CPU and the composed kernels; and an fp8 encode sweep
               of every 97th f32 bit pattern in [-448, 448] (23,479,456
               values) bitwise torch's CUDA cast, every non-NaN code's
               decode bitwise torch's.
@@ -57,7 +66,9 @@ Phases, each of which raises (and so exits non-zero) on failure:
               expected count a step (LSH on: wire_quantize 128,
               wire_dequantize 128, dequantize_residual_apply 64; off:
               dispatch_scatter_quantize 64, wire_quantize 64,
-              wire_dequantize 64, dequantize_combine_gather 96).
+              wire_dequantize 64, dequantize_combine_gather 96; each
+              dispatch_scatter_quantize launch is a memset and two
+              kernels on the stream).
   7. train parity  the config at full width, 2 layers, f32, LSH on, batch
               2 x 64: one train step (the first of a warm-up) on the card
               (kernels) and on the CPU (plain versions) from the same
@@ -81,6 +92,7 @@ import contextlib
 import io
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -268,6 +280,16 @@ def _log_records(label, out):
             f"({r['bound_by']}) max_abs_err={r['max_abs_err']}")
 
 
+def _positions_chain(torch, ids, E):
+    """positions_in_expert as PyTorch calls, a yardstick of time: a one-hot
+    of the in-range ids, its cumsum gathered at each id, minus 1."""
+    valid = (ids >= 0) & (ids < E)
+    idc = torch.where(valid, ids, 0).long()
+    cs = torch.nn.functional.one_hot(idc, E).mul_(valid[:, None]).cumsum(0)
+    return (torch.where(valid, cs.gather(1, idc[:, None])[:, 0] - 1, 0),
+            cs[-1])
+
+
 def check_kernels(torch, tp, sg, ref, p, label):
     """Compare each kernel with its plain version on ``p`` and time both and
     the nearest single PyTorch call.  Returns {kernel name: record}."""
@@ -285,7 +307,8 @@ def check_kernels(torch, tp, sg, ref, p, label):
         "positions_in_expert": _record(
             torch, label, "positions_in_expert",
             lambda: tp.positions_in_expert(ids, E),
-            lambda: ref.positions_in_expert_ref(ids, E), None,
+            lambda: ref.positions_in_expert_ref(ids, E),
+            lambda: _positions_chain(torch, ids, E),
             _bound(F * 4 + F * 4 + E * 4, 0)),
         "dispatch_scatter": _record(
             torch, label, "dispatch_scatter",
@@ -391,6 +414,28 @@ def lsh_inputs(torch, ref, hashing, p, S, *, L=6, Dr=64, seed=14):
                 resid=disp.float(), G=E, C=C, S=S, H=H, L=L, Dr=Dr)
 
 
+def _lsh_chain(torch, x, rot):
+    """lsh_hash as PyTorch calls, a yardstick of time: one bf16 mm of x
+    with the rotations packed beforehand to [H, L * Dr] (f32 output where
+    torch.mm takes out_dtype, else bf16), abs, argmax, the sign gather.
+    Returns (the chain, the mm's output type)."""
+    T = x.shape[0]
+    L, H, Dr = rot.shape
+    w = rot.permute(1, 0, 2).reshape(H, L * Dr).contiguous()
+    try:
+        torch.mm(x[:8], w, out_dtype=torch.float32)
+        kw, kind = {"out_dtype": torch.float32}, "f32"
+    except TypeError:
+        kw, kind = {}, "bf16"
+
+    def chain():
+        v = torch.mm(x, w, **kw).view(T, L, Dr)
+        idx = v.abs().argmax(-1)
+        neg = v.gather(-1, idx[..., None])[..., 0] < 0
+        return 2 * idx + neg
+    return chain, kind
+
+
 def check_lsh_kernels(torch, lh, scm, ram, ref, q, label):
     """lsh_hash, segment_centroid and residual_apply on ``q`` against their
     plain versions, and timed."""
@@ -412,9 +457,13 @@ def check_lsh_kernels(torch, lh, scm, ram, ref, q, label):
     # bf16 x and rotations, as the training path has them, take the tensor
     # cores; f32 ones (an f32 model) the f32-FMA kernel
     x32, rot32 = x.float(), rot.float()
-    for name, xi, ri, rate in (
-            ("lsh_hash", x, rot, BF16_OPS_PER_S),
-            ("lsh_hash (f32 x, FMA kernel)", x32, rot32, FP32_OPS_PER_S)):
+    chain, chain_out = _lsh_chain(torch, x, rot)
+    log(f"[kernels] {label} lsh_hash library chain: bf16 mm with {chain_out} "
+        "output, abs, argmax, sign gather")
+    for name, xi, ri, rate, library in (
+            ("lsh_hash", x, rot, BF16_OPS_PER_S, chain),
+            ("lsh_hash (f32 x, FMA kernel)", x32, rot32, FP32_OPS_PER_S,
+             None)):
         got = lh.lsh_hash(xi, ri)
         err = _vertex_check(torch, lh, label, got, ref.lsh_hash_ref(xi, ri),
                             xi, ri, name)
@@ -422,10 +471,13 @@ def check_lsh_kernels(torch, lh, scm, ram, ref, q, label):
                     (got,))
         out[name] = dict(max_abs_err=err, **_timed(
             torch, lambda: lh.lsh_hash(xi, ri),
-            lambda: ref.lsh_hash_ref(xi, ri), None,
+            lambda: ref.lsh_hash_ref(xi, ri), library,
             _bound(T * H * xi.element_size() + ri.numel() * ri.element_size()
                    + T * L * 4, flops, rate)))
     del x32, rot32
+    pack_ms = time_ms(torch, lambda: lh.pack_rotations(rot))
+    log(f"[kernels] {label} lsh_hash: of its kernel_ms, {pack_ms:.6f} ms "
+        "pack the rotations")
 
     cent, counts = scm.segment_centroid(slots, disp, S)
     rc, rn = ref.segment_centroid_ref(slots, disp, S)
@@ -501,6 +553,98 @@ def check_lsh_ragged(torch, lh, scm, ram, ref):
                 raise AssertionError("ragged residual_apply differs")
     log(f"[kernels] ragged: G={G} C={C} S={S}, H=40 / 36 bf16 and H=34 "
         "f32, overflow-bin / beyond / negative slots: all three agree")
+
+
+def check_lsh_hash_shapes(torch, lh, ref):
+    """lsh_hash's tensor-core kernel at ragged shapes: T not a multiple of
+    its 128-row tile, H not of its 64-deep k slice, L * Dr not of its
+    192-column tile.  Rows 0-2 are zero (vertex 0); columns 1, Dr / 2 and
+    Dr - 1 of each rotation are one large column, so wherever it holds the
+    maximum the three tie exactly and index 1 must win; elsewhere equal
+    away from near-ties; the same bits on a second call."""
+    g = torch.Generator(device="cuda").manual_seed(18)
+    for T, H, L, Dr in ((4100, 40, 5, 16), (4100, 1096, 1, 8),
+                        (4100, 1096, 3, 16), (4100, 1536, 6, 64)):
+        x = torch.randn(T, H, generator=g, device="cuda")
+        x[:3] = 0
+        x = x.to(torch.bfloat16)
+        r = torch.randn(L, H, Dr, generator=g, device="cuda") / H ** 0.5
+        r[:, :, 1] *= 30
+        r[:, :, Dr // 2] = r[:, :, 1]
+        r[:, :, Dr - 1] = r[:, :, 1]
+        rot = r.to(torch.bfloat16)
+        label = f"ragged T={T} H={H} L={L} Dr={Dr}"
+        if not lh.uses_tensor_cores(x, rot):
+            raise AssertionError(f"[{label}] lsh_hash took the FMA kernel")
+        got = lh.lsh_hash(x, rot)
+        _same_twice(torch, label, "lsh_hash", lambda: (lh.lsh_hash(x, rot),),
+                    (got,))
+        want = ref.lsh_hash_ref(x, rot)
+        _vertex_check(torch, lh, label, got, want, x, rot)
+        tied = (want // 2) == 1
+        n_tied = int(tied.sum())
+        if (n_tied < T * L // 2 or not torch.equal(got[tied], want[tied])
+                or not bool((got[:3] == 0).all())):
+            raise AssertionError(f"[{label}] lsh_hash: exact ties or zero "
+                                 "rows differ from the plain version")
+        log(f"[kernels] {label} lsh_hash: {n_tied} exact three-way ties, "
+            "first index taken; zero rows vertex 0")
+
+
+def check_scatter_quantize_shapes(torch, mods, ref):
+    """dispatch_scatter_quantize at ragged shapes, int8 and fp8, bf16 and
+    f32 src, H = 1536 and H = 1000 (the one-column path): a plan of unique
+    rows with a few duplicate entries, ids and positions out of range on
+    both sides and empty rows, E * C = 315 rows (not a multiple of a
+    block's 8); and 3000 entries into 4 x 8 rows (many duplicates).
+    Bitwise the plain version on the CPU (which sums duplicates in entry
+    order, as the kernel does) and the composed dispatch_scatter +
+    wire_quantize on the card; the same bits on a second call."""
+    fw, wq, sg = mods["fused_wire"], mods["wire_quant"], mods["scatter_gather"]
+    g = torch.Generator(device="cuda").manual_seed(19)
+    E, C, F = 7, 45, 300
+    rows = torch.randperm(E * C, generator=g, device="cuda")[:F]
+    ids = (rows // C).to(torch.int32)
+    pos = (rows % C).to(torch.int32)
+    ids[[50, 120, 299]] = int(ids[7])           # duplicates of entry 7
+    pos[[50, 120, 299]] = int(pos[7])
+    ids[10:20:3], ids[11:21:3] = -1, E          # ids out of range
+    pos[30:40:3], pos[31:41:3] = -1, C          # positions out of range
+    plans = [(ids, pos, E, C),
+             (torch.randint(-1, 5, (3000,), generator=g, device="cuda",
+                            dtype=torch.int32),
+              torch.randint(-1, 9, (3000,), generator=g, device="cuda",
+                            dtype=torch.int32), 4, 8)]
+    n = 0
+    for pid, pp, e, c in plans:
+        for H in (1536, 1000):
+            base = torch.randn(pid.numel(), H, generator=g, device="cuda")
+            for src in (base.to(torch.bfloat16), base):
+                for fmt in WIRE_FORMATS:
+                    got = tuple(map(_u8, fw.dispatch_scatter_quantize(
+                        pid, pp, src, e, c, fmt)))
+                    _same_twice(torch, "ragged", "dispatch_scatter_quantize",
+                                lambda: tuple(map(
+                                    _u8, fw.dispatch_scatter_quantize(
+                                        pid, pp, src, e, c, fmt))), got)
+                    want = tuple(map(_u8, ref.dispatch_scatter_quantize_ref(
+                        pid.cpu(), pp.cpu(), src.cpu(), e, c, fmt)))
+                    comp = tuple(map(_u8, wq.wire_quantize(
+                        sg.dispatch_scatter(pid, pp, src, e, c), fmt)))
+                    if not all(torch.equal(a.cpu(), b) for a, b in
+                               zip(got, want)) or not all(
+                                   torch.equal(a, b) for a, b in
+                                   zip(got, comp)):
+                        raise AssertionError(
+                            f"ragged dispatch_scatter_quantize {fmt} "
+                            f"{src.dtype} H={H} E={e} C={c} F={pid.numel()}"
+                            ": differs from the plain version or the "
+                            "composed kernels")
+                    n += 1
+    log(f"[kernels] ragged dispatch_scatter_quantize: {n} cases (E x C = "
+        "315 and 32, H = 1536 and 1000, bf16 and f32 src, int8 and fp8; "
+        "duplicates few and many, out-of-range ids and positions, empty "
+        "rows) bitwise the plain version and the composed kernels")
 
 
 def check_backwards(torch, dispatch, ref, p, q):
@@ -798,12 +942,14 @@ def phase_kernels(torch, mods, ref, moe_lib, hashing):
                                  mods["residual_apply"], ref, q, "train"))
     check_lsh_ragged(torch, mods["lsh_hash"], mods["segment_centroid"],
                      mods["residual_apply"], ref)
+    check_lsh_hash_shapes(torch, mods["lsh_hash"], ref)
     check_backwards(torch, mods["dispatch"], ref, train, q)
     for fmt in WIRE_FORMATS:
         wire = check_wire_kernels(torch, mods, ref, train, q, "train", fmt)
         if fmt == "int8":                   # the JSON record's times
             res.update(wire)
     check_wire_decode_shape(torch, mods, ref, decode, "decode")
+    check_scatter_quantize_shapes(torch, mods, ref)
     check_fp8_sweep(torch, mods["wire_quant"])
     return res
 
@@ -957,7 +1103,7 @@ def with_wire(cfg, **lsh):
 
 
 def phase_train_wire(torch, cfg, step_lib, data_lib, kernels,
-                     routing_kernels, lsh_kernels):
+                     routing_kernels, lsh_kernels, summarize, port_names):
     """The full config, 4 x 1024 tokens, with the int8 and fp8 wires
     (LSHConfig.wire_format, by dataclasses.replace) through
     init_train_state + make_train_step: int8 with LSH on (3 steps), fp8
@@ -965,8 +1111,11 @@ def phase_train_wire(torch, cfg, step_lib, data_lib, kernels,
     run's loss is finite, each wire kernel of its setting launches
     WIRE_LAUNCHES_PER_LAYER times the MoE layers a step (32 layers: 128,
     128 and 64 with LSH on; 64, 64, 64 and 96 with it off), the routing
-    (and with LSH on the LSH) kernels launch, and no other.  Returns {(fmt, lsh): (summary,
-    launches)}."""
+    (and with LSH on the LSH) kernels launch, and no other; then one more
+    step under torch.profiler for its device busy ms and the port's
+    kernels' device ms.  Returns {(fmt, lsh): (summary, launches)}."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch.configs.base import OptimizerConfig
     dev = torch.device("cuda")
     out = {}
@@ -990,13 +1139,25 @@ def phase_train_wire(torch, cfg, step_lib, data_lib, kernels,
             if int(m["grad_skips"]):
                 raise AssertionError(f"{fmt} lsh={lsh}: step {s} skipped")
         launches = {k.name: k.launches for k in kernels}
+        # one more step under the profiler: device busy ms (the sum of the
+        # kernels' durations; the wall clock is the profiler's, not kept)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, m = step_fn(state, step_lib.batch_to_device(
+                ds.batch_at(steps), dev))
+            float(m["loss"])
+            torch.cuda.synchronize()
+        busy = summarize(prof, 1, float("inf"))[0]
         steady = dts[1:]
         summary = dict(
             wire_format=fmt, lsh=lsh, steps=steps, batch=4, seq=1024,
             losses=losses, step_ms=[d * 1e3 for d in dts],
             mean_step_ms_after_first=sum(steady) / len(steady) * 1e3,
             tokens_per_s=4 * 1024 * len(steady) / sum(steady),
-            peak_memory_bytes=torch.cuda.max_memory_allocated(dev))
+            peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+            profiled_device_busy_ms=busy["device_busy_ms_per_step"],
+            profiled_kernels=busy["device_kernels_per_step"],
+            port_kernels_ms=_port_kernels(prof, port_names))
         tag = f"{fmt} lsh {'on' if lsh else 'off'}"
         log(f"[train-wire] {tag} summary " + json.dumps(summary,
                                                         sort_keys=True))
@@ -1023,7 +1184,33 @@ def phase_train_wire(torch, cfg, step_lib, data_lib, kernels,
     return out
 
 
-def phase_train_profile(torch, cfg, step_lib, data_lib, summarize):
+def port_kernel_names(build):
+    """The names of the kernels defined in the port's CUDA sources."""
+    decl = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+                      r"(\w+)\s*\(")
+    return {name for src in build.CSRC.glob("*.cu")
+            for name in decl.findall(src.read_text())}
+
+
+def _port_kernels(prof, names):
+    """Device ms of the port's own kernels (``names``) in a profile of one
+    step, whether or not among the top ops, a template's instantiations
+    summed.  A profile names them "(anonymous namespace)::name(...)", or
+    "void (anonymous namespace)::name<...>(...)" for a template."""
+    ns = "(anonymous namespace)::"
+    out = {}
+    for a in prof.key_averages():
+        key = a.key.removeprefix("void ")
+        if not key.startswith(ns) or a.self_device_time_total <= 0:
+            continue
+        name = re.split(r"[<(]", key[len(ns):])[0]
+        if name in names:
+            out[name] = out.get(name, 0.0) + a.self_device_time_total / 1e3
+    return out
+
+
+def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
+                        port_names):
     """One steady-state training step under torch.profiler (LSH on), after
     two warm-up steps and a host-clock timing of two more."""
     from torch.profiler import ProfilerActivity, profile
@@ -1052,6 +1239,7 @@ def phase_train_profile(torch, cfg, step_lib, data_lib, summarize):
     record, lines = summarize(prof, 1, wall_ms, top=15)
     for line in lines:
         log(f"[train-profile] {line}")
+    record["port_kernels_ms_per_step"] = _port_kernels(prof, port_names)
     log("[train-profile] " + json.dumps(record, sort_keys=True))
     del state
     return record
@@ -1213,11 +1401,13 @@ def main() -> int:
     trained = phase_train(torch, train, kernels, routing_k, lsh_k,
                           dispatch.WIRE_KERNELS)
     torch.cuda.empty_cache()
-    phase_train_profile(torch, cfg, step_lib, synthetic, summarize)
+    port_names = port_kernel_names(build)
+    phase_train_profile(torch, cfg, step_lib, synthetic, summarize,
+                        port_names)
     torch.cuda.empty_cache()
     log(f"[time] training done at {time.time() - t_start:.1f} s")
     wired = phase_train_wire(torch, cfg, step_lib, synthetic, kernels,
-                             routing_k, lsh_k)
+                             routing_k, lsh_k, summarize, port_names)
     log(f"[time] quantized training done at {time.time() - t_start:.1f} s")
     fused_lsh = (wire_quant.QUANTIZE, wire_quant.DEQUANTIZE,
                  fused_wire.DEQUANTIZE_RESIDUAL)

@@ -105,7 +105,8 @@ def load_library(source: str) -> ctypes.CDLL:
 @dataclass
 class CudaKernel:
     """One CUDA entry point: ``int symbol(args..., void* stream)`` returning
-    ``cudaGetLastError()`` after the launch."""
+    ``cudaGetLastError()`` after the launch (or, negated, the ``CUresult``
+    of a CUDA call that failed before it)."""
     name: str
     source: str                   # file under csrc/
     symbol: str
@@ -127,8 +128,9 @@ class CudaKernel:
         and count it; raises on a refused launch."""
         err = self._bind()(*args, stream)
         if err != 0:
+            what = (f"CUresult {-err}" if err < 0 else f"cudaError {err}")
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: "
-                               f"cudaError {err}")
+                               f"{what}")
         self.launches += 1
 
 

@@ -25,14 +25,23 @@
 //
 // Design: the TPU kernels contract one-hot masks on the MXU; here each is a
 // direct indexed load.
-//   scatter-quantize: grid (E, row chunks of 128).  A block indexes its
-//     rows' entries as dispatch_scatter does (scatter_rows.cuh); then one
-//     warp takes one buffer row: each lane sums its 16-column chunks of the
-//     row's entries in entry order in f32 registers (0 + first, then the
-//     later duplicates), the warp takes the absmax, and the row is scaled,
-//     encoded and stored with 16-byte stores (wire_codec.cuh).  The f32
-//     buffer never reaches device memory; an empty row gets scale 1 and a
-//     zero payload.
+//   scatter-quantize: three steps on the stream, one wrapper launch.
+//     (1) a memset zeroes two int32 [E * C] arrays of the wrapper's
+//     scratch; (2) the row index, one thread an entry: for the buffer row
+//     (id, pos) of each in-range entry, integer atomicAdd of its count and
+//     atomicMax of F - f (so the first entry wins; 0 = no entry), whose
+//     results do not depend on the order the threads arrive in; (3) one
+//     warp a buffer row: as many warps as are resident walk all E * C
+//     rows, each loading its next row's count and first entry while it
+//     works on this one; all the first entry's loads of the lane's
+//     16-column chunks issued before any reduction, then
+//     (rarely; plans from build_dispatch_plan never have one) the row's
+//     later entries, found by walking the entries after the first in
+//     device memory, added in entry order, then the warp's absmax, the
+//     scale and 16-byte payload stores (wire_codec.cuh).  So each row is
+//     0 + first + later entries in entry order, dispatch_scatter's f32 row
+//     bit for bit, and the f32 buffer never reaches device memory; an empty
+//     row gets scale 1 and a zero payload.
 //   dequantize-gather: one warp per entry, 16 payload bytes a lane per
 //     load, w * (float(q) * scale) in that order.
 //   dequantize-residual: residual_apply.cu's gather, 4 columns a thread,
@@ -41,57 +50,110 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstddef>
 #include <cstdint>
 
-#include "scatter_rows.cuh"
 #include "wire_codec.cuh"
 
 namespace {
 
+constexpr int kIndexThreads = 256;
+constexpr int kRowThreads = 256;                     // 8 buffer rows a block
+constexpr int kRowWarps = kRowThreads / 32;
 constexpr int kGatherThreads = 256;                  // 8 entries a block
 constexpr int kGatherWarps = kGatherThreads / 32;
 constexpr int kResidThreads = 128;
 constexpr int kResidRows = 4;
 
+// (2) the row index: count[r] entries land in buffer row r, the first of
+// them is F - latest[r] (both arrays zero before)
+__global__ void __launch_bounds__(kIndexThreads)
+index_rows_kernel(const int* __restrict__ ids, const int* __restrict__ pos,
+                  int F, int E, int C, int* __restrict__ count,
+                  int* __restrict__ latest) {
+  const int f = blockIdx.x * kIndexThreads + threadIdx.x;
+  if (f >= F) return;
+  const int e = ids[f];
+  const int c = pos[f];
+  if (e < 0 || e >= E || c < 0 || c >= C) return;
+  const size_t r = static_cast<size_t>(e) * C + c;
+  atomicAdd(&count[r], 1);
+  atomicMax(&latest[r], F - f);
+}
+
+// (3) one warp a buffer row: f32 row = 0 + src[first] (+ later entries in
+// entry order), quantized as wire_quantize does
 template <typename T, int FMT, int W, int CACHE>
-__global__ void __launch_bounds__(scatter_rows::kThreads)
-dispatch_scatter_quantize_kernel(const int* __restrict__ ids,
-                                 const int* __restrict__ pos,
-                                 const T* __restrict__ src, int F, int C,
-                                 int H, uint8_t* __restrict__ q,
-                                 float* __restrict__ scales) {
-  __shared__ scatter_rows::Shared sh;
-  const int e = blockIdx.x;
-  const int c0 = blockIdx.y * scatter_rows::kRows;
-  const int rows = min(scatter_rows::kRows, C - c0);
-  const int n_list = scatter_rows::index_rows(ids, pos, F, e, c0, rows, sh);
-  const int lane = threadIdx.x & 31;
-  for (int r = threadIdx.x >> 5; r < rows; r += scatter_rows::kWarps) {
-    const int first = sh.first[r];
-    const int count = sh.count[r];
-    const size_t row = static_cast<size_t>(e) * C + c0 + r;
-    const float scale = wire::quantize_row<FMT, W, CACHE>(
-        [&](int ch, float (&v)[W]) {
-          const int col = ch * W;
-          if (count == 0) {
+__device__ __forceinline__ void scatter_quantize_row(
+    const int* __restrict__ ids, const int* __restrict__ pos,
+    const T* __restrict__ src, int n, int first, int row, int C, int H,
+    uint8_t* __restrict__ q, float* __restrict__ scales, int lane) {
+  const T* s0 = src + static_cast<size_t>(first) * H;
+  uint8_t* qrow = q + static_cast<size_t>(row) * H;
+  const int nch = H / W;
+  float scale;
+  if (n == 0) {
+    scale = wire::quantize_row<FMT, W, CACHE>(
+        [&](int, float (&v)[W]) {
 #pragma unroll
-            for (int j = 0; j < W; ++j) v[j] = 0.f;
-            return;
-          }
-          wire::load<W>(src + static_cast<size_t>(first) * H + col, v);
+          for (int j = 0; j < W; ++j) v[j] = 0.f;
+        },
+        nch, qrow, lane);
+  } else if (n == 1) {
+    scale = wire::quantize_row<FMT, W, CACHE>(
+        [&](int ch, float (&v)[W]) {
+          wire::load<W>(s0 + ch * W, v);
 #pragma unroll
           for (int j = 0; j < W; ++j) v[j] = __fadd_rn(0.f, v[j]);
-          scatter_rows::for_later(
-              sh, n_list, ids, pos, e, c0, r, first, count, [&](int f) {
-                float d[W];
-                wire::load<W>(src + static_cast<size_t>(f) * H + col, d);
-#pragma unroll
-                for (int j = 0; j < W; ++j) v[j] = __fadd_rn(v[j], d[j]);
-              });
         },
-        H / W, q + row * H, lane);
-    if (lane == 0) scales[row] = scale;
+        nch, qrow, lane);
+  } else {
+    const int e = row / C;
+    const int c = row - e * C;
+    scale = wire::quantize_row<FMT, W, CACHE>(
+        [&](int ch, float (&v)[W]) {
+          wire::load<W>(s0 + ch * W, v);
+#pragma unroll
+          for (int j = 0; j < W; ++j) v[j] = __fadd_rn(0.f, v[j]);
+          for (int f = first + 1, seen = 1; seen < n; ++f) {
+            if (ids[f] != e || pos[f] != c) continue;
+            float d[W];
+            wire::load<W>(src + static_cast<size_t>(f) * H + ch * W, d);
+#pragma unroll
+            for (int j = 0; j < W; ++j) v[j] = __fadd_rn(v[j], d[j]);
+            ++seen;
+          }
+        },
+        nch, qrow, lane);
+  }
+  if (lane == 0) scales[row] = scale;
+}
+
+// Each warp walks rows warp, warp + (all warps), ... of the E * C, the
+// next row's count and first entry loaded while this row is worked on.
+template <typename T, int FMT, int W, int CACHE>
+__global__ void __launch_bounds__(kRowThreads)
+scatter_quantize_rows_kernel(const int* __restrict__ ids,
+                             const int* __restrict__ pos,
+                             const T* __restrict__ src,
+                             const int* __restrict__ count,
+                             const int* __restrict__ latest, int F, int rows,
+                             int C, int H, uint8_t* __restrict__ q,
+                             float* __restrict__ scales) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kRowWarps;
+  int row = blockIdx.x * kRowWarps + (threadIdx.x >> 5);
+  int n = row < rows ? count[row] : 0;
+  int first = row < rows ? F - latest[row] : 0;
+  for (; row < rows; row += stride) {
+    const int next = row + stride;
+    const int n_next = next < rows ? count[next] : 0;
+    const int first_next = next < rows ? F - latest[next] : 0;
+    scatter_quantize_row<T, FMT, W, CACHE>(ids, pos, src, n, first, row, C,
+                                           H, q, scales, lane);
+    n = n_next;
+    first = first_next;
   }
 }
 
@@ -210,22 +272,52 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
+// As many blocks of the row pass as are resident at once (no more than
+// the rows need): the warps stay and walk the rows.
+template <typename Kernel, typename T>
+cudaError_t launch_rows(Kernel kernel, const int* ids, const int* pos,
+                        const T* src, const int* count, const int* latest,
+                        int F, int rows, int C, int H, uint8_t* q,
+                        float* scales, cudaStream_t s) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kRowThreads, 0);
+  if (err != cudaSuccess) return err;
+  const int grid = std::max(1, std::min((rows + kRowWarps - 1) / kRowWarps,
+                                        sms * per_sm));
+  kernel<<<grid, kRowThreads, 0, s>>>(ids, pos, src, count, latest, F, rows,
+                                      C, H, q, scales);
+  return cudaGetLastError();
+}
+
 template <typename T, int FMT>
-void launch_scatter_quantize(const void* ids, const void* pos,
-                             const void* src, int F, int E, int C, int H,
-                             void* q, void* scales, cudaStream_t s) {
-  const dim3 grid(E, (C + scatter_rows::kRows - 1) / scatter_rows::kRows);
+cudaError_t launch_scatter_quantize(const void* ids, const void* pos,
+                                    const void* src, int F, int E, int C,
+                                    int H, void* q, void* scales,
+                                    void* scratch, cudaStream_t s) {
+  const int rows = E * C;
   const int* i = static_cast<const int*>(ids);
   const int* p = static_cast<const int*>(pos);
   const T* x = static_cast<const T*>(src);
   uint8_t* qb = static_cast<uint8_t*>(q);
   float* sc = static_cast<float*>(scales);
+  int* count = static_cast<int*>(scratch);
+  int* latest = count + rows;
+  cudaError_t err = cudaMemsetAsync(scratch, 0, 2 * sizeof(int) *
+                                    static_cast<size_t>(rows), s);
+  if (err != cudaSuccess) return err;
+  if (F > 0)
+    index_rows_kernel<<<(F + kIndexThreads - 1) / kIndexThreads,
+                        kIndexThreads, 0, s>>>(i, p, F, E, C, count, latest);
   if (H % 16 == 0 && aligned(src, 16) && aligned(q, 16))
-    dispatch_scatter_quantize_kernel<T, FMT, 16, 4>
-        <<<grid, scatter_rows::kThreads, 0, s>>>(i, p, x, F, C, H, qb, sc);
-  else
-    dispatch_scatter_quantize_kernel<T, FMT, 1, 16>
-        <<<grid, scatter_rows::kThreads, 0, s>>>(i, p, x, F, C, H, qb, sc);
+    return launch_rows(scatter_quantize_rows_kernel<T, FMT, 16, 4>, i, p, x,
+                       count, latest, F, rows, C, H, qb, sc, s);
+  return launch_rows(scatter_quantize_rows_kernel<T, FMT, 1, 16>, i, p, x,
+                     count, latest, F, rows, C, H, qb, sc, s);
 }
 
 template <int FMT>
@@ -283,24 +375,27 @@ void launch_residual_fmt(const void* slots, const void* q, const void* scales,
 extern "C" {
 
 // ids, pos: [F] int32; src: [F, H] f32 (src_is_bf16 = 0) or bf16 (1);
-// q: [E, C, H] bytes (int8, or fp8-e4m3 when is_fp8); scales: [E, C] f32.
+// q: [E, C, H] bytes (int8, or fp8-e4m3 when is_fp8); scales: [E, C] f32;
+// scratch: 2 * E * C int32 (the row index; contents on entry unused).
 int dispatch_scatter_quantize_launch(const void* ids, const void* pos,
                                      const void* src, int src_is_bf16,
                                      int is_fp8, int F, int E, int C, int H,
-                                     void* q, void* scales, void* stream) {
+                                     void* q, void* scales, void* scratch,
+                                     void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (src_is_bf16) {
     if (is_fp8)
-      launch_scatter_quantize<__nv_bfloat16, wire::kFp8>(ids, pos, src, F, E, C, H, q, scales, s);
+      err = launch_scatter_quantize<__nv_bfloat16, wire::kFp8>(ids, pos, src, F, E, C, H, q, scales, scratch, s);
     else
-      launch_scatter_quantize<__nv_bfloat16, wire::kInt8>(ids, pos, src, F, E, C, H, q, scales, s);
+      err = launch_scatter_quantize<__nv_bfloat16, wire::kInt8>(ids, pos, src, F, E, C, H, q, scales, scratch, s);
   } else {
     if (is_fp8)
-      launch_scatter_quantize<float, wire::kFp8>(ids, pos, src, F, E, C, H, q, scales, s);
+      err = launch_scatter_quantize<float, wire::kFp8>(ids, pos, src, F, E, C, H, q, scales, scratch, s);
     else
-      launch_scatter_quantize<float, wire::kInt8>(ids, pos, src, F, E, C, H, q, scales, s);
+      err = launch_scatter_quantize<float, wire::kInt8>(ids, pos, src, F, E, C, H, q, scales, scratch, s);
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // ids, pos, w: [F]; q: [E, C, H] bytes; scales: [E, C] f32; out: [F, H] f32.

@@ -1,5 +1,6 @@
-// The row indexing of a dispatch-buffer block, shared by dispatch_scatter
-// (scatter_gather.cu) and dispatch_scatter_quantize (fused_wire.cu).
+// The row indexing of a dispatch-buffer block, for dispatch_scatter
+// (scatter_gather.cu).  (dispatch_scatter_quantize, fused_wire.cu, builds
+// its row index once for all blocks instead.)
 //
 // A block owns the rows [c0, c0 + rows) of expert e's buffer.  index_rows
 // (phase 1) reads the ids and positions of all F entries (8 bytes an

@@ -2,7 +2,7 @@
 // and fused_wire.cu: the power-of-two absmax scale of
 // repro/kernels/wire_quant.py (po2_scale, _encode) and its decode.
 //
-// Every operation is the plain version's (kernels/ref.py) in f32, with the
+// Every result is the plain version's (kernels/ref.py) in f32, with the
 // IEEE intrinsics (__fdiv_rn, __fmul_rn, ...) so that nvcc contracts
 // nothing into an FMA; the build has no --use_fast_math, so no flush to
 // zero either.  The one flush the reference has (it runs where subnormals
@@ -61,9 +61,12 @@ __device__ __forceinline__ float clip(float y, float lim) {
 // One value of the row, divided by its scale, to its payload byte: int8
 // rounds half to even then clips to +-127; fp8-e4m3 clips to +-448 then
 // rounds to nearest even (the saturating cast changes no value in range).
+// The quotient is taken as x * inv, inv = 1 / scale: the scale is a power
+// of two in [2^-126, 2^126], so inv is exact and the product rounds the
+// same real number as x / scale, subnormals included (no flush to zero).
 template <int FMT>
-__device__ __forceinline__ uint8_t encode(float x, float scale) {
-  const float y = __fdiv_rn(x, scale);
+__device__ __forceinline__ uint8_t encode(float x, float inv) {
+  const float y = __fmul_rn(x, inv);
   if (FMT == kInt8)
     return static_cast<uint8_t>(
         static_cast<int8_t>(__float2int_rn(clip(rintf(y), 127.f))));
@@ -125,19 +128,19 @@ __device__ __forceinline__ void load(const __nv_bfloat16* p, float (&v)[W]) {
 // W payload bytes of one chunk; one 16-byte store for W = 16.
 template <int FMT, int W>
 __device__ __forceinline__ void store(uint8_t* p, const float (&v)[W],
-                                      float scale) {
+                                      float inv) {
   if constexpr (W == 16) {
     unsigned w[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k)
-      w[k] = static_cast<unsigned>(encode<FMT>(v[4 * k], scale)) |
-             static_cast<unsigned>(encode<FMT>(v[4 * k + 1], scale)) << 8 |
-             static_cast<unsigned>(encode<FMT>(v[4 * k + 2], scale)) << 16 |
-             static_cast<unsigned>(encode<FMT>(v[4 * k + 3], scale)) << 24;
+      w[k] = static_cast<unsigned>(encode<FMT>(v[4 * k], inv)) |
+             static_cast<unsigned>(encode<FMT>(v[4 * k + 1], inv)) << 8 |
+             static_cast<unsigned>(encode<FMT>(v[4 * k + 2], inv)) << 16 |
+             static_cast<unsigned>(encode<FMT>(v[4 * k + 3], inv)) << 24;
     *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
   } else {
 #pragma unroll
-    for (int j = 0; j < W; ++j) p[j] = encode<FMT>(v[j], scale);
+    for (int j = 0; j < W; ++j) p[j] = encode<FMT>(v[j], inv);
   }
 }
 
@@ -149,16 +152,16 @@ template <int FMT, int W, int CACHE, typename Chunk>
 __device__ __forceinline__ float quantize_row(Chunk chunk, int nch,
                                               uint8_t* qrow, int lane) {
   float cache[CACHE][W];
+  // every cached chunk's loads first, so that they are all in flight
+#pragma unroll
+  for (int i = 0; i < CACHE; ++i)
+    if (lane + 32 * i < nch) chunk(lane + 32 * i, cache[i]);
   unsigned amax = 0;
 #pragma unroll
-  for (int i = 0; i < CACHE; ++i) {
-    const int ch = lane + 32 * i;
-    if (ch < nch) {
-      chunk(ch, cache[i]);
+  for (int i = 0; i < CACHE; ++i)
+    if (lane + 32 * i < nch)
 #pragma unroll
       for (int j = 0; j < W; ++j) amax = max(amax, abs_bits(cache[i][j]));
-    }
-  }
   for (int ch = lane + 32 * CACHE; ch < nch; ch += 32) {
     float v[W];
     chunk(ch, v);
@@ -166,15 +169,16 @@ __device__ __forceinline__ float quantize_row(Chunk chunk, int nch,
     for (int j = 0; j < W; ++j) amax = max(amax, abs_bits(v[j]));
   }
   const float scale = po2_scale<FMT>(__reduce_max_sync(0xffffffffu, amax));
+  const float inv = __frcp_rn(scale);
 #pragma unroll
   for (int i = 0; i < CACHE; ++i) {
     const int ch = lane + 32 * i;
-    if (ch < nch) store<FMT, W>(qrow + ch * W, cache[i], scale);
+    if (ch < nch) store<FMT, W>(qrow + ch * W, cache[i], inv);
   }
   for (int ch = lane + 32 * CACHE; ch < nch; ch += 32) {
     float v[W];
     chunk(ch, v);
-    store<FMT, W>(qrow + ch * W, v, scale);
+    store<FMT, W>(qrow + ch * W, v, inv);
   }
   return scale;
 }

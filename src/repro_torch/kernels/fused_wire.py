@@ -32,7 +32,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SCATTER_QUANTIZE = CudaKernel(
     name="dispatch_scatter_quantize", source="fused_wire.cu",
     symbol="dispatch_scatter_quantize_launch",
-    argtypes=(_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P),
+    argtypes=(_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P),
     replaces="src/repro/kernels/fused_wire.py:75")
 
 DEQUANTIZE_GATHER = CudaKernel(
@@ -54,7 +54,9 @@ def dispatch_scatter_quantize(expert_ids: torch.Tensor, pos: torch.Tensor,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """[F] ids, [F] positions, [F, H] bf16 / f32 tokens -> (q [E, C, H]
     int8 | float8_e4m3fn, scales [E, C] f32); out-of-range entries
-    contribute nothing, empty rows get scale 1 and a zero payload."""
+    contribute nothing, empty rows get scale 1 and a zero payload.  On the
+    card one launch runs a memset and two kernels: the row index (into a
+    [2, E * C] int32 scratch) and the per-row scatter-quantize."""
     F = _check_routing(expert_ids, pos)
     dt = quant_dtype(fmt)
     if src.dim() != 2 or src.shape[0] != F:
@@ -71,11 +73,14 @@ def dispatch_scatter_quantize(expert_ids: torch.Tensor, pos: torch.Tensor,
                          device=src.device)
     if q.numel() == 0:
         return q, scales.fill_(1.0)
+    scratch = torch.empty(2, num_experts * capacity, dtype=torch.int32,
+                          device=src.device)
     with torch.cuda.device(src.device):
         SCATTER_QUANTIZE.launch(
             expert_ids.data_ptr(), pos.data_ptr(), src.data_ptr(),
             int(src.dtype == torch.bfloat16), int(fmt == FP8), F,
             num_experts, capacity, H, q.data_ptr(), scales.data_ptr(),
+            scratch.data_ptr(),
             stream=torch.cuda.current_stream().cuda_stream)
     return q, scales
 

@@ -21,23 +21,33 @@ KERNEL = CudaKernel(
     argtypes=(_P, _I, _P, _I, _I, _I, _I, _I, _P),
     replaces="src/repro/kernels/lsh_hash.py:38")
 
-MAX_ROTATION_DIM = 64      # one 64-column tile per hash (csrc/lsh_hash.cu)
+MAX_ROTATION_DIM = 64      # the kernels' column tiles (csrc/lsh_hash.cu)
 
 
-def _tensor_cores(x: torch.Tensor, rotations: torch.Tensor) -> bool:
-    """bf16 x and rotations whose rows the tensor-core kernel can read in
-    16-byte pieces; any other input takes the f32-FMA kernel."""
+def uses_tensor_cores(x: torch.Tensor, rotations: torch.Tensor) -> bool:
+    """bf16 x and rotations that TMA can read (rows a multiple of 16 bytes,
+    16-byte-aligned x) take the tensor-core kernel; any other input the
+    f32-FMA kernel."""
     H, Dr = rotations.shape[1], rotations.shape[2]
     return (x.dtype == rotations.dtype == torch.bfloat16 and H % 8 == 0
-            and Dr % 8 == 0 and x.data_ptr() % 16 == 0
-            and rotations.data_ptr() % 16 == 0)
+            and Dr % 8 == 0 and x.data_ptr() % 16 == 0)
+
+
+def pack_rotations(rotations: torch.Tensor) -> torch.Tensor:
+    """[L, H, Dr] -> [L * Dr, H], row l * Dr + d = R[l, :, d]: all hashes'
+    columns as one K-major operand, so x . R_l for every l is one GEMM
+    (x @ packed.T viewed as [T, L, Dr])."""
+    L, H, Dr = rotations.shape
+    return rotations.transpose(1, 2).reshape(L * Dr, H).contiguous()
 
 
 def lsh_hash(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
-    """x: [T, H] bf16 / f32; rotations: [L, H, Dr] -> [T, L] int32
-    vertex ids.  bf16 x with bf16 rotations (the training path) runs on
-    the tensor cores, exact products summed in f32; anything else on the
-    f32-FMA kernel, bf16 x read as it is (its values are exact in f32)."""
+    """x: [T, H] bf16 / f32; rotations: [L, H, Dr] -> [T, L] int32 vertex
+    ids.  bf16 x with bf16 rotations (the training path) runs on the
+    tensor cores, exact products summed in f32, against the rotations
+    packed by ``pack_rotations`` (a copy of 2 L H Dr bytes each call);
+    anything else on the f32-FMA kernel, bf16 x read as it is (its values
+    are exact in f32)."""
     if x.dim() != 2 or rotations.dim() != 3 or rotations.shape[1] != x.shape[1]:
         raise ValueError(f"x must be [T, H] and rotations [L, H, Dr], got "
                          f"{tuple(x.shape)} and {tuple(rotations.shape)}")
@@ -45,15 +55,14 @@ def lsh_hash(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
     if x.device.type == "cpu" and rotations.device.type == "cpu":
         return ref.lsh_hash_ref(x, rotations)
-    rot = rotations.contiguous()
-    check_cuda(x, rot)
-    tensor_cores = _tensor_cores(x, rot)
-    if not tensor_cores:
-        rot = rot.to(torch.float32)
+    check_cuda(x, rotations.contiguous())
     T, H = x.shape
-    L, _, Dr = rot.shape
+    L, _, Dr = rotations.shape
     if not 0 < Dr <= MAX_ROTATION_DIM:
         raise ValueError(f"rotation_dim={Dr} outside (0, {MAX_ROTATION_DIM}]")
+    tensor_cores = uses_tensor_cores(x, rotations)
+    rot = (pack_rotations(rotations) if tensor_cores
+           else rotations.to(torch.float32).contiguous())
     out = torch.empty(T, L, dtype=torch.int32, device=x.device)
     if out.numel() == 0:
         return out

@@ -118,18 +118,32 @@ def _lsh_inputs(rng, g=3, c=200, s=24, h=36, dtype=torch.bfloat16):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
 @pytest.mark.parametrize("dtype,rot_dtype", [
     (torch.bfloat16, torch.bfloat16),       # the tensor-core kernel
     (torch.bfloat16, torch.float32), (torch.float32, torch.float32)])
-@pytest.mark.parametrize("t,h,dr", [(300, 48, 16), (4100, 1536, 64),
-                                    (70, 36, 12)])
-def test_cuda_lsh_hash_near_tie_rule(h100, dtype, rot_dtype, t, h, dr):
+@pytest.mark.parametrize("t,h,l,dr", [
+    (300, 48, 6, 16), (4100, 1536, 6, 64), (70, 36, 6, 12),
+    # T not a multiple of the 128-row tile, H not of the 64-deep k slice,
+    # L * Dr not of the 192-column tile
+    (4100, 40, 5, 16), (4100, 1096, 1, 8), (4100, 1096, 3, 16)])
+def test_cuda_lsh_hash_near_tie_rule(h100, ties, dtype, rot_dtype, t, h, l,
+                                     dr):
+    """Equal to the plain version wherever the two largest |v| differ by
+    more than NEAR_TIE; rows 0-2 all zero give vertex 0.  With ``ties``,
+    columns 1, Dr / 2 and Dr - 1 of each rotation are one large column:
+    wherever it holds the maximum, the three are tied exactly and the
+    first, index 1 with its sign, must win on the card too."""
     rng = np.random.default_rng(20)
     x = torch.from_numpy(rng.standard_normal((t, h)).astype(np.float32))
     x[:3] = 0.0
     x = x.to(dtype)
-    rot = torch.from_numpy((rng.standard_normal((6, h, dr)) / np.sqrt(h))
-                           .astype(np.float32)).to(rot_dtype)
+    r = rng.standard_normal((l, h, dr)) / np.sqrt(h)
+    if ties:
+        r[:, :, 1] *= 30.0
+        r[:, :, dr // 2] = r[:, :, 1]
+        r[:, :, dr - 1] = r[:, :, 1]
+    rot = torch.from_numpy(r.astype(np.float32)).to(rot_dtype)
     torch.backends.cuda.matmul.allow_tf32 = False
     before = lsh_hash.KERNEL.launches
     got = lsh_hash.lsh_hash(x.to(h100), rot.to(h100))
@@ -140,6 +154,11 @@ def test_cuda_lsh_hash_near_tie_rule(h100, dtype, rot_dtype, t, h, dr):
     ok = lsh_hash.near_tie_margin(x, rot) > NEAR_TIE
     assert torch.equal(got.cpu()[ok], want[ok])
     assert (got.cpu()[:3] == 0).all()
+    if ties:
+        tied = (want // 2) == 1
+        assert int(tied.sum()) > t * l // 2
+        assert torch.equal(got.cpu()[tied], want[tied])
+        assert set((want[tied] % 2).unique().tolist()) == {0, 1}
 
 
 @pytest.mark.cuda
@@ -256,19 +275,32 @@ def test_cuda_wire_quantize_dequantize_bitwise(h100, fmt, dtype, h):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
 @pytest.mark.parametrize("src_dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("h", [32, 30])
-def test_cuda_fused_wire_ops_bitwise(h100, fmt, src_dtype, h):
+@pytest.mark.parametrize("h,e,c", [
+    (32, 5, 16), (30, 5, 16),
+    # E * C = 321 rows, not a multiple of a block's 8, some of them empty;
+    # H = 1000 the one-column path past its 512 cached columns, H = 2064
+    # the 16-wide path past its 2048
+    (1000, 3, 107), (2064, 3, 107)])
+def test_cuda_fused_wire_ops_bitwise(h100, fmt, src_dtype, h, e, c):
     """The three fused kernels against their plain versions and against
-    the unfused kernels they replace, on a unique plan; the
-    scatter-quantize also on duplicate (expert, position) pairs, against
-    the unfused kernels (both sum in entry order)."""
+    the unfused kernels they replace, on a plan with out-of-range ids and
+    empty rows; the scatter-quantize also with a few duplicate (expert,
+    position) entries and with many, against the plain version on the CPU
+    and the unfused kernels on the card (all three sum in entry order)."""
     rng = np.random.default_rng(31)
-    flat, pos, src, w, e, c = _plan(rng, h=h)
+    flat, pos, src, w, e, c = _plan(rng, e=e, c=c, h=h)
     src = src.to(src_dtype)
     d = [t.to(h100) for t in (flat, pos, src, w)]
+    before = fused_wire.SCATTER_QUANTIZE.launches
     q, s = fused_wire.dispatch_scatter_quantize(d[0], d[1], d[2], e, c, fmt)
+    assert fused_wire.SCATTER_QUANTIZE.launches == before + 1
     rq, rs = ref.dispatch_scatter_quantize_ref(flat, pos, src, e, c, fmt)
     assert torch.equal(_bits(q).cpu(), _bits(rq)) and torch.equal(s.cpu(), rs)
+    # empty rows: scale 1 and a zero payload
+    filled = torch.zeros(e * c, dtype=torch.bool)
+    filled[(flat.long() * c + pos.long())[flat < e]] = True
+    assert bool((s.cpu().reshape(-1)[~filled] == 1).all())
+    assert bool((_bits(q).cpu().reshape(e * c, h)[~filled] == 0).all())
     cq, cs = wire_quant.wire_quantize(
         scatter_gather.dispatch_scatter(d[0], d[1], d[2], e, c), fmt)
     assert torch.equal(_bits(q), _bits(cq)) and torch.equal(s, cs)
@@ -292,11 +324,27 @@ def test_cuda_fused_wire_ops_bitwise(h100, fmt, src_dtype, h):
         assert torch.equal(got, residual_apply.residual_apply(
             dv[0], dq if b is None else dq - b, dv[3]))
 
-    ids = torch.from_numpy(rng.integers(-1, 5, size=3000).astype(np.int32))
-    dpos = torch.from_numpy(rng.integers(-1, 9, size=3000).astype(np.int32))
-    dsrc = torch.randn(3000, h).to(src_dtype)
-    dd = [t.to(h100) for t in (ids, dpos, dsrc)]
-    q, s = fused_wire.dispatch_scatter_quantize(*dd, 4, 8, fmt)
-    cq, cs = wire_quant.wire_quantize(
-        scatter_gather.dispatch_scatter(*dd, 4, 8), fmt)
-    assert torch.equal(_bits(q), _bits(cq)) and torch.equal(s, cs)
+    # a few duplicates in the plan: entries 50, 120 and 299 land where the
+    # kept entry 7 does; then many: 3000 entries into 4 x 8 rows, with ids
+    # and positions out of range on both sides
+    few_ids, few_pos = flat.clone(), pos.clone()
+    k = int(torch.nonzero(flat < e)[0, 0])
+    few_ids[[50, 120, 299]], few_pos[[50, 120, 299]] = flat[k], pos[k]
+    many_ids = torch.from_numpy(rng.integers(-1, 5, size=3000)
+                                .astype(np.int32))
+    many_pos = torch.from_numpy(rng.integers(-1, 9, size=3000)
+                                .astype(np.int32))
+    for ids, dpos, dsrc, ne, nc in (
+            (few_ids, few_pos, src, e, c),
+            (many_ids, many_pos, torch.randn(3000, h).to(src_dtype), 4, 8)):
+        dd = [t.to(h100) for t in (ids, dpos, dsrc)]
+        q, s = fused_wire.dispatch_scatter_quantize(*dd, ne, nc, fmt)
+        rq, rs = ref.dispatch_scatter_quantize_ref(ids, dpos, dsrc, ne, nc,
+                                                   fmt)
+        assert torch.equal(_bits(q).cpu(), _bits(rq))
+        assert torch.equal(s.cpu(), rs)
+        cq, cs = wire_quant.wire_quantize(
+            scatter_gather.dispatch_scatter(*dd, ne, nc), fmt)
+        assert torch.equal(_bits(q), _bits(cq)) and torch.equal(s, cs)
+        q2, s2 = fused_wire.dispatch_scatter_quantize(*dd, ne, nc, fmt)
+        assert torch.equal(_bits(q2), _bits(q)) and torch.equal(s2, s)

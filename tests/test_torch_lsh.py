@@ -29,6 +29,7 @@ from repro.kernels import ref as jref
 from repro_torch.core import clustering as tclust
 from repro_torch.core import hashing as thash
 from repro_torch.kernels import dispatch, ref
+from repro_torch.kernels import lsh_hash as lsh_hash_k
 from repro_torch.kernels.lsh_hash import near_tie_margin
 from test_torch_wire import _bits, near_midpoint
 
@@ -94,6 +95,50 @@ def test_lsh_hash_exact_tie_takes_first_index_and_its_sign():
     np.testing.assert_array_equal(got, want)
     assert set(np.unique(got // 2)) == {2}
     assert set(np.unique(got % 2)) == {0, 1}
+
+
+@pytest.mark.parametrize("l,h,dr", [(6, 48, 16), (5, 40, 16), (1, 1096, 8),
+                                    (3, 36, 12)])
+def test_pack_rotations_is_one_gemm_of_all_hashes(l, h, dr):
+    """The tensor-core kernel's operand: row l * Dr + d of the packed
+    [L * Dr, H] is R[l, :, d], so x @ packed.T is einsum("th,lhd->tld")
+    over the original layout, and its argmax gives JAX's vertex ids."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((50, h)).astype(np.float32)
+    x[0] = 0.0
+    rot = (rng.standard_normal((l, h, dr)) / np.sqrt(h)).astype(np.float32)
+    packed = lsh_hash_k.pack_rotations(_t(rot))
+    assert packed.shape == (l * dr, h) and packed.is_contiguous()
+    for i, d in ((0, 0), (l - 1, dr - 1), (l // 2, dr // 2)):
+        assert torch.equal(packed[i * dr + d], _t(rot)[i, :, d])
+    v = (_t(x) @ packed.T).view(50, l, dr)
+    torch.testing.assert_close(
+        v, torch.einsum("th,lhd->tld", _t(x), _t(rot)), rtol=0, atol=1e-5)
+    idx = torch.argmax(v.abs(), dim=-1)
+    sign = torch.gather(v, -1, idx[..., None])[..., 0] < 0
+    want = np.asarray(jref.lsh_hash_ref(jnp.asarray(x), jnp.asarray(rot)))
+    _assert_vertices((2 * idx + sign).numpy(), want,
+                     near_tie_margin(_t(x), _t(rot)).numpy(),
+                     "packed GEMM vs JAX lsh_hash_ref")
+
+
+@pytest.mark.parametrize("x_dtype,rot_dtype,h,dr,offset,tensor_cores", [
+    (torch.bfloat16, torch.bfloat16, 48, 16, 0, True),   # the training path
+    (torch.bfloat16, torch.bfloat16, 40, 8, 0, True),
+    (torch.bfloat16, torch.bfloat16, 36, 16, 0, False),  # H % 8 != 0
+    (torch.bfloat16, torch.bfloat16, 48, 12, 0, False),  # Dr % 8 != 0
+    (torch.bfloat16, torch.bfloat16, 48, 16, 1, False),  # x not 16-byte aligned
+    (torch.bfloat16, torch.float32, 48, 16, 0, False),
+    (torch.float32, torch.bfloat16, 48, 16, 0, False),
+    (torch.float32, torch.float32, 48, 16, 0, False)])
+def test_lsh_hash_kernel_choice(x_dtype, rot_dtype, h, dr, offset,
+                                tensor_cores):
+    """Which kernel a CUDA input would take, decided from dtypes, shapes and
+    x's address alone (the rotations are packed into a fresh tensor)."""
+    flat = torch.zeros(10 * h + offset, dtype=x_dtype)
+    x = flat[offset:].view(10, h)
+    rot = torch.zeros(3, h, dr, dtype=rot_dtype)
+    assert lsh_hash_k.uses_tensor_cores(x, rot) is tensor_cores
 
 
 def test_fold_wraps_int32_like_jax():

@@ -259,6 +259,34 @@ def test_dispatch_scatter_quantize_matches_jax(backend, fmt, src_dtype):
 
 @pytest.mark.parametrize("backend", JAX_BACKENDS)
 @pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("src_dtype", ["float32", "bfloat16"])
+def test_dispatch_scatter_quantize_duplicates_match_jax(backend, fmt,
+                                                        src_dtype):
+    """Many entries per (expert, position), ids and positions out of range
+    on both sides, and empty rows (positions C - 2 and C - 1).  The src
+    values are multiples of 1/4 below 2, so every row's sum is exact in any
+    order and the comparison is bitwise; the CUDA kernel sums a row's
+    entries in entry order, as the plain version does."""
+    rng = np.random.default_rng(5)
+    f, e, c, h = 400, 4, 9, 32
+    ids = rng.integers(-1, e + 1, size=f).astype(np.int32)
+    pos = rng.integers(-1, c - 2, size=f).astype(np.int32)
+    pos[::37] = c + 1
+    src = (rng.integers(-8, 8, size=(f, h)) * 0.25).astype(np.float32)
+    jsrc = jnp.asarray(src).astype(src_dtype)
+    jq, js = jdispatch.dispatch_scatter_quantize(
+        jnp.asarray(ids), jnp.asarray(pos), jsrc, e, c, fmt,
+        backend=backend)
+    tq, ts = dispatch.dispatch_scatter_quantize(
+        _t(ids), _t(pos), _t(jsrc), e, c, fmt)
+    np.testing.assert_array_equal(_bits(tq), _bits(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    assert (ts[:, c - 2:] == 1.0).all() and not tq[:, c - 2:].float().any()
+    assert not (ts[:, :c - 2] == 1.0).all()
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("fmt", FORMATS)
 def test_dequantize_combine_gather_matches_jax(backend, fmt):
     rng = np.random.default_rng(4)
     flat, pos, _, e, c, h = _plan(rng)
