@@ -58,17 +58,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
               finite losses, no skips, every kernel launched on the LSH-on
               run and no LSH kernel on the other; then one steady-state
               step under torch.profiler (device busy ms, idle share, top
-              device ops).  Then the int8 / fp8 wire (LSHConfig.
+              device ops, host ms in kernel launch calls, and the port's
+              kernels' device ms: each kernel and each template
+              instantiation).  Its first
+              warm-up step records the slots it hands segment_centroid:
+              the forward's and residual_apply's backward's (the clamped
+              overflow bin), at the first and the last MoE layer.  Their
+              statistics are printed (rows in range, the largest slot's
+              rows and share), and segment_centroid is held to its plain
+              version at them and at all C rows of every group in slot
+              S - 1 (bf16 and f32): counts equal, sums within 1e-6 of the
+              magnitude sum, the same bits twice, timed beside
+              index_add_ and the bound.  Then the int8 / fp8 wire (LSHConfig.
               wire_format by dataclasses.replace, through
-              init_train_state + make_train_step): int8 with LSH on (3
-              steps), fp8 with LSH on (2), int8 with LSH off (2); finite
+              init_train_state + make_train_step): int8 with LSH on (6
+              steps), fp8 with LSH on (6), int8 with LSH off (4); finite
               losses, and each wire kernel of the setting launched its
               expected count a step (LSH on: wire_quantize 128,
               wire_dequantize 128, dequantize_residual_apply 64; off:
               dispatch_scatter_quantize 64, wire_quantize 64,
               wire_dequantize 64, dequantize_combine_gather 96; each
               dispatch_scatter_quantize launch is a memset and two
-              kernels on the stream).
+              kernels on the stream), one more step profiled (device busy
+              ms, its idle share of the mean host-clock step after the
+              first, host ms in kernel launch calls, top device ops, the
+              port's kernels).
   7. train parity  the config at full width, 2 layers, f32, LSH on, batch
               2 x 64: one train step (the first of a warm-up) on the card
               (kernels) and on the CPU (plain versions) from the same
@@ -124,7 +138,7 @@ WIRE_FORMATS = ("int8", "fp8")
 # and decodes the centroids (compress) and the expert outputs, and with
 # it off the backward adds a dequantize-gather for the combine weights'
 # gradient
-WIRE_RUNS = (("int8", True, 3), ("fp8", True, 2), ("int8", False, 2))
+WIRE_RUNS = (("int8", True, 6), ("fp8", True, 6), ("int8", False, 4))
 WIRE_LAUNCHES_PER_LAYER = {
     True: {"wire_quantize": 4, "wire_dequantize": 4,
            "dequantize_residual_apply": 2},
@@ -436,6 +450,33 @@ def _lsh_chain(torch, x, rot):
     return chain, kind
 
 
+def _centroid_record(torch, scm, ref, label, slots, x, S):
+    """segment_centroid on (slots, x) against its plain version: counts
+    equal, sums within SUM_RTOL of the terms' magnitudes, the same bits on
+    a second call; timed beside index_add_ of the sums and the bound."""
+    G, C, H = x.shape
+    cent, counts = scm.segment_centroid(slots, x, S)
+    rc, rn = ref.segment_centroid_ref(slots, x, S)
+    if not torch.equal(counts, rn):
+        raise AssertionError(f"[{label}] segment_centroid counts differ")
+    mag, _ = ref.segment_centroid_ref(slots, x.float().abs(), S)
+    err = _sum_check(torch, label, "segment_centroid", cent, rc, mag)
+    _same_twice(torch, label, "segment_centroid",
+                lambda: scm.segment_centroid(slots, x, S), (cent, counts))
+    in_range = (slots >= 0) & (slots < S)
+    n_in = int(in_range.sum())
+    rows = torch.where(in_range, torch.arange(G, device="cuda")[:, None] * S
+                       + slots, G * S).reshape(-1)
+    x32 = x.reshape(G * C, H).float()
+    return dict(max_abs_err=err, **_timed(
+        torch, lambda: scm.segment_centroid(slots, x, S),
+        lambda: ref.segment_centroid_ref(slots, x, S),
+        lambda: torch.zeros(G * S + 1, H, device="cuda").index_add_(
+            0, rows, x32),
+        _bound(G * C * 4 + n_in * H * x.element_size() + G * S * H * 4
+               + G * S * 4, n_in * H)))
+
+
 def check_lsh_kernels(torch, lh, scm, ram, ref, q, label):
     """lsh_hash, segment_centroid and residual_apply on ``q`` against their
     plain versions, and timed."""
@@ -479,24 +520,8 @@ def check_lsh_kernels(torch, lh, scm, ram, ref, q, label):
     log(f"[kernels] {label} lsh_hash: of its kernel_ms, {pack_ms:.6f} ms "
         "pack the rotations")
 
-    cent, counts = scm.segment_centroid(slots, disp, S)
-    rc, rn = ref.segment_centroid_ref(slots, disp, S)
-    if not torch.equal(counts, rn):
-        raise AssertionError(f"[{label}] segment_centroid counts differ")
-    mag, _ = ref.segment_centroid_ref(slots, disp.float().abs(), S)
-    err = _sum_check(torch, label, "segment_centroid", cent, rc, mag)
-    _same_twice(torch, label, "segment_centroid",
-                lambda: scm.segment_centroid(slots, disp, S), (cent, counts))
-    rows = torch.where(in_range, torch.arange(G, device="cuda")[:, None] * S
-                       + slots, G * S).reshape(-1)
-    x32 = disp.reshape(G * C, H).float()
-    out["segment_centroid"] = dict(max_abs_err=err, **_timed(
-        torch, lambda: scm.segment_centroid(slots, disp, S),
-        lambda: ref.segment_centroid_ref(slots, disp, S),
-        lambda: torch.zeros(G * S + 1, H, device="cuda").index_add_(
-            0, rows, x32),
-        _bound(G * C * 4 + n_in * H * disp.element_size() + G * S * H * 4
-               + G * S * 4, n_in * H)))
+    out["segment_centroid"] = _centroid_record(torch, scm, ref, label,
+                                               slots, disp, S)
 
     rows_c = (torch.arange(G, device="cuda")[:, None] * S + clamped) \
         .reshape(-1)
@@ -1106,14 +1131,15 @@ def phase_train_wire(torch, cfg, step_lib, data_lib, kernels,
                      routing_kernels, lsh_kernels, summarize, port_names):
     """The full config, 4 x 1024 tokens, with the int8 and fp8 wires
     (LSHConfig.wire_format, by dataclasses.replace) through
-    init_train_state + make_train_step: int8 with LSH on (3 steps), fp8
-    with LSH on (2) and int8 with LSH off (2, the coded baseline).  Each
+    init_train_state + make_train_step: int8 with LSH on (6 steps), fp8
+    with LSH on (6) and int8 with LSH off (4, the coded baseline).  Each
     run's loss is finite, each wire kernel of its setting launches
     WIRE_LAUNCHES_PER_LAYER times the MoE layers a step (32 layers: 128,
     128 and 64 with LSH on; 64, 64, 64 and 96 with it off), the routing
     (and with LSH on the LSH) kernels launch, and no other; then one more
-    step under torch.profiler for its device busy ms and the port's
-    kernels' device ms.  Returns {(fmt, lsh): (summary, launches)}."""
+    step under torch.profiler for its device busy ms, idle share of the
+    mean step after the first, host ms in kernel launch calls and the
+    port's kernels' device ms.  Returns {(fmt, lsh): (summary, launches)}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import OptimizerConfig
@@ -1140,27 +1166,32 @@ def phase_train_wire(torch, cfg, step_lib, data_lib, kernels,
                 raise AssertionError(f"{fmt} lsh={lsh}: step {s} skipped")
         launches = {k.name: k.launches for k in kernels}
         # one more step under the profiler: device busy ms (the sum of the
-        # kernels' durations; the wall clock is the profiler's, not kept)
+        # kernels' durations), its idle share of the unprofiled steps' mean
+        steady = dts[1:]
+        mean_ms = sum(steady) / len(steady) * 1e3
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             state, m = step_fn(state, step_lib.batch_to_device(
                 ds.batch_at(steps), dev))
             float(m["loss"])
             torch.cuda.synchronize()
-        busy = summarize(prof, 1, float("inf"))[0]
-        steady = dts[1:]
+        busy, top = summarize(prof, 1, mean_ms, top=10)
         summary = dict(
             wire_format=fmt, lsh=lsh, steps=steps, batch=4, seq=1024,
             losses=losses, step_ms=[d * 1e3 for d in dts],
-            mean_step_ms_after_first=sum(steady) / len(steady) * 1e3,
+            mean_step_ms_after_first=mean_ms,
             tokens_per_s=4 * 1024 * len(steady) / sum(steady),
             peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
             profiled_device_busy_ms=busy["device_busy_ms_per_step"],
             profiled_kernels=busy["device_kernels_per_step"],
+            profiled_idle_share=busy["device_idle_share"],
+            profiled_host_launch_ms=busy["host_launch_ms_per_step"],
             port_kernels_ms=_port_kernels(prof, port_names))
         tag = f"{fmt} lsh {'on' if lsh else 'off'}"
         log(f"[train-wire] {tag} summary " + json.dumps(summary,
                                                         sort_keys=True))
+        for line in top[:10]:                   # the top ops by device time
+            log(f"[train-wire] {tag} {line}")
         per_step = {n: cnt / steps for n, cnt in launches.items()}
         log(f"[train-wire] {tag} launches per step " + json.dumps(per_step))
         if not all(math.isfinite(v) for v in losses):
@@ -1192,27 +1223,47 @@ def port_kernel_names(build):
             for name in decl.findall(src.read_text())}
 
 
+def _template_args(s):
+    """The leading "<...>" of ``s``, nested brackets included."""
+    depth = 0
+    for i, ch in enumerate(s):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if depth == 0:
+            return s[:i + 1]
+    return s
+
+
 def _port_kernels(prof, names):
     """Device ms of the port's own kernels (``names``) in a profile of one
-    step, whether or not among the top ops, a template's instantiations
-    summed.  A profile names them "(anonymous namespace)::name(...)", or
-    "void (anonymous namespace)::name<...>(...)" for a template."""
+    step, whether or not among the top ops: each kernel with a template's
+    instantiations summed ("name"), and each instantiation apart
+    ("name<args>": segment_centroid's bf16 ones are the forward, its f32
+    ones the backward).  A profile names them
+    "(anonymous namespace)::name(...)", or "void (anonymous namespace)::name<...>(...)" for a template."""
     ns = "(anonymous namespace)::"
     out = {}
     for a in prof.key_averages():
         key = a.key.removeprefix("void ")
         if not key.startswith(ns) or a.self_device_time_total <= 0:
             continue
-        name = re.split(r"[<(]", key[len(ns):])[0]
-        if name in names:
-            out[name] = out.get(name, 0.0) + a.self_device_time_total / 1e3
+        rest = key[len(ns):]
+        name = re.split(r"[<(]", rest)[0]
+        if name not in names:
+            continue
+        keys = [name]
+        if rest[len(name):].startswith("<"):
+            keys.append(name + _template_args(rest[len(name):]))
+        for k in keys:
+            out[k] = out.get(k, 0.0) + a.self_device_time_total / 1e3
     return out
 
 
 def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
-                        port_names):
+                        port_names, spy):
     """One steady-state training step under torch.profiler (LSH on), after
-    two warm-up steps and a host-clock timing of two more."""
+    two warm-up steps and a host-clock timing of two more.  The first
+    warm-up step runs under ``spy`` (spy_centroid_slots): returns (the
+    profile's record, that step's segment_centroid slot sets)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import OptimizerConfig
@@ -1229,7 +1280,9 @@ def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
         float(m["loss"])
         torch.cuda.synchronize()
 
-    run(0, 2)
+    with spy() as rec:
+        run(0, 1)
+    run(1, 1)
     t0 = time.perf_counter()
     run(2, 2)
     wall_ms = (time.perf_counter() - t0) * 1e3 / 2
@@ -1242,7 +1295,100 @@ def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
     record["port_kernels_ms_per_step"] = _port_kernels(prof, port_names)
     log("[train-profile] " + json.dumps(record, sort_keys=True))
     del state
-    return record
+    return record, training_slot_sets(rec, cfg.num_layers)
+
+
+# ----------------------------------- 6b. the training path's own slots --
+
+@contextlib.contextmanager
+def spy_centroid_slots(dispatch, scm):
+    """Record what each segment_centroid call of a training step gets, by
+    caller: "forward" (the forward pass, then the checkpoint's recompute)
+    and "backward" (residual_apply's transpose).  Yields {"forward":
+    [(slots, x dtype, H, S), ...], "backward": [...]}, in call order."""
+    rec = {"forward": [], "backward": []}
+    side = ["forward"]
+    orig_sc, orig_tr = scm.segment_centroid, dispatch.residual_apply_transpose
+
+    def centroid(slots, x, num_slots):
+        rec[side[0]].append((slots.clone(), x.dtype, x.shape[-1], num_slots))
+        return orig_sc(slots, x, num_slots)
+
+    def transpose(slots, ct, num_slots):
+        side[0] = "backward"
+        try:
+            return orig_tr(slots, ct, num_slots)
+        finally:
+            side[0] = "forward"
+
+    scm.segment_centroid = centroid
+    dispatch.residual_apply_transpose = transpose
+    try:
+        yield rec
+    finally:
+        scm.segment_centroid = orig_sc
+        dispatch.residual_apply_transpose = orig_tr
+
+
+def training_slot_sets(rec, n_layers):
+    """The first and the last MoE layer's slot sets of one recorded step:
+    the forward pass runs the layers in order (its recompute follows), the
+    backward in reverse."""
+    fwd, bwd = rec["forward"], rec["backward"]
+    if len(fwd) != 2 * n_layers or len(bwd) != n_layers:
+        raise AssertionError(f"a training step called segment_centroid "
+                             f"{len(fwd)} times forward and {len(bwd)} "
+                             f"backward, want {2 * n_layers} and {n_layers}")
+    return {"forward, first MoE layer": fwd[0],
+            "forward, last MoE layer": fwd[n_layers - 1],
+            "backward, first MoE layer": bwd[-1],
+            "backward, last MoE layer": bwd[0]}
+
+
+def slot_stats(torch, slots, S):
+    """Per group: rows in range, the largest slot's rows and their share
+    of the rows in range, occupied slots; summed, or mean and max over
+    the groups."""
+    in_range = (slots >= 0) & (slots < S)
+    n_in = in_range.sum(1)
+    counts = torch.zeros(slots.shape[0], S, dtype=torch.int64,
+                         device=slots.device).scatter_add_(
+        1, slots.long().clamp(0, S - 1), in_range.long())
+    largest = counts.max(1).values
+    share = largest.double() / n_in.clamp_min(1).double()
+    return dict(groups=slots.shape[0], rows=slots.shape[1],
+                rows_in_range=int(n_in.sum()),
+                rows_in_range_mean=float(n_in.double().mean()),
+                largest_slot_rows_mean=float(largest.double().mean()),
+                largest_slot_rows_max=int(largest.max()),
+                largest_slot_share_mean=float(share.mean()),
+                largest_slot_share_max=float(share.max()),
+                occupied_slots_mean=float((counts > 0).sum(1).double()
+                                          .mean()))
+
+
+def check_training_slots(torch, scm, ref, sets):
+    """segment_centroid at the training path's own slots (``sets``: label
+    -> (slots, x dtype, H, S) as recorded) and at the worst case, all C
+    rows of every group in slot S - 1 (bf16 and f32 x): the slot
+    statistics, then _centroid_record on seeded random x of that dtype
+    (bf16 forward, f32 backward, as the step has them)."""
+    g = torch.Generator(device="cuda").manual_seed(20)
+    slots0, _, H, S = next(iter(sets.values()))
+    worst = torch.full(slots0.shape, S - 1, dtype=torch.int32, device="cuda")
+    cases = dict(sets)
+    for dt, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        cases[f"all rows in slot S-1, {name}"] = (worst, dt, H, S)
+    out = {}
+    for label, (slots, dt, H, S) in cases.items():
+        log(f"[kernels] training slots, {label} ({dt}): " + json.dumps(
+            slot_stats(torch, slots, S), sort_keys=True))
+        x = torch.randn(*slots.shape, H, generator=g, device="cuda").to(dt)
+        out[label] = _centroid_record(torch, scm, ref, label,
+                                      slots.contiguous(), x, S)
+    _log_records("training slots", {f"segment_centroid, {k}": v
+                                    for k, v in out.items()})
+    return out
 
 
 # ------------------------------------------------------ 7. train parity --
@@ -1402,10 +1548,15 @@ def main() -> int:
                           dispatch.WIRE_KERNELS)
     torch.cuda.empty_cache()
     port_names = port_kernel_names(build)
-    phase_train_profile(torch, cfg, step_lib, synthetic, summarize,
-                        port_names)
+    _, slot_sets = phase_train_profile(
+        torch, cfg, step_lib, synthetic, summarize, port_names,
+        lambda: spy_centroid_slots(dispatch, segment_centroid))
     torch.cuda.empty_cache()
     log(f"[time] training done at {time.time() - t_start:.1f} s")
+    check_training_slots(torch, segment_centroid, ref, slot_sets)
+    del slot_sets
+    log(f"[time] training-slot kernels done at "
+        f"{time.time() - t_start:.1f} s")
     wired = phase_train_wire(torch, cfg, step_lib, synthetic, kernels,
                              routing_k, lsh_k, summarize, port_names)
     log(f"[time] quantized training done at {time.time() - t_start:.1f} s")

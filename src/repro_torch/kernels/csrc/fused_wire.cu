@@ -42,8 +42,21 @@
 //     0 + first + later entries in entry order, dispatch_scatter's f32 row
 //     bit for bit, and the f32 buffer never reaches device memory; an empty
 //     row gets scale 1 and a zero payload.
-//   dequantize-gather: one warp per entry, 16 payload bytes a lane per
-//     load, w * (float(q) * scale) in that order.
+//   dequantize-gather: w * (float(q) * scale) in that order, 0 out of
+//     range.  Bound: 50 MB in, 201 MB out, 75 us.  The first version, one
+//     warp an entry with 16 payload bytes a lane, took 0.167 ms, slower
+//     than the plain combine_gather (0.139 ms) that moves 201 MB in: each
+//     lane stored its 64 output bytes as four float4s, so every store
+//     instruction of a warp wrote 32 pieces at a 64-byte stride, and each
+//     entry's index chain (ids -> pos -> scale -> row) came before its
+//     loads.  Now lane L takes payload words L, L + 32, ... (4 bytes, 12
+//     a lane at H = 1536, all loads issued before any store) and writes
+//     each as one float4, so a warp's store is 512 contiguous bytes, as
+//     combine_gather's are, streamed past L2 (__stcs); resident warps walk
+//     the entries, the next entry's id, position and weight, then its
+//     scale, loaded while this entry's payload is in flight.  H not a
+//     multiple of 4, or unaligned pointers, take a one-column-a-lane
+//     kernel.
 //   dequantize-residual: residual_apply.cu's gather, 4 columns a thread,
 //     with the dequantize and the base subtraction in registers:
 //     (float(q) * scale - base) + residual, in that order.
@@ -51,6 +64,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
@@ -61,8 +75,9 @@ namespace {
 constexpr int kIndexThreads = 256;
 constexpr int kRowThreads = 256;                     // 8 buffer rows a block
 constexpr int kRowWarps = kRowThreads / 32;
-constexpr int kGatherThreads = 256;                  // 8 entries a block
+constexpr int kGatherThreads = 256;                  // 8 warps a block
 constexpr int kGatherWarps = kGatherThreads / 32;
+constexpr int kGatherWords = 12;   // payload words a lane an entry in flight
 constexpr int kResidThreads = 128;
 constexpr int kResidRows = 4;
 
@@ -157,7 +172,14 @@ scatter_quantize_rows_kernel(const int* __restrict__ ids,
   }
 }
 
-template <int FMT, int W>
+// The vector path (H % 4 == 0): as many warps as are resident walk the
+// entries f, f + (all warps), ...; lane L of a warp loads payload words L,
+// L + 32, ... of the entry's row (kGatherWords of them, all issued before
+// any store) and writes each word's four values as one float4, so a
+// warp's store covers 512 contiguous bytes of the output row.  While an
+// entry's payload is in flight, the next entry's id, position and weight
+// are loaded, then its scale.
+template <int FMT>
 __global__ void __launch_bounds__(kGatherThreads)
 dequantize_combine_gather_kernel(const int* __restrict__ ids,
                                  const int* __restrict__ pos,
@@ -165,6 +187,71 @@ dequantize_combine_gather_kernel(const int* __restrict__ ids,
                                  const float* __restrict__ scales,
                                  const float* __restrict__ w, int F, int E,
                                  int C, int H, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kGatherWarps;
+  const int words = H / 4;
+  int f = blockIdx.x * kGatherWarps + (threadIdx.x >> 5);
+  int id = f < F ? ids[f] : -1;
+  int p = f < F ? pos[f] : -1;
+  float wf = f < F ? w[f] : 0.f;
+  bool ok = id >= 0 && id < E && p >= 0 && p < C;
+  size_t row = ok ? static_cast<size_t>(id) * C + p : 0;
+  float scale = ok ? scales[row] : 0.f;
+  for (; f < F; f += stride) {
+    const int fn = f + stride;
+    const int id_n = fn < F ? ids[fn] : -1;
+    const int p_n = fn < F ? pos[fn] : -1;
+    const float w_n = fn < F ? w[fn] : 0.f;
+    bool ok_n = false;
+    size_t row_n = 0;
+    float scale_n = 0.f;
+    const unsigned* qr = reinterpret_cast<const unsigned*>(q + row * H);
+    float4* o = reinterpret_cast<float4*>(out + static_cast<size_t>(f) * H);
+    for (int w0 = 0; w0 < words; w0 += 32 * kGatherWords) {
+      unsigned b[kGatherWords];
+#pragma unroll
+      for (int k = 0; k < kGatherWords; ++k) {
+        const int i = w0 + 32 * k + lane;
+        b[k] = ok && i < words ? qr[i] : 0u;
+      }
+      if (w0 == 0) {   // the next entry's scale, behind this payload
+        ok_n = id_n >= 0 && id_n < E && p_n >= 0 && p_n < C;
+        row_n = ok_n ? static_cast<size_t>(id_n) * C + p_n : 0;
+        scale_n = ok_n ? scales[row_n] : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < kGatherWords; ++k) {
+        const int i = w0 + 32 * k + lane;
+        if (i >= words) continue;
+        float v[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          v[j] = ok ? __fmul_rn(wf, __fmul_rn(
+                          wire::decode<FMT>((b[k] >> (8 * j)) & 0xff), scale))
+                    : 0.f;
+        __stcs(o + i, make_float4(v[0], v[1], v[2], v[3]));
+      }
+    }
+    id = id_n;
+    p = p_n;
+    wf = w_n;
+    ok = ok_n;
+    row = row_n;
+    scale = scale_n;
+  }
+}
+
+// The ragged path (H % 4 != 0 or unaligned pointers): one warp an entry,
+// one column a lane.
+template <int FMT>
+__global__ void __launch_bounds__(kGatherThreads)
+dequantize_combine_gather_scalar_kernel(const int* __restrict__ ids,
+                                        const int* __restrict__ pos,
+                                        const uint8_t* __restrict__ q,
+                                        const float* __restrict__ scales,
+                                        const float* __restrict__ w, int F,
+                                        int E, int C, int H,
+                                        float* __restrict__ out) {
   const int f = blockIdx.x * kGatherWarps + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (f >= F) return;
@@ -176,33 +263,9 @@ dequantize_combine_gather_kernel(const int* __restrict__ ids,
   const float wf = w[f];
   const uint8_t* qr = q + row * H;
   float* o = out + static_cast<size_t>(f) * H;
-  for (int col = lane * W; col < H; col += 32 * W) {
-    float v[W];
-    if constexpr (W == 16) {
-      unsigned b[4] = {0u, 0u, 0u, 0u};
-      if (ok) {
-        const uint4 u = *reinterpret_cast<const uint4*>(qr + col);
-        b[0] = u.x;
-        b[1] = u.y;
-        b[2] = u.z;
-        b[3] = u.w;
-      }
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        v[j] = ok ? __fmul_rn(wf, __fmul_rn(
-                        wire::decode<FMT>((b[j / 4] >> (8 * (j % 4))) & 0xff),
-                        scale))
-                  : 0.f;
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-        reinterpret_cast<float4*>(o + col)[k] =
-            make_float4(v[4 * k], v[4 * k + 1], v[4 * k + 2], v[4 * k + 3]);
-    } else {
-      o[col] = ok ? __fmul_rn(wf, __fmul_rn(wire::decode<FMT>(qr[col]),
-                                            scale))
-                  : 0.f;
-    }
-  }
+  for (int col = lane; col < H; col += 32)
+    o[col] = ok ? __fmul_rn(wf, __fmul_rn(wire::decode<FMT>(qr[col]), scale))
+                : 0.f;
 }
 
 template <int FMT, int VEC, bool BASE>
@@ -272,25 +335,45 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-// As many blocks of the row pass as are resident at once (no more than
-// the rows need): the warps stay and walk the rows.
-template <typename Kernel, typename T>
-cudaError_t launch_rows(Kernel kernel, const int* ids, const int* pos,
-                        const T* src, const int* count, const int* latest,
-                        int F, int rows, int C, int H, uint8_t* q,
-                        float* scales, cudaStream_t s) {
-  int dev = 0, sms = 0, per_sm = 0;
+constexpr int kMaxDevices = 64;
+
+// As many blocks of kKernel (``threads`` a block, always the same for a
+// kernel) as are resident at once on the current device, and no more
+// than ``want``: the warps stay and walk the work.  The occupancy is
+// asked once a device and kept.
+template <auto kKernel>
+cudaError_t resident_blocks(int threads, int want, int* grid) {
+  static std::atomic<int> resident[kMaxDevices];   // 0: not asked yet
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        kRowThreads, 0);
   if (err != cudaSuccess) return err;
-  const int grid = std::max(1, std::min((rows + kRowWarps - 1) / kRowWarps,
-                                        sms * per_sm));
-  kernel<<<grid, kRowThreads, 0, s>>>(ids, pos, src, count, latest, F, rows,
-                                      C, H, q, scales);
+  int n = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed)
+                            : 0;
+  if (n == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel,
+                                                          threads, 0);
+    if (err != cudaSuccess) return err;
+    n = std::max(1, sms * per_sm);
+    if (dev < kMaxDevices) resident[dev].store(n, std::memory_order_relaxed);
+  }
+  *grid = std::max(1, std::min(want, n));
+  return cudaSuccess;
+}
+
+template <auto kKernel, typename T>
+cudaError_t launch_rows(const int* ids, const int* pos, const T* src,
+                        const int* count, const int* latest, int F, int rows,
+                        int C, int H, uint8_t* q, float* scales,
+                        cudaStream_t s) {
+  int grid = 0;
+  cudaError_t err = resident_blocks<kKernel>(
+      kRowThreads, (rows + kRowWarps - 1) / kRowWarps, &grid);
+  if (err != cudaSuccess) return err;
+  kKernel<<<grid, kRowThreads, 0, s>>>(ids, pos, src, count, latest, F, rows,
+                                       C, H, q, scales);
   return cudaGetLastError();
 }
 
@@ -314,29 +397,35 @@ cudaError_t launch_scatter_quantize(const void* ids, const void* pos,
     index_rows_kernel<<<(F + kIndexThreads - 1) / kIndexThreads,
                         kIndexThreads, 0, s>>>(i, p, F, E, C, count, latest);
   if (H % 16 == 0 && aligned(src, 16) && aligned(q, 16))
-    return launch_rows(scatter_quantize_rows_kernel<T, FMT, 16, 4>, i, p, x,
-                       count, latest, F, rows, C, H, qb, sc, s);
-  return launch_rows(scatter_quantize_rows_kernel<T, FMT, 1, 16>, i, p, x,
-                     count, latest, F, rows, C, H, qb, sc, s);
+    return launch_rows<scatter_quantize_rows_kernel<T, FMT, 16, 4>>(
+        i, p, x, count, latest, F, rows, C, H, qb, sc, s);
+  return launch_rows<scatter_quantize_rows_kernel<T, FMT, 1, 16>>(
+      i, p, x, count, latest, F, rows, C, H, qb, sc, s);
 }
 
 template <int FMT>
-void launch_gather(const void* ids, const void* pos, const void* q,
-                   const void* scales, const void* w, int F, int E, int C,
-                   int H, void* out, cudaStream_t s) {
-  const dim3 grid((F + kGatherWarps - 1) / kGatherWarps);
+cudaError_t launch_gather(const void* ids, const void* pos, const void* q,
+                          const void* scales, const void* w, int F, int E,
+                          int C, int H, void* out, cudaStream_t s) {
   const int* i = static_cast<const int*>(ids);
   const int* p = static_cast<const int*>(pos);
   const uint8_t* qb = static_cast<const uint8_t*>(q);
   const float* sc = static_cast<const float*>(scales);
   const float* wt = static_cast<const float*>(w);
   float* o = static_cast<float*>(out);
-  if (H % 16 == 0 && aligned(q, 16) && aligned(out, 16))
-    dequantize_combine_gather_kernel<FMT, 16><<<grid, kGatherThreads, 0, s>>>(
+  const int want = (F + kGatherWarps - 1) / kGatherWarps;
+  if (H % 4 == 0 && aligned(q, 4) && aligned(out, 16)) {
+    int grid = 0;
+    cudaError_t err = resident_blocks<dequantize_combine_gather_kernel<FMT>>(
+        kGatherThreads, want, &grid);
+    if (err != cudaSuccess) return err;
+    dequantize_combine_gather_kernel<FMT><<<grid, kGatherThreads, 0, s>>>(
         i, p, qb, sc, wt, F, E, C, H, o);
-  else
-    dequantize_combine_gather_kernel<FMT, 1><<<grid, kGatherThreads, 0, s>>>(
-        i, p, qb, sc, wt, F, E, C, H, o);
+  } else {
+    dequantize_combine_gather_scalar_kernel<FMT>
+        <<<want, kGatherThreads, 0, s>>>(i, p, qb, sc, wt, F, E, C, H, o);
+  }
+  return cudaGetLastError();
 }
 
 template <int FMT, int VEC>
@@ -404,9 +493,9 @@ int dequantize_combine_gather_launch(const void* ids, const void* pos,
                                      const void* w, int is_fp8, int F, int E,
                                      int C, int H, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_fp8) launch_gather<wire::kFp8>(ids, pos, q, scales, w, F, E, C, H, out, s);
-  else launch_gather<wire::kInt8>(ids, pos, q, scales, w, F, E, C, H, out, s);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      is_fp8 ? launch_gather<wire::kFp8>(ids, pos, q, scales, w, F, E, C, H, out, s)
+             : launch_gather<wire::kInt8>(ids, pos, q, scales, w, F, E, C, H, out, s));
 }
 
 // slots: [G, C] int32; q: [G, S, H] bytes; scales: [G, S] f32; base:

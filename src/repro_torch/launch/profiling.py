@@ -1,7 +1,8 @@
 """Summaries of a ``torch.profiler`` run over a few steps: device busy time
 per step (the sum of the CUDA kernels' durations; one stream, so kernels
-do not overlap), the device's idle share of the host-clock wall time, and
-the top ops by device and by host time.  Shared by ``profile_decode`` and
+do not overlap), the device's idle share of the host-clock wall time, the
+host time in kernel launch calls, and the top ops by device and by host
+time.  Shared by ``profile_decode`` and
 ``chip_smoke.py``'s training profile."""
 from __future__ import annotations
 
@@ -12,7 +13,10 @@ def summarize(prof, steps: int, wall_ms: float,
               top: int = 12) -> Tuple[Dict, List[str]]:
     """(record, lines): record holds device_busy_ms_per_step,
     device_idle_share (None when the trace holds no device events: not
-    measured) and device_kernels_per_step; lines are one per top op."""
+    measured), device_kernels_per_step, and host_launch_ms_per_step and
+    host_launches_per_step (the host's own time in the CUDA runtime's and
+    driver's kernel launch calls, PyTorch's and the port's kernels alike);
+    lines are one per top op."""
     from torch.autograd import DeviceType
 
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -22,6 +26,8 @@ def summarize(prof, steps: int, wall_ms: float,
             / steps
         idle = max(0.0, 1.0 - busy_ms / wall_ms)
     avgs = prof.key_averages()
+    launch = [a for a in avgs
+              if a.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
     by_dev = sorted(avgs, key=lambda a: a.self_device_time_total,
                     reverse=True)[:top]
     by_cpu = sorted(avgs, key=lambda a: a.self_cpu_time_total,
@@ -35,4 +41,8 @@ def summarize(prof, steps: int, wall_ms: float,
     return {"wall_ms_per_step": wall_ms,
             "device_busy_ms_per_step": busy_ms,
             "device_idle_share": idle,
-            "device_kernels_per_step": len(kernels) / steps}, lines
+            "device_kernels_per_step": len(kernels) / steps,
+            "host_launch_ms_per_step":
+                sum(a.self_cpu_time_total for a in launch) / 1e3 / steps,
+            "host_launches_per_step":
+                sum(a.count for a in launch) / steps}, lines

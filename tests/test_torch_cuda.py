@@ -185,6 +185,49 @@ def test_cuda_segment_centroid_and_residual_apply(h100, dtype, h):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["one slot", "clamped", "many empty"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h", [40, 36, 34])
+def test_cuda_segment_centroid_skewed(h100, dist, dtype, h):
+    """Skewed slot sets: all rows of every group in one slot; the clamped
+    overflow of residual_apply's backward (unoccupied rows in S - 1: a
+    cold group, one 80% occupied, one full); many empty slots (S = 600,
+    the rows in 5 of them, some out of range on both sides).  C = 1000 is
+    not a multiple of the kernel's 64-row item or 8-row piece, and a slot
+    of 1000 rows spans 16 items summed by the combine pass.  H = 40 takes
+    the 16-byte loads, H = 36 those of f32 and bf16's one-column path,
+    H = 34 the one-column path.
+    Counts exact, sums within 1e-6 of the magnitude of their terms, the
+    same bits on a second call."""
+    rng = np.random.default_rng(22)
+    g, c, s = 3, 1000, 24
+    if dist == "one slot":
+        slots = np.full((g, c), s - 1)
+    elif dist == "clamped":
+        occupied = np.arange(c)[None] < np.array([0, 800, c])[:, None]
+        slots = np.minimum(
+            np.where(occupied, rng.integers(0, s, size=(g, c)), s), s - 1)
+    else:
+        s = 600
+        slots = rng.choice([0, 7, 300, 301, s - 1], size=(g, c))
+        slots[0, :50], slots[1, :50] = -1, s
+    slots = torch.from_numpy(slots.astype(np.int32))
+    x = torch.from_numpy(rng.standard_normal((g, c, h)).astype(np.float32)
+                         ).to(dtype)
+    before = segment_centroid.KERNEL.launches
+    cent, counts = segment_centroid.segment_centroid(slots.to(h100),
+                                                     x.to(h100), s)
+    assert segment_centroid.KERNEL.launches == before + 1
+    cent2, counts2 = segment_centroid.segment_centroid(slots.to(h100),
+                                                       x.to(h100), s)
+    assert torch.equal(cent, cent2) and torch.equal(counts, counts2)
+    rc, rn = ref.segment_centroid_ref(slots, x, s)
+    mag, _ = ref.segment_centroid_ref(slots, x.float().abs(), s)
+    assert torch.equal(counts.cpu(), rn)
+    assert ((cent.cpu() - rc).abs() <= 1e-6 * mag).all()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("op", ["segment_centroid", "residual_apply",
                                 "dispatch_scatter", "combine_gather"])
 def test_cuda_backward_matches_plain(h100, op):
@@ -276,17 +319,21 @@ def test_cuda_wire_quantize_dequantize_bitwise(h100, fmt, dtype, h):
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
 @pytest.mark.parametrize("src_dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("h,e,c", [
-    (32, 5, 16), (30, 5, 16),
+    (32, 5, 16), (30, 5, 16), (36, 5, 16),
     # E * C = 321 rows, not a multiple of a block's 8, some of them empty;
     # H = 1000 the one-column path past its 512 cached columns, H = 2064
-    # the 16-wide path past its 2048
-    (1000, 3, 107), (2064, 3, 107)])
+    # the 16-wide path past its 2048; the dequantize-gather's 4-wide path
+    # at H = 36 (9 words, fewer than a warp's lanes), 1000 and 2064 (past
+    # its 12 words a lane), its one-column path at H = 30 and 1002
+    (1000, 3, 107), (2064, 3, 107), (1002, 3, 107)])
 def test_cuda_fused_wire_ops_bitwise(h100, fmt, src_dtype, h, e, c):
     """The three fused kernels against their plain versions and against
     the unfused kernels they replace, on a plan with out-of-range ids and
-    empty rows; the scatter-quantize also with a few duplicate (expert,
-    position) entries and with many, against the plain version on the CPU
-    and the unfused kernels on the card (all three sum in entry order)."""
+    empty rows; the dequantize-gather also with raw ids and positions out
+    of range on both sides; the scatter-quantize also with a few duplicate
+    (expert, position) entries and with many, against the plain version
+    on the CPU and the unfused kernels on the card (all three sum in entry
+    order)."""
     rng = np.random.default_rng(31)
     flat, pos, src, w, e, c = _plan(rng, e=e, c=c, h=h)
     src = src.to(src_dtype)
@@ -310,6 +357,18 @@ def test_cuda_fused_wire_ops_bitwise(h100, fmt, src_dtype, h, e, c):
         flat, pos, rq, rs, w))
     assert torch.equal(out, scatter_gather.combine_gather(
         d[0], d[1], wire_quant.wire_dequantize(q, s), d[3]))
+    bad_ids, bad_pos = flat.clone(), pos.clone()
+    bad_ids[::7], bad_ids[3::11] = -1, e + 3
+    bad_pos[1::13], bad_pos[2::17] = -1, c + 2
+    bad = [t.to(h100) for t in (bad_ids, bad_pos)]
+    out = fused_wire.dequantize_combine_gather(bad[0], bad[1], q, s, d[3])
+    assert torch.equal(out.cpu(), ref.dequantize_combine_gather_ref(
+        bad_ids, bad_pos, rq, rs, w))
+    assert torch.equal(out, scatter_gather.combine_gather(
+        bad[0], bad[1], wire_quant.wire_dequantize(q, s), d[3]))
+    dropped = ((bad_ids < 0) | (bad_ids >= e) | (bad_pos < 0)
+               | (bad_pos >= c))
+    assert bool((out.cpu()[dropped] == 0).all())
 
     slots, x, n_slots = _lsh_inputs(rng, h=h, dtype=torch.float32)
     eq, es = ref.wire_quantize_ref(torch.randn(3, n_slots, h) * 10, fmt)

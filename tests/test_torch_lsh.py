@@ -30,6 +30,7 @@ from repro_torch.core import clustering as tclust
 from repro_torch.core import hashing as thash
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels import lsh_hash as lsh_hash_k
+from repro_torch.kernels import segment_centroid as segment_centroid_k
 from repro_torch.kernels.lsh_hash import near_tie_margin
 from test_torch_wire import _bits, near_midpoint
 
@@ -178,14 +179,32 @@ def test_spherical_hash_matches_jax():
 
 # --------------------------------------------- segment_centroid / residual --
 
+def _slot_set(rng, g, c, s, dist):
+    """Slot ids of one of the distributions the CUDA kernel is designed
+    for: "uniform" (_slots: with the overflow bin, a far id and -1), "one
+    slot" (all rows of every group in slot s - 1), "clamped" (what
+    decompress hands residual_apply's backward: each group's first n rows
+    occupied, n = 0, 0.8 c and c, uniform slots, the unoccupied rows sent
+    to the overflow bin s and then clamped into s - 1)."""
+    if dist == "uniform":
+        return _slots(rng, g, c, s)
+    if dist == "one slot":
+        return np.full((g, c), s - 1, dtype=np.int32)
+    occupied = np.arange(c)[None] < np.array([0, int(0.8 * c), c])[:g, None]
+    slots = np.where(occupied, rng.integers(0, s, size=(g, c)), s)
+    return np.minimum(slots, s - 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "one slot", "clamped"])
 @pytest.mark.parametrize("backend", JAX_BACKENDS)
 @pytest.mark.parametrize("x_dtype", ["float32", "bfloat16"])
-def test_segment_centroid_matches_jax(backend, x_dtype):
-    """C = 200 is not a multiple of the Pallas 128-row tile; the overflow
-    bin and the out-of-range ids count nowhere."""
+def test_segment_centroid_matches_jax(backend, x_dtype, dist):
+    """C = 200 is not a multiple of the Pallas 128-row tile nor of the
+    CUDA kernel's 64-row item; the overflow bin and the out-of-range ids
+    count nowhere; skewed slot sets as the training path has them."""
     rng = np.random.default_rng(4)
     g, c, s, h = 3, 200, 24, 20
-    slots = _slots(rng, g, c, s)
+    slots = _slot_set(rng, g, c, s, dist)
     jx = jnp.asarray(rng.standard_normal((g, c, h)).astype(np.float32)
                      ).astype(x_dtype)
     cent, counts = jdispatch.segment_centroid(jnp.asarray(slots), jx, s,
@@ -193,10 +212,49 @@ def test_segment_centroid_matches_jax(backend, x_dtype):
     tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, x_dtype))
     tcent, tcounts = dispatch.segment_centroid(_t(slots), tx, s)
     np.testing.assert_array_equal(tcounts.numpy(), np.asarray(counts))
-    assert tcounts.sum() == g * c - 9
+    assert tcounts.sum() == {"uniform": g * c - 9}.get(dist, g * c)
+    if dist != "uniform":     # a cold group: every row in slot s - 1
+        assert tcounts[0, s - 1] == c
+    if dist == "clamped":
+        assert tcounts[1, s - 1] >= c - int(0.8 * c)
     mag, _ = ref.segment_centroid_ref(_t(slots), tx.float().abs(), s)
     assert (np.abs(tcent.numpy() - np.asarray(cent))
             <= RTOL * mag.numpy()).all()
+
+
+@pytest.mark.parametrize("c", [1, 63, 64, 65, 200, 1024, 1025])
+def test_segment_centroid_work_bounds(c):
+    """The CUDA kernel's work layout, which the wrapper gives it, and the
+    scratch sized by it hold every slot distribution's work items: all
+    rows in one slot, slots of R + 1 rows (the most slots of several
+    items), of R and of 2R + 1, one row each, none, and random skews; the
+    bounds are reached where they are tight."""
+    r = segment_centroid_k.ROWS_PER_ITEM
+    rng = np.random.default_rng(40)
+    s = 300
+    cases = [[c], [r + 1] * (c // (r + 1)), [r] * (c // r),
+             [2 * r + 1] * (c // (2 * r + 1)), [1] * min(c, s), []]
+    for _ in range(20):
+        cases.append(np.bincount(rng.integers(
+            0, rng.integers(1, s + 1), size=c), minlength=1).tolist())
+    bound = segment_centroid_k.work_bounds(c, s)
+    seen = [0, 0, 0]
+    for sizes in cases:
+        counts = np.zeros(s, dtype=np.int64)
+        counts[:len(sizes)] = sizes
+        assert counts.sum() <= c
+        k = np.maximum(1, -(-counts // r))
+        got = (int(k.sum()), int((k > 1).sum()), int(k[k > 1].sum()))
+        assert all(g <= b for g, b in zip(got, bound)), (sizes, got, bound)
+        seen = [max(a, g) for a, g in zip(seen, got)]
+    assert seen[1] == bound[1]      # slots of r + 1 rows
+    assert bound[0] - seen[0] <= 1 and bound[2] - seen[2] <= 2
+    assert (bound[2] == 0) == (c <= r)    # no partial sums to keep
+    assert 1 <= r <= 192                  # the reduce kernel's threads
+    words, floats = segment_centroid_k.scratch_sizes(3, c, s, 20)
+    assert words % 4 == 0                 # the partials 16-byte aligned
+    assert 0 <= words - 3 * (4 * bound[0] + 4 * bound[1] + c + 2) < 4
+    assert floats == 3 * bound[2] * 20
 
 
 @pytest.mark.parametrize("backend", JAX_BACKENDS)

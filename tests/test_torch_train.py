@@ -433,3 +433,43 @@ def test_train_cli_rejects_flags_of_later_items():
                  "--profile"):
         with pytest.raises(SystemExit):
             train_cli.main(["--arch", ARCH, flag, "1"])
+
+
+def test_profile_summary_on_cpu():
+    """launch.profiling.summarize on a CPU-only trace: no device events,
+    so busy time and idle share are not measured (None), and no kernel
+    launch call is counted; the top-op lines name the ops run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.profiling import summarize
+    a = torch.randn(64, 64)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for _ in range(2):
+            (a @ a).sum()
+    record, lines = summarize(prof, 2, 10.0, top=3)
+    assert record["device_busy_ms_per_step"] is None
+    assert record["device_idle_share"] is None
+    assert record["device_kernels_per_step"] == 0
+    assert record["host_launch_ms_per_step"] == 0
+    assert record["host_launches_per_step"] == 0
+    assert len(lines) == 6 and any("aten::mm" in ln for ln in lines)
+
+
+def test_profile_train_on_cpu(capsys):
+    """launch.profile_train at the smoke config on the CPU, fp8 wire with
+    LSH off: the steady steps timed alone, the profiled step's record
+    (nothing measured on a device) and the wire format set."""
+    from repro_torch.launch import profile_train
+    assert profile_train.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                               "--wire", "fp8", "--lsh", "off", "--batch",
+                               "2", "--seq", "16", "--warmup", "1",
+                               "--steps", "2", "--top", "2"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    rec = json.loads(out[-1])
+    assert rec["kind"] == "train_profile" and rec["device"] == "cpu"
+    assert rec["wire_format"] == "fp8" and rec["lsh"] == "off"
+    assert len(rec["warmup_ms"]) == 1 and len(rec["step_ms"]) == 2
+    assert rec["median_step_ms"] == rec["wall_ms_per_step"] > 0
+    assert rec["device_busy_ms_per_step"] is None
+    assert rec["host_launches_per_step"] == 0
+    assert len(out) == 5                  # 2 device + 2 host top ops
