@@ -7,7 +7,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
   1. device   CUDA with compute capability (9, 0); prints nvidia-smi's
               name and power limit.
   2. build    builds every kernel from src/repro_torch/kernels/csrc with
-              nvcc for sm_90a (one nvcc per source, in parallel).
+              nvcc for sm_90a (one nvcc per source, in parallel), and
+              csrc/launch_floor.cu, an empty kernel.
   3. kernels  holds each CUDA kernel against its plain PyTorch version on
               the card, and times kernel, plain version and the nearest
               single PyTorch call with CUDA events beside each kernel's
@@ -43,7 +44,17 @@ Phases, each of which raises (and so exits non-zero) on failure:
               on the CPU and the composed kernels; and an fp8 encode sweep
               of every 97th f32 bit pattern in [-448, 448] (23,479,456
               values) bitwise torch's CUDA cast, every non-NaN code's
-              decode bitwise torch's.
+              decode bitwise torch's.  positions_in_expert at F = 40963
+              (not a tile multiple), ids uniform and all in one expert,
+              with ids -1 and E: bitwise, one launch a call, timed;
+              wire_dequantize at [40, 1024, 1536] (the coded baseline's
+              buffer), bitwise and timed; fp8 rows under a 2^-124 scale
+              whose values dequantize below 2^-126, through the
+              dequantize and both fused dequantizing kernels: f32 bits
+              equal to the plain versions' and fused == composed; and
+              the empty kernel timed as the kernels are (one block, and
+              a cooperative launch of the training shape's blocks), the
+              floor under any launch.
   4. serve    repro_torch.launch.serve.main at the full granite-moe-3b-a800m
               config (bf16, random weights from a seeded torch.Generator):
               8 requests, 4 slots, 16 prompt + 16 generated tokens; each
@@ -129,6 +140,8 @@ PARAM_RTOL = 1e-5
 BF16_WIRE_LOSS_RTOL = 1e-3
 REPS = 30
 SLEEP_CYCLES = 4_000_000           # ~2 ms at the H100's clocks
+LAUNCH_FLOOR_SOURCE = "launch_floor.cu"   # an empty kernel (csrc/)
+POSITIONS_TILE = 256               # entries a block of token_position.cu
 TRAIN_ARGV = ["--arch", ARCH, "--batch", "4", "--seq", "1024",
               "--log-every", "1"]
 WIRE_FORMATS = ("int8", "fp8")
@@ -173,7 +186,8 @@ def phase_device(torch):
 
 def phase_build(build, kernels):
     t0 = time.time()
-    logs = build.build_all(sorted({k.source for k in kernels}))
+    logs = build.build_all(sorted({k.source for k in kernels}
+                                  | {LAUNCH_FLOOR_SOURCE}))
     log(f"[build] {len(logs)} sources in {time.time() - t0:.3f} s")
     for source, out in logs.items():
         for line in out.splitlines():
@@ -946,6 +960,145 @@ def check_fp8_sweep(torch, wq):
                              "differs from torch's cast")
 
 
+def check_positions_shapes(torch, tp, ref):
+    """positions_in_expert at F = 40963 entries (not a multiple of the
+    256-entry tile), E = 40: ids uniform, and every in-range id in one
+    expert, each with ids -1 and E among them; bitwise, the same bits
+    twice, one launch a call; timed beside the bound and the one-hot
+    chain (printed only)."""
+    g = torch.Generator(device="cuda").manual_seed(19)
+    F, E = 40963, 40
+    out = {}
+    for dist in ("uniform", "one expert"):
+        ids = torch.randint(0, E, (F,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        if dist == "one expert":
+            ids.fill_(E - 1)
+        ids[::97] = -1
+        ids[5::89] = E
+        before = tp.KERNEL.launches
+        tp.positions_in_expert(ids, E)
+        if tp.KERNEL.launches != before + 1:
+            raise AssertionError("positions_in_expert: not one launch a "
+                                 "call")
+        out[f"positions_in_expert ({dist})"] = _record(
+            torch, f"positions F={F}", f"positions_in_expert ({dist})",
+            lambda: tp.positions_in_expert(ids, E),
+            lambda: ref.positions_in_expert_ref(ids, E),
+            lambda: _positions_chain(torch, ids, E),
+            _bound(F * 8 + E * 4, 0))
+    _log_records(f"positions F={F} E={E}", out)
+
+
+def measure_launch_floor(torch, build):
+    """An empty kernel timed as every kernel here is (time_ms, queued):
+    an ordinary launch of one block (positions_in_expert's decode-shape
+    launch) and a cooperative one of the training shape's blocks (F =
+    32768 entries in 256-entry tiles, at most one block an SM).  No real
+    launch of the same kind can take less."""
+    import ctypes
+    fn = build.load_library(LAUNCH_FLOOR_SOURCE).empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    grid = min(-(-32768 // POSITIONS_TILE), sms)
+
+    def launch(blocks, coop):
+        def go():
+            err = fn(blocks, coop, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"empty kernel: cudaError {err}")
+        return go
+    out = {"ordinary, 1 block": time_ms(torch, launch(1, 0)),
+           f"cooperative, {grid} blocks": time_ms(torch, launch(grid, 1))}
+    log("[kernels] launch floor (an empty kernel, CUDA events, queued): "
+        + "; ".join(f"{k} {v:.6f} ms" for k, v in out.items()))
+    return out
+
+
+def check_dequantize_coded_shape(torch, wq, ref):
+    """wire_dequantize at [40, 1024, 1536], the [E, C, H] buffer the int8
+    / fp8 coded baseline (LSH off) decodes: bitwise, the same bits twice,
+    timed beside its bound and cast + mul (printed only)."""
+    g = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn(40, 1024, 1536, generator=g, device="cuda") * torch.exp(
+        torch.randn(40, 1024, 1, generator=g, device="cuda"))
+    out = {}
+    for fmt in WIRE_FORMATS:
+        q, s = ref.wire_quantize_ref(x, fmt)
+        out[f"wire_dequantize {fmt}"] = _record(
+            torch, "coded [40, 1024, 1536]", f"wire_dequantize {fmt}",
+            lambda: (wq.wire_dequantize(q, s),),
+            lambda: (ref.wire_dequantize_ref(q, s),),
+            lambda: q.float() * s[..., None],
+            _bound(q.numel() * 5 + s.numel() * 4, q.numel()))
+        del q, s
+    _log_records("coded [40, 1024, 1536]", out)
+
+
+def check_subnormal_rows(torch, mods, ref, H=1536):
+    """fp8 rows under a scale of 2^-124 whose values dequantize below
+    2^-126 (fp8 subnormal payloads, 0.5, 1.0) beside normal values and
+    signed zeros, and a row under scale 1, through wire_dequantize and the
+    two fused dequantizing kernels: the f32 bits (signs of zero included)
+    equal the plain versions', and fused == composed on the card."""
+    wq, fw = mods["wire_quant"], mods["fused_wire"]
+    sg, ram = mods["scatter_gather"], mods["residual_apply"]
+    vals = torch.tensor([0.5, 1.0, 448.0, 2.0 ** -9, -2.0 ** -9,
+                         3 * 2.0 ** -9, -7 * 2.0 ** -9, 2.0 ** -6,
+                         -2.0 ** -7, 0.0, -0.0, -448.0], device="cuda")
+    v = vals.repeat(-(-H // vals.numel()))[:H]
+    q = v.expand(2, 3, H).clone()
+    q[1, 1] = -q[1, 1]
+    q = q.to(torch.float8_e4m3fn)
+    s = torch.tensor([[2.0 ** -124, 2.0 ** -124, 1.0]] * 2, device="cuda")
+    ids = torch.tensor([0, 0, 0, 1, 1, 1, 1, 0], dtype=torch.int32,
+                       device="cuda")
+    pos = torch.tensor([0, 1, 2, 0, 1, 2, 1, 1], dtype=torch.int32,
+                       device="cuda")
+    w = torch.tensor([1.0, 1.5, 2.0, 1.0, 1.5, 2.0, 1.0, 1.0], device="cuda")
+    slots = torch.tensor([[0, 1, 2, 1, 0], [2, 1, 0, 1, 1]],
+                         dtype=torch.int32, device="cuda")
+    resid = torch.zeros(2, 5, H, device="cuda")
+    resid[..., H // 2:] = 1.0
+    base = torch.zeros(2, 3, H, device="cuda")
+    base[:, 2] = 0.25
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    dq = wq.wire_dequantize(q, s)
+    pairs = {
+        "wire_dequantize": (dq, ref.wire_dequantize_ref(q, s)),
+        "dequantize_combine_gather": (
+            fw.dequantize_combine_gather(ids, pos, q, s, w),
+            ref.dequantize_combine_gather_ref(ids, pos, q, s, w)),
+        "dequantize_residual_apply": (
+            fw.dequantize_residual_apply(slots, q, s, resid, base),
+            ref.dequantize_residual_apply_ref(slots, q, s, resid, base)),
+        "dequantize_residual_apply (no base)": (
+            fw.dequantize_residual_apply(slots, q, s, resid),
+            ref.dequantize_residual_apply_ref(slots, q, s, resid))}
+    composed = {
+        "dequantize_combine_gather": sg.combine_gather(ids, pos, dq, w),
+        "dequantize_residual_apply": ram.residual_apply(slots, dq - base,
+                                                        resid),
+        "dequantize_residual_apply (no base)": ram.residual_apply(
+            slots, dq, resid)}
+    bad = [name for name, (got, want) in pairs.items()
+           if not torch.equal(bits(got), bits(want))]
+    bad += [f"{name} (fused != composed)" for name, c in composed.items()
+            if not torch.equal(bits(pairs[name][0]), bits(c))]
+    nonzero = q[:, :2].float() != 0
+    flushed = int((nonzero & (dq[:, :2] == 0)).sum())
+    log(f"[kernels] subnormal rows (fp8, scale 2^-124, H={H}): "
+        f"{flushed} of {int(nonzero.sum())} nonzero payload values "
+        "dequantize to zero; kernels bitwise the plain versions and fused "
+        f"== composed: {not bad}")
+    if bad:
+        raise AssertionError(f"subnormal rows differ: {bad}")
+
+
 def phase_kernels(torch, mods, ref, moe_lib, hashing):
     tp, sg = mods["token_position"], mods["scatter_gather"]
     # decode shape: 4 batch slots, top-8 of 40, capacity max(4, ceil(1.6))
@@ -976,6 +1129,10 @@ def phase_kernels(torch, mods, ref, moe_lib, hashing):
     check_wire_decode_shape(torch, mods, ref, decode, "decode")
     check_scatter_quantize_shapes(torch, mods, ref)
     check_fp8_sweep(torch, mods["wire_quant"])
+    check_positions_shapes(torch, tp, ref)
+    check_dequantize_coded_shape(torch, mods["wire_quant"], ref)
+    check_subnormal_rows(torch, mods, ref)
+    measure_launch_floor(torch, mods["build"])
     return res
 
 
@@ -1535,7 +1692,7 @@ def main() -> int:
     mods = dict(token_position=token_position, scatter_gather=scatter_gather,
                 lsh_hash=lsh_hash, segment_centroid=segment_centroid,
                 residual_apply=residual_apply, dispatch=dispatch,
-                wire_quant=wire_quant, fused_wire=fused_wire)
+                wire_quant=wire_quant, fused_wire=fused_wire, build=build)
     routing_k, lsh_k = dispatch.ROUTING_KERNELS, dispatch.LSH_KERNELS
     res = phase_kernels(torch, mods, ref, moe_lib, hashing)
     log(f"[time] kernels done at {time.time() - t_start:.1f} s")

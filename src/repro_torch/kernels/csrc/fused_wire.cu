@@ -63,11 +63,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
-#include <algorithm>
-#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
+#include "occupancy.cuh"
 #include "wire_codec.cuh"
 
 namespace {
@@ -226,8 +225,8 @@ dequantize_combine_gather_kernel(const int* __restrict__ ids,
         float v[4];
 #pragma unroll
         for (int j = 0; j < 4; ++j)
-          v[j] = ok ? __fmul_rn(wf, __fmul_rn(
-                          wire::decode<FMT>((b[k] >> (8 * j)) & 0xff), scale))
+          v[j] = ok ? __fmul_rn(wf, wire::dequant<FMT>(
+                                        (b[k] >> (8 * j)) & 0xff, scale))
                     : 0.f;
         __stcs(o + i, make_float4(v[0], v[1], v[2], v[3]));
       }
@@ -264,8 +263,7 @@ dequantize_combine_gather_scalar_kernel(const int* __restrict__ ids,
   const uint8_t* qr = q + row * H;
   float* o = out + static_cast<size_t>(f) * H;
   for (int col = lane; col < H; col += 32)
-    o[col] = ok ? __fmul_rn(wf, __fmul_rn(wire::decode<FMT>(qr[col]), scale))
-                : 0.f;
+    o[col] = ok ? __fmul_rn(wf, wire::dequant<FMT>(qr[col], scale)) : 0.f;
 }
 
 template <int FMT, int VEC, bool BASE>
@@ -303,20 +301,18 @@ dequantize_residual_apply_kernel(const int* __restrict__ slots,
           const unsigned b = *reinterpret_cast<const unsigned*>(qr + col);
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            d[j] = wire::decode<FMT>((b >> (8 * j)) & 0xff);
+            d[j] = wire::dequant<FMT>((b >> (8 * j)) & 0xff, scale);
           if (BASE) {
             const float4 a = *reinterpret_cast<const float4*>(br + col);
             bv[0] = a.x; bv[1] = a.y; bv[2] = a.z; bv[3] = a.w;
           }
         } else {
-          d[0] = wire::decode<FMT>(qr[col]);
+          d[0] = wire::dequant<FMT>(qr[col], scale);
           if (BASE) bv[0] = br[col];
         }
+        if (BASE)
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          d[j] = __fmul_rn(d[j], scale);
-          if (BASE) d[j] = __fsub_rn(d[j], bv[j]);
-        }
+          for (int j = 0; j < VEC; ++j) d[j] = __fsub_rn(d[j], bv[j]);
       } else {
 #pragma unroll
         for (int j = 0; j < VEC; ++j) d[j] = 0.f;
@@ -335,41 +331,13 @@ bool aligned(const void* p, size_t bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-constexpr int kMaxDevices = 64;
-
-// As many blocks of kKernel (``threads`` a block, always the same for a
-// kernel) as are resident at once on the current device, and no more
-// than ``want``: the warps stay and walk the work.  The occupancy is
-// asked once a device and kept.
-template <auto kKernel>
-cudaError_t resident_blocks(int threads, int want, int* grid) {
-  static std::atomic<int> resident[kMaxDevices];   // 0: not asked yet
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  int n = dev < kMaxDevices ? resident[dev].load(std::memory_order_relaxed)
-                            : 0;
-  if (n == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel,
-                                                          threads, 0);
-    if (err != cudaSuccess) return err;
-    n = std::max(1, sms * per_sm);
-    if (dev < kMaxDevices) resident[dev].store(n, std::memory_order_relaxed);
-  }
-  *grid = std::max(1, std::min(want, n));
-  return cudaSuccess;
-}
-
 template <auto kKernel, typename T>
 cudaError_t launch_rows(const int* ids, const int* pos, const T* src,
                         const int* count, const int* latest, int F, int rows,
                         int C, int H, uint8_t* q, float* scales,
                         cudaStream_t s) {
   int grid = 0;
-  cudaError_t err = resident_blocks<kKernel>(
+  cudaError_t err = occupancy::resident_blocks<kKernel>(
       kRowThreads, (rows + kRowWarps - 1) / kRowWarps, &grid);
   if (err != cudaSuccess) return err;
   kKernel<<<grid, kRowThreads, 0, s>>>(ids, pos, src, count, latest, F, rows,
@@ -416,8 +384,8 @@ cudaError_t launch_gather(const void* ids, const void* pos, const void* q,
   const int want = (F + kGatherWarps - 1) / kGatherWarps;
   if (H % 4 == 0 && aligned(q, 4) && aligned(out, 16)) {
     int grid = 0;
-    cudaError_t err = resident_blocks<dequantize_combine_gather_kernel<FMT>>(
-        kGatherThreads, want, &grid);
+    cudaError_t err = occupancy::resident_blocks<
+        dequantize_combine_gather_kernel<FMT>>(kGatherThreads, want, &grid);
     if (err != cudaSuccess) return err;
     dequantize_combine_gather_kernel<FMT><<<grid, kGatherThreads, 0, s>>>(
         i, p, qb, sc, wt, F, E, C, H, o);

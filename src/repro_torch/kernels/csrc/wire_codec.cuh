@@ -5,9 +5,13 @@
 // Every result is the plain version's (kernels/ref.py) in f32, with the
 // IEEE intrinsics (__fdiv_rn, __fmul_rn, ...) so that nvcc contracts
 // nothing into an FMA; the build has no --use_fast_math, so no flush to
-// zero either.  The one flush the reference has (it runs where subnormals
-// flush to zero) is emulated in one place: a row whose absmax is below
-// 2^-126 is empty, with scale 1.
+// zero either.  The reference runs where subnormals flush to zero, and two
+// of its flushes are emulated here, each in one place: a row whose absmax
+// is below 2^-126 is empty, with scale 1 (po2_scale); a dequantized value
+// below 2^-126 in magnitude is a zero of its sign (dequant).  Every decode
+// times scale goes through dequant.  Other f32 arithmetic (the weight of a
+// gather, a residual's sum) does not flush, on the card or in the plain
+// versions.
 //
 // A row is processed by one warp in chunks of W columns (W = 16 on the
 // vector path: 16-byte payload stores; W = 1 on the scalar path for any H).
@@ -81,6 +85,15 @@ __device__ __forceinline__ float decode(uint8_t b) {
   const __half_raw h = __nv_cvt_fp8_to_halfraw(
       static_cast<__nv_fp8_storage_t>(b), __NV_E4M3);
   return __half2float(__half(h));
+}
+
+// A payload byte times its row's scale, as the reference computes it:
+// a product below 2^-126 in magnitude flushes to a zero of its sign (an
+// fp8 payload under a row scale of 2^-117 or less can give one).
+template <int FMT>
+__device__ __forceinline__ float dequant(uint8_t b, float scale) {
+  const float p = __fmul_rn(decode<FMT>(b), scale);
+  return fabsf(p) < kTiny ? copysignf(0.f, p) : p;
 }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }

@@ -20,21 +20,35 @@
 // keep them in registers, take the row's absmax with a warp max over the
 // values' bits, derive the scale by the reference's integer bit
 // arithmetic, encode and store 16 payload bytes at once.  Any other H takes
-// one column a lane.  The dequantize is one product an element, 16
-// elements a thread on the vector path.  Both are bitwise the plain
-// versions of kernels/ref.py.
+// one column a lane.
+//
+// The dequantize is laid out by rows too: as many warps as are resident
+// walk the rows, each loading its next row's scale while it works on this
+// one, so a scale is read once a row and no index is divided.  On the
+// vector path (H % 4 == 0, q 4-byte and out 16-byte aligned) lane L takes
+// payload words L, L + 32, ... of the row (kDqUnits of them in flight,
+// all loaded before any store) and writes each word's four values as one
+// float4, so a warp's load is 128 contiguous bytes and its store 512,
+// streamed past L2 (__stcs); one float4 store a thread at a 16-byte
+// stride would touch 32 pieces over 2 KB a warp instruction.  Any other H
+// takes one byte a lane the same way.  Each value goes through
+// wire::dequant (wire_codec.cuh), which flushes a product below 2^-126 to
+// a zero of its sign as the reference does.  Both kernels are bitwise the
+// plain versions of kernels/ref.py.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "occupancy.cuh"
 #include "wire_codec.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kDqUnits = 12;   // payload units a lane a row in flight
 
 template <typename T, int FMT, int W, int CACHE>
 __global__ void __launch_bounds__(kThreads)
@@ -50,30 +64,61 @@ wire_quantize_kernel(const T* __restrict__ x, int rows, int H,
   if (lane == 0) scales[row] = scale;
 }
 
-template <int FMT, int W>
+// VEC payload bytes a unit: 4 (one word, one float4 out) on the vector
+// path, 1 elsewhere.
+template <int VEC>
+struct Unit;
+template <>
+struct Unit<4> {
+  using T = unsigned;
+  using Out = float4;
+};
+template <>
+struct Unit<1> {
+  using T = uint8_t;
+  using Out = float;
+};
+
+template <int FMT, int VEC>
 __global__ void __launch_bounds__(kThreads)
 wire_dequantize_kernel(const uint8_t* __restrict__ q,
-                       const float* __restrict__ scales, long long chunks,
-                       int H, float* __restrict__ out) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads +
-                      threadIdx.x;
-  if (i >= chunks) return;
-  const long long at = i * W;          // a chunk lies inside one row
-  const float scale = scales[at / H];
-  if constexpr (W == 16) {
-    const uint4 b = *reinterpret_cast<const uint4*>(q + at);
-    const unsigned w[4] = {b.x, b.y, b.z, b.w};
+                       const float* __restrict__ scales, int rows, int H,
+                       float* __restrict__ out) {
+  using T = typename Unit<VEC>::T;
+  using Out = typename Unit<VEC>::Out;
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * kWarps;
+  const int units = H / VEC;
+  int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  float scale = row < rows ? scales[row] : 0.f;
+  for (; row < rows; row += stride) {
+    const int next = row + stride;
+    float scale_n = 0.f;
+    const T* qr = reinterpret_cast<const T*>(q + static_cast<size_t>(row) * H);
+    Out* o = reinterpret_cast<Out*>(out + static_cast<size_t>(row) * H);
+    for (int u0 = 0; u0 < units; u0 += 32 * kDqUnits) {
+      T b[kDqUnits];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      float4 o;
-      o.x = __fmul_rn(wire::decode<FMT>(w[k] & 0xff), scale);
-      o.y = __fmul_rn(wire::decode<FMT>((w[k] >> 8) & 0xff), scale);
-      o.z = __fmul_rn(wire::decode<FMT>((w[k] >> 16) & 0xff), scale);
-      o.w = __fmul_rn(wire::decode<FMT>(w[k] >> 24), scale);
-      reinterpret_cast<float4*>(out + at)[k] = o;
+      for (int k = 0; k < kDqUnits; ++k) {
+        const int i = u0 + 32 * k + lane;
+        b[k] = i < units ? qr[i] : T(0);
+      }
+      if (u0 == 0 && next < rows) scale_n = scales[next];
+#pragma unroll
+      for (int k = 0; k < kDqUnits; ++k) {
+        const int i = u0 + 32 * k + lane;
+        if (i >= units) continue;
+        if constexpr (VEC == 4)
+          __stcs(o + i, make_float4(
+                            wire::dequant<FMT>(b[k] & 0xff, scale),
+                            wire::dequant<FMT>((b[k] >> 8) & 0xff, scale),
+                            wire::dequant<FMT>((b[k] >> 16) & 0xff, scale),
+                            wire::dequant<FMT>(b[k] >> 24, scale)));
+        else
+          __stcs(o + i, wire::dequant<FMT>(b[k], scale));
+      }
     }
-  } else {
-    out[at] = __fmul_rn(wire::decode<FMT>(q[at]), scale);
+    scale = scale_n;
   }
 }
 
@@ -96,22 +141,26 @@ void launch_quantize(const void* x, int rows, int H, void* q, void* scales,
         xt, rows, H, qb, sc);
 }
 
+template <auto kKernel>
+cudaError_t launch_rows(const uint8_t* q, const float* scales, int rows,
+                        int H, float* out, cudaStream_t s) {
+  int grid = 0;
+  cudaError_t err = occupancy::resident_blocks<kKernel>(
+      kThreads, (rows + kWarps - 1) / kWarps, &grid);
+  if (err != cudaSuccess) return err;
+  kKernel<<<grid, kThreads, 0, s>>>(q, scales, rows, H, out);
+  return cudaGetLastError();
+}
+
 template <int FMT>
-void launch_dequantize(const void* q, const void* scales, long long n, int H,
-                       void* out, cudaStream_t s) {
+cudaError_t launch_dequantize(const void* q, const void* scales, int rows,
+                              int H, void* out, cudaStream_t s) {
   const uint8_t* qb = static_cast<const uint8_t*>(q);
   const float* sc = static_cast<const float*>(scales);
   float* o = static_cast<float*>(out);
-  if (H % 16 == 0 && aligned(q, 16) && aligned(out, 16)) {
-    const long long chunks = n / 16;
-    wire_dequantize_kernel<FMT, 16>
-        <<<static_cast<unsigned>((chunks + kThreads - 1) / kThreads),
-           kThreads, 0, s>>>(qb, sc, chunks, H, o);
-  } else {
-    wire_dequantize_kernel<FMT, 1>
-        <<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0,
-           s>>>(qb, sc, n, H, o);
-  }
+  if (H % 4 == 0 && aligned(q, 4) && aligned(out, 16))
+    return launch_rows<wire_dequantize_kernel<FMT, 4>>(qb, sc, rows, H, o, s);
+  return launch_rows<wire_dequantize_kernel<FMT, 1>>(qb, sc, rows, H, o, s);
 }
 
 }  // namespace
@@ -137,10 +186,9 @@ int wire_quantize_launch(const void* x, int x_is_bf16, int is_fp8, int rows,
 int wire_dequantize_launch(const void* q, const void* scales, int is_fp8,
                            int rows, int H, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long n = static_cast<long long>(rows) * H;
-  if (is_fp8) launch_dequantize<wire::kFp8>(q, scales, n, H, out, s);
-  else launch_dequantize<wire::kInt8>(q, scales, n, H, out, s);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      is_fp8 ? launch_dequantize<wire::kFp8>(q, scales, rows, H, out, s)
+             : launch_dequantize<wire::kInt8>(q, scales, rows, H, out, s));
 }
 
 }  // extern "C"

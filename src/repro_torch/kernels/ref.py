@@ -9,11 +9,13 @@ sum and gathers exactly zero.
 
 The wire codec (``po2_scale``, ``encode``, ``wire_quantize_ref`` and the
 fused ops) follows ``repro/kernels/wire_quant.py`` and ``ref.py`` op for op
-in f32.  One difference is emulated: the reference runs where subnormal
-floats flush to zero (a TPU, and XLA on the CPU), so a row whose absmax is
-below 2**-126 counts as empty there (scale 1, zero payload).  ``po2_scale``
-tests ``absmax >= TINY`` where the reference tests ``absmax > 0``; nothing
-else flushes.
+in f32.  The reference runs where subnormal floats flush to zero (a TPU,
+and XLA on the CPU), and two of its flushes are emulated: a row whose
+absmax is below 2**-126 counts as empty (scale 1, zero payload;
+``po2_scale`` tests ``absmax >= TINY`` where the reference tests
+``absmax > 0``), and a dequantized value below 2**-126 in magnitude is a
+zero of its sign (``wire_dequantize_ref``, which the fused plain versions
+go through).  Nothing else flushes.
 """
 from __future__ import annotations
 
@@ -154,8 +156,12 @@ def wire_quantize_ref(x: torch.Tensor, fmt: str
 
 def wire_dequantize_ref(q: torch.Tensor, scales: torch.Tensor
                         ) -> torch.Tensor:
-    """(q [G, S, H], scales [G, S]) -> [G, S, H] f32 = q * scale."""
-    return q.to(torch.float32) * scales[..., None].to(torch.float32)
+    """(q [G, S, H], scales [G, S]) -> [G, S, H] f32 = q * scale; a
+    product below TINY in magnitude flushes to a zero of its sign, as the
+    reference's does (an fp8 payload under a row scale of 2**-117 or
+    less can give one)."""
+    out = q.to(torch.float32) * scales[..., None].to(torch.float32)
+    return torch.where(out.abs() < TINY, out * 0.0, out)
 
 
 def dispatch_scatter_quantize_ref(expert_ids: torch.Tensor, pos: torch.Tensor,

@@ -27,7 +27,8 @@ def summarize(prof, steps: int, wall_ms: float,
         idle = max(0.0, 1.0 - busy_ms / wall_ms)
     avgs = prof.key_averages()
     launch = [a for a in avgs
-              if a.key.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+              if a.key.startswith(("cudaLaunchKernel", "cuLaunchKernel",
+                                   "cudaLaunchCooperativeKernel"))]
     by_dev = sorted(avgs, key=lambda a: a.self_device_time_total,
                     reverse=True)[:top]
     by_cpu = sorted(avgs, key=lambda a: a.self_cpu_time_total,

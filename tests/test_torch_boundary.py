@@ -10,7 +10,8 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro.configs import base as jbase
 from repro.configs.registry import get_config as j_get_config

@@ -16,7 +16,8 @@ unfused kernels it replaces on the card.
 """
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import (dispatch, fused_wire, lsh_hash, ref,
                                  residual_apply, scatter_gather,
@@ -55,14 +56,28 @@ def _plan(rng, f=300, e=5, c=16, h=32):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("f,e", [(32, 40), (300, 5), (5000, 40), (3000, 1)])
-def test_cuda_positions_in_expert_bitwise(h100, f, e):
+@pytest.mark.parametrize("f,e", [
+    (32, 40), (300, 5), (5000, 40), (3000, 1),
+    # the training shape; F not a multiple of the 256-entry tile; E = 1
+    # and 128 (the configs' largest); many tiles a block; the largest E
+    # (shared memory past 48 KB)
+    (32768, 40), (40963, 40), (40963, 1), (40963, 128), (2 ** 20 + 3, 40),
+    (5000, token_position.MAX_EXPERTS)])
+@pytest.mark.parametrize("dist", ["uniform", "one expert"])
+def test_cuda_positions_in_expert_bitwise(h100, f, e, dist):
+    """Ids -1 and e + 2 among them; "one expert": every in-range id is
+    e - 1.  One launch a call, the same bits twice."""
     ids = _ids(np.random.default_rng(7), f, e)
+    if dist == "one expert":
+        ids = torch.where((ids >= 0) & (ids < e), e - 1, ids)
     before = token_position.KERNEL.launches
     pos, counts = token_position.positions_in_expert(ids.to(h100), e)
+    assert token_position.KERNEL.launches == before + 1
     rpos, rcounts = ref.positions_in_expert_ref(ids, e)
     assert torch.equal(pos.cpu(), rpos) and torch.equal(counts.cpu(), rcounts)
-    assert token_position.KERNEL.launches == before + 1
+    pos2, counts2 = token_position.positions_in_expert(ids.to(h100), e)
+    assert token_position.KERNEL.launches == before + 2
+    assert torch.equal(pos2, pos) and torch.equal(counts2, counts)
 
 
 @pytest.mark.cuda
@@ -298,10 +313,14 @@ def _wire_rows(rng, fmt, g=3, s=17, h=48):
 @pytest.mark.cuda
 @pytest.mark.parametrize("fmt", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [48, 40, 36])
-def test_cuda_wire_quantize_dequantize_bitwise(h100, fmt, dtype, h):
-    """h = 48 takes the 16-wide paths, 40 and 36 the one-column ones."""
-    x = _wire_rows(np.random.default_rng(30), fmt, h=h).to(dtype)
+@pytest.mark.parametrize("g,s,h", [
+    (3, 17, 48), (3, 17, 40), (3, 17, 36), (3, 17, 34), (40, 208, 1536)])
+def test_cuda_wire_quantize_dequantize_bitwise(h100, fmt, dtype, g, s, h):
+    """The quantize: h = 48 and 1536 take the 16-wide path, the others the
+    one-column one.  The dequantize: every h but 34 the 4-wide path (36
+    and 40 not the old 16-wide one), 34 the one-column path; G * S = 8320
+    rows at the training shape."""
+    x = _wire_rows(np.random.default_rng(30), fmt, g=g, s=s, h=h).to(dtype)
     before = (wire_quant.QUANTIZE.launches, wire_quant.DEQUANTIZE.launches)
     q, s = wire_quant.wire_quantize(x.to(h100), fmt)
     dq = wire_quant.wire_dequantize(q, s)
@@ -313,6 +332,72 @@ def test_cuda_wire_quantize_dequantize_bitwise(h100, fmt, dtype, h):
     assert torch.equal(dq.cpu(), ref.wire_dequantize_ref(rq, rs))
     q2, s2 = wire_quant.wire_quantize(x.to(h100), fmt)
     assert torch.equal(_bits(q2), _bits(q)) and torch.equal(s2, s)
+
+
+def _subnormal_rows(fmt, scale, h):
+    """q [2, 3, h]: payload values whose product with ``scale`` (2**-124
+    or 2**-120) falls below 2**-126 (fp8 subnormals, 0.5, 1.0) beside
+    normal ones and signed zeros, row 1 of group 1 negated; scales
+    ``scale`` in rows 0 and 1 and 1.0 in row 2."""
+    vals = torch.tensor(
+        [0.5, 1.0, 448.0, 2.0 ** -9, -2.0 ** -9, 3 * 2.0 ** -9,
+         -7 * 2.0 ** -9, 2.0 ** -6, -2.0 ** -7, 0.0, -0.0, -448.0]
+        if fmt == "fp8" else [1, -1, 127, -127, 0, 3, -3, 64, -64, 2, -2, 5])
+    v = vals.repeat(-(-h // vals.numel()))[:h]
+    q = v.expand(2, 3, h).clone()
+    q[1, 1] = -q[1, 1]
+    q = q.to(wire_quant.quant_dtype(fmt))
+    return q, torch.tensor([[scale, scale, 1.0]] * 2)
+
+
+def _f32_bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["int8", "fp8"])
+@pytest.mark.parametrize("scale", [2.0 ** -124, 2.0 ** -120])
+@pytest.mark.parametrize("h", [1536, 36, 34])
+def test_cuda_dequantize_subnormal_rows_bitwise(h100, fmt, scale, h):
+    """Dequantized values below 2**-126 flush to a zero of their sign in
+    wire_dequantize and both fused dequantizing kernels, bitwise (signs of
+    zero included) their plain versions and fused == composed on the card;
+    in-range entries and slots only, weights 1, 1.5 and 2."""
+    q, s = _subnormal_rows(fmt, scale, h)
+    dq_, ds_ = q.to(h100), s.to(h100)
+    dq = wire_quant.wire_dequantize(dq_, ds_)
+    want = ref.wire_dequantize_ref(q, s)
+    assert torch.equal(_f32_bits(dq).cpu(), _f32_bits(want))
+    if fmt == "fp8":
+        assert int((want[:, :2] == 0).sum()) > int((q[:, :2].float() == 0)
+                                                   .sum())
+
+    ids = torch.tensor([0, 0, 0, 1, 1, 1, 1, 0], dtype=torch.int32)
+    pos = torch.tensor([0, 1, 2, 0, 1, 2, 1, 1], dtype=torch.int32)
+    w = torch.tensor([1.0, 1.5, 2.0, 1.0, 1.5, 2.0, 1.0, 1.0])
+    d = [t.to(h100) for t in (ids, pos, w)]
+    out = fused_wire.dequantize_combine_gather(d[0], d[1], dq_, ds_, d[2])
+    assert torch.equal(_f32_bits(out).cpu(), _f32_bits(
+        ref.dequantize_combine_gather_ref(ids, pos, q, s, w)))
+    assert torch.equal(_f32_bits(out), _f32_bits(
+        scatter_gather.combine_gather(d[0], d[1], dq, d[2])))
+
+    slots = torch.tensor([[0, 1, 2, 1, 0], [2, 1, 0, 1, 1]],
+                         dtype=torch.int32)
+    resid = torch.zeros(2, 5, h)
+    resid[..., h // 2:] = 1.0
+    base = torch.zeros(2, 3, h)
+    base[:, 2] = 0.25
+    for b in (None, base):
+        db = None if b is None else b.to(h100)
+        got = fused_wire.dequantize_residual_apply(
+            slots.to(h100), dq_, ds_, resid.to(h100), db)
+        assert torch.equal(_f32_bits(got).cpu(), _f32_bits(
+            ref.dequantize_residual_apply_ref(slots, q, s, resid, b)))
+        assert torch.equal(_f32_bits(got), _f32_bits(
+            residual_apply.residual_apply(
+                slots.to(h100), dq if db is None else dq - db,
+                resid.to(h100))))
 
 
 @pytest.mark.cuda

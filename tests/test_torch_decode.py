@@ -16,9 +16,9 @@ import json
 
 import numpy as np
 import pytest
-import torch
 
-import jax
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
 from repro.compat import set_mesh

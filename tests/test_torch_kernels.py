@@ -15,8 +15,9 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
+torch = pytest.importorskip("torch")
+pytest.importorskip("jax")
 import jax.numpy as jnp
 
 from repro.kernels import dispatch as jdispatch
@@ -54,16 +55,28 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+def _skewed_ids(rng, f=1001, e=5):
+    """f=1001 (not a multiple of the 128-entry tile) with nine in ten ids
+    on expert 2, and ids -1 and e out of range."""
+    ids = np.where(rng.uniform(size=f) < 0.9, 2,
+                   rng.integers(0, e, size=f)).astype(np.int32)
+    ids[[7, 500, 1000]] = [-1, e, -1]
+    return ids
+
+
 @pytest.mark.parametrize("backend", JAX_BACKENDS)
-def test_positions_in_expert_matches_jax(backend):
-    ids = _ids(np.random.default_rng(0))
+@pytest.mark.parametrize("case", ["uniform", "skewed"])
+def test_positions_in_expert_matches_jax(backend, case):
+    rng = np.random.default_rng(0)
+    ids = _ids(rng) if case == "uniform" else _skewed_ids(rng)
     want = jdispatch.positions_in_expert(jnp.asarray(ids), 5, 16,
                                          backend=backend)
     got = dispatch.positions_in_expert(_t(ids), 5, 16)
     for name, a, b in zip(("pos", "keep", "counts"), got, want):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b),
                                       err_msg=name)
-    assert int(got[2].sum()) == 296        # four out-of-range ids
+    # four (three) out-of-range ids
+    assert int(got[2].sum()) == (296 if case == "uniform" else 998)
 
 
 def test_positions_in_expert_ref_raw_matches_jax():

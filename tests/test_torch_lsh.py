@@ -17,9 +17,9 @@ Inputs are made with numpy from fixed seeds.  Tolerances:
 """
 import numpy as np
 import pytest
-import torch
 
-import jax
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
 from repro.core import clustering as jclust

@@ -10,9 +10,9 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
-import jax
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
 from repro.compat import set_mesh

@@ -21,20 +21,21 @@ Inputs come from numpy with fixed seeds.  Tolerances:
   rounding, within one bf16 step (2**-8 relative);
 - fused against composed in the port: bitwise, values and gradients.
 
-One difference is emulated, and one is not: the reference runs where
-subnormal floats flush to zero, so a row whose absmax is subnormal is
-empty there; the port tests absmax >= 2**-126 for that (kernels/ref.py).
-An fp8 value that dequantizes below 2**-126 is flushed by the reference
-and kept by the port, so the inputs here keep every nonzero value of a
-non-empty row at or above 2**-126 times its scale.
+Two flushes of the reference, which runs where subnormal floats flush to
+zero, are emulated (kernels/ref.py): a row whose absmax is subnormal is
+empty, and a dequantized value below 2**-126 is a zero of its sign (an
+fp8 payload under a row scale of 2**-117 or less), which
+test_dequantize_subnormal_rows_match_jax pins.  Other f32 arithmetic does
+not flush in the port, so the other inputs here keep every nonzero value
+of a non-empty row at or above 2**-126 times its scale.
 """
 import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
-import jax
+torch = pytest.importorskip("torch")
+jax = pytest.importorskip("jax")
 import jax.numpy as jnp
 
 from repro.comm import wire as jwire
@@ -45,6 +46,7 @@ from repro.core.lsh_moe import lsh_moe_apply as j_lsh_moe_apply
 from repro.core.lsh_moe import lsh_moe_init as j_lsh_moe_init
 from repro.kernels import dispatch as jdispatch
 from repro.kernels.wire_quant import po2_scale as j_po2_scale
+from repro.kernels.wire_quant import quant_dtype as j_quant_dtype
 from repro_torch.comm import wire as twire
 from repro_torch.configs import base as tbase
 from repro_torch.convert import tensor_from_numpy
@@ -160,6 +162,81 @@ def test_wire_quantize_matches_jax(backend, fmt, x_dtype):
                                              2.0 ** (k + 1)]
     m, _ = np.frexp(ts.numpy())
     assert (m == 0.5).all() and tq.float().abs().max() <= qmax(fmt)
+
+
+# payload values whose product with a row scale of 2**-124 or 2**-120
+# falls below 2**-126: fp8 subnormals (2**-9, 3 * 2**-9, 7 * 2**-9), 0.5
+# and 1.0 (at 2**-124 only), beside values that stay normal and signed
+# zeros
+_SUBNORMAL_PAYLOAD = {
+    "fp8": [0.5, 1.0, 448.0, 2.0 ** -9, -2.0 ** -9, 3 * 2.0 ** -9,
+            -7 * 2.0 ** -9, 2.0 ** -6, -2.0 ** -7, 0.0, -0.0, -448.0,
+            -0.5, 1.5, 2.0 ** -8, -3.0],
+    "int8": [1, -1, 127, -127, 0, 3, -3, 64, -64, 2, -2, 5, 7, -100, 100,
+             1]}
+
+
+def _subnormal_rows(fmt, scale):
+    """q [2, 3, 16]: the payload above in every row, negated in row 1 of
+    group 1; scales [2, 3]: ``scale`` in rows 0 and 1, 1.0 in row 2."""
+    vals = np.array(_SUBNORMAL_PAYLOAD[fmt], np.float32)
+    q = np.broadcast_to(vals, (2, 3, vals.size)).copy()
+    q[1, 1] = -q[1, 1]
+    jq = jnp.asarray(q).astype(j_quant_dtype(fmt))
+    js = jnp.asarray(np.array([[scale, scale, 1.0]] * 2, np.float32))
+    return jq, js
+
+
+def _int_bits(a):
+    return np.asarray(a, np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("backend", JAX_BACKENDS)
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("scale", [2.0 ** -124, 2.0 ** -120])
+def test_dequantize_subnormal_rows_match_jax(backend, fmt, scale):
+    """Dequantized values below 2**-126 flush to a zero of their sign, as
+    the reference's do: wire_dequantize bitwise (signs of zero included),
+    and the two fused dequantizing ops, whose weights (1, 1.5, 2) and
+    residuals (zero in the first half of the columns) keep everything
+    else normal, equal in value (the interpreted Pallas bodies sum one-hot
+    products, so a gathered zero may lose its sign there)."""
+    jq, js = _subnormal_rows(fmt, scale)
+    tq, ts = _t(jq), _t(js)
+    want = jdispatch.wire_dequantize(jq, js, backend=backend)
+    got = dispatch.wire_dequantize(tq, ts)
+    np.testing.assert_array_equal(_int_bits(got.numpy()), _int_bits(want))
+    if fmt == "fp8":    # the reference flushes some: the port must too
+        assert (np.asarray(want)[:, :2] == 0).sum() > \
+            (_bits(jq)[:, :2] & 0x7F == 0).sum()
+
+    # the gather: every (e, c) row, an out-of-range id and position
+    E, C, H = jq.shape
+    ids = np.array([0, 0, 0, 1, 1, 1, E, 0], np.int32)
+    pos = np.array([0, 1, 2, 0, 1, 2, 0, C], np.int32)
+    w = np.array([1.0, 1.5, 2.0, 1.0, 1.5, 2.0, 1.0, 1.0], np.float32)
+    want = jdispatch.dequantize_combine_gather(
+        jnp.asarray(ids), jnp.asarray(pos), jq, js, jnp.asarray(w),
+        backend=backend)
+    got = dispatch.dequantize_combine_gather(_t(ids), _t(pos), tq, ts, _t(w))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if backend == "reference":
+        np.testing.assert_array_equal(_int_bits(got.numpy()),
+                                      _int_bits(want))
+
+    # the residual gather, with and without base
+    slots = np.array([[0, 1, 2, 3, 1], [2, 1, 0, -1, 1]], np.int32)
+    resid = np.zeros((2, 5, H), np.float32)
+    resid[..., H // 2:] = 1.0
+    base = np.zeros((2, 3, H), np.float32)
+    base[:, 2, :] = 0.25
+    for b in (None, base):
+        want = jdispatch.dequantize_residual_apply(
+            jnp.asarray(slots), jq, js, jnp.asarray(resid),
+            None if b is None else jnp.asarray(b), backend=backend)
+        got = dispatch.dequantize_residual_apply(
+            _t(slots), tq, ts, _t(resid), None if b is None else _t(b))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
