@@ -82,8 +82,8 @@ Phases, each of which raises (and so exits non-zero) on failure:
               magnitude sum, the same bits twice, timed beside
               index_add_ and the bound.  Then the int8 / fp8 wire (LSHConfig.
               wire_format by dataclasses.replace, through
-              init_train_state + make_train_step): int8 with LSH on (6
-              steps), fp8 with LSH on (6), int8 with LSH off (4); finite
+              init_train_state + make_train_step): int8 with LSH on (4
+              steps), fp8 with LSH on (4), int8 with LSH off (3); finite
               losses, and each wire kernel of the setting launched its
               expected count a step (LSH on: wire_quantize 128,
               wire_dequantize 128, dequantize_residual_apply 64; off:
@@ -105,6 +105,26 @@ Phases, each of which raises (and so exits non-zero) on failure:
               steps (ROADMAP Queue 3), and with the int8 wire, whose
               roundings do the same by whole quanta: the first layer's
               slots equal and the loss within 1e-3; the rest is printed.
+  8. nccl   one NCCL rank (init_process_group on a HashStore: no
+              network), its NCCL version printed; the collectives' raw calls
+              (comm/collectives.py's AllToAll, AllGather, ReduceScatter,
+              which skip no call for a group of one rank, and the gradient
+              all-reduce) on the training shape's wire leaves: bf16
+              [1, 40, 208, 1536], int8 and fp8 payloads of that shape with
+              f32 scales [1, 40, 208], the coded baseline's int8
+              [1, 40, 1024, 1536] and scales [1, 40, 1024], and one
+              256 MiB f32 gradient bucket.  Each forward and backward
+              returns its input's bits; each forward is timed (CUDA
+              events) beside the bytes it moves, and a profile of one pass
+              lists NCCL's ops.
+  9. mesh   the full config, 4 x 1024 tokens, bf16 and int8 wires with
+              LSH on: 2 training steps through the mesh path on a (1, 1)
+              mesh of that rank (runtime.step with mesh=) and 2 through
+              the mesh-free path from the same seed; the losses, the clip
+              norms and every param leaf (a digest of its bits) after step
+              2 bit-equal; then one more step of each under the profiler:
+              step ms, device busy ms, kernel launches, the port's kernels
+              and NCCL's (none: a group of one rank makes no call).
 The line before the last is the kernels' JSON record (times at the
 training shape, int8 for the wire kernels; launches of the bf16-wire
 LSH-on training run for the routing and LSH kernels, of the int8 runs
@@ -151,7 +171,7 @@ WIRE_FORMATS = ("int8", "fp8")
 # and decodes the centroids (compress) and the expert outputs, and with
 # it off the backward adds a dequantize-gather for the combine weights'
 # gradient
-WIRE_RUNS = (("int8", True, 6), ("fp8", True, 6), ("int8", False, 4))
+WIRE_RUNS = (("int8", True, 4), ("fp8", True, 4), ("int8", False, 3))
 WIRE_LAUNCHES_PER_LAYER = {
     True: {"wire_quantize": 4, "wire_dequantize": 4,
            "dequantize_residual_apply": 2},
@@ -1288,8 +1308,8 @@ def phase_train_wire(torch, cfg, step_lib, data_lib, kernels,
                      routing_kernels, lsh_kernels, summarize, port_names):
     """The full config, 4 x 1024 tokens, with the int8 and fp8 wires
     (LSHConfig.wire_format, by dataclasses.replace) through
-    init_train_state + make_train_step: int8 with LSH on (6 steps), fp8
-    with LSH on (6) and int8 with LSH off (4, the coded baseline).  Each
+    init_train_state + make_train_step: int8 with LSH on (4 steps), fp8
+    with LSH on (4) and int8 with LSH off (3, the coded baseline).  Each
     run's loss is finite, each wire kernel of its setting launches
     WIRE_LAUNCHES_PER_LAYER times the MoE layers a step (32 layers: 128,
     128 and 64 with LSH on; 64, 64, 64 and 96 with it off), the routing
@@ -1343,7 +1363,7 @@ def phase_train_wire(torch, cfg, step_lib, data_lib, kernels,
             profiled_kernels=busy["device_kernels_per_step"],
             profiled_idle_share=busy["device_idle_share"],
             profiled_host_launch_ms=busy["host_launch_ms_per_step"],
-            port_kernels_ms=_port_kernels(prof, port_names))
+            port_kernels_ms=_port_kernels(prof.key_averages(), port_names))
         tag = f"{fmt} lsh {'on' if lsh else 'off'}"
         log(f"[train-wire] {tag} summary " + json.dumps(summary,
                                                         sort_keys=True))
@@ -1390,16 +1410,17 @@ def _template_args(s):
     return s
 
 
-def _port_kernels(prof, names):
-    """Device ms of the port's own kernels (``names``) in a profile of one
-    step, whether or not among the top ops: each kernel with a template's
+def _port_kernels(avgs, names):
+    """Device ms of the port's own kernels (``names``) in the averages of a
+    profile of one step (``prof.key_averages()``), whether or not among
+    the top ops: each kernel with a template's
     instantiations summed ("name"), and each instantiation apart
     ("name<args>": segment_centroid's bf16 ones are the forward, its f32
     ones the backward).  A profile names them
     "(anonymous namespace)::name(...)", or "void (anonymous namespace)::name<...>(...)" for a template."""
     ns = "(anonymous namespace)::"
     out = {}
-    for a in prof.key_averages():
+    for a in avgs:
         key = a.key.removeprefix("void ")
         if not key.startswith(ns) or a.self_device_time_total <= 0:
             continue
@@ -1449,7 +1470,8 @@ def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
     record, lines = summarize(prof, 1, wall_ms, top=15)
     for line in lines:
         log(f"[train-profile] {line}")
-    record["port_kernels_ms_per_step"] = _port_kernels(prof, port_names)
+    record["port_kernels_ms_per_step"] = _port_kernels(prof.key_averages(),
+                                                       port_names)
     log("[train-profile] " + json.dumps(record, sort_keys=True))
     del state
     return record, training_slot_sets(rec, cfg.num_layers)
@@ -1655,6 +1677,215 @@ def phase_train_parity(torch, model_lib, step_lib, clustering, lh, kernels,
         step_lib.adamw_update = orig_update
 
 
+# --------------------------------------------------------------- 8. mesh --
+
+NCCL_REPS = 10
+# the wire leaves of the training shape (R = 1 rank): the bf16 wire's
+# centroids, the int8 / fp8 payloads with their f32 scales, and the
+# coded baseline's (int8, LSH off) payload and scales
+NCCL_LEAVES = (("bf16", (1, 40, 208, 1536)), ("int8", (1, 40, 208, 1536)),
+               ("fp8", (1, 40, 208, 1536)), ("f32 scales", (1, 40, 208)),
+               ("coded int8", (1, 40, 1024, 1536)),
+               ("coded scales", (1, 40, 1024)))
+MESH_STEPS = 2
+
+
+def _leaf(torch, name, shape, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if name == "bf16":
+        return x.to(torch.bfloat16)
+    if name.endswith("int8"):
+        return (x * 40).round().clamp(-127, 127).to(torch.int8)
+    if name == "fp8":
+        return x.to(torch.float8_e4m3fn)
+    return torch.exp2(torch.round(x * 4))          # po2 f32 scales
+
+
+def _same_bits(torch, a, b):
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8))
+
+
+def _nccl_kernels(avgs):
+    """Device ms of NCCL's work in a profile's averages, by name (the
+    NCCL ops, "nccl:...", and any "ncclDevKernel" kernel)."""
+    out = {}
+    for a in avgs:
+        if "nccl" in a.key.lower() and a.self_device_time_total > 0:
+            out[a.key] = out.get(a.key, 0.0) + a.self_device_time_total / 1e3
+    return out
+
+
+def phase_nccl(torch, collectives, summarize):
+    """One NCCL rank (a HashStore, no network): the collectives' raw calls
+    (the classes, which skip no call for a group of one rank) on the
+    training shape's wire leaves.  Each forward and backward must give
+    the input's bits; each forward is timed beside the bytes it moves; a
+    profile of one pass lists NCCL's kernels.  Returns the records."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+    from types import SimpleNamespace
+
+    from repro_torch.launch.mesh import init_distributed
+    init_distributed(torch.device("cuda", 0), store=dist.HashStore(),
+                     rank=0, world_size=1)
+    log(f"[nccl] backend {dist.get_backend()}, NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}, world "
+        f"{dist.get_world_size()}")
+    world = dist.group.WORLD
+    ops = {"all_to_all": (collectives.AllToAll, {}),
+           "all_gather": (collectives.AllGather, {"axis": 1}),
+           "reduce_scatter": (collectives.ReduceScatter, {"axis": 1})}
+    records = []
+    for i, (name, shape) in enumerate(NCCL_LEAVES):
+        x = _leaf(torch, name, shape, 2 * i)
+        ct = _leaf(torch, name, shape, 2 * i + 1)
+        for op, (cls, kw) in ops.items():
+            args = (world,) + tuple(kw.values())
+            if x.dtype in (torch.int8,):
+                y = cls.apply(x, *args)
+                dx = cls.backward(SimpleNamespace(group=world, **kw), ct)[0]
+            else:
+                xg = x.clone().requires_grad_(True)
+                y = cls.apply(xg, *args)
+                (dx,) = torch.autograd.grad(y, xg, grad_outputs=ct)
+            if not (_same_bits(torch, y, x) and _same_bits(torch, dx, ct)):
+                raise AssertionError(f"NCCL {op} of the {name} leaf "
+                                     f"{tuple(shape)}: the bits moved")
+            ms = time_ms(torch, lambda: cls.apply(x, *args), reps=NCCL_REPS)
+            nbytes = x.numel() * x.element_size()
+            records.append({"leaf": name, "shape": list(shape), "op": op,
+                            "bytes": nbytes, "ms": ms,
+                            "GB_per_s": nbytes / ms / 1e6})
+            log(f"[nccl] {op} {name} {tuple(shape)} {x.dtype}: forward and "
+                f"backward bitwise; {ms:.6f} ms for {nbytes} bytes")
+    # the gradient all-reduce: one bucket of f32 gradients
+    bucket = _leaf(torch, "f32", (collectives.BUCKET_BYTES // 4,), 99)
+    got = collectives.raw_all_reduce_sum(bucket, world)
+    if not _same_bits(torch, got, bucket):
+        raise AssertionError("NCCL all_reduce of one rank changed the bits")
+    ms = time_ms(torch, lambda: collectives.raw_all_reduce_sum(bucket, world),
+                 reps=NCCL_REPS)
+    records.append({"leaf": "f32 gradient bucket", "op": "all_reduce",
+                    "shape": list(bucket.shape), "bytes": bucket.numel() * 4,
+                    "ms": ms, "GB_per_s": bucket.numel() * 4 / ms / 1e6})
+    log(f"[nccl] all_reduce f32 bucket {tuple(bucket.shape)}: bitwise; "
+        f"{ms:.6f} ms for {bucket.numel() * 4} bytes")
+    x = _leaf(torch, "bf16", NCCL_LEAVES[0][1], 0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for cls, kw in ops.values():
+            cls.apply(x, world, *kw.values())
+        collectives.raw_all_reduce_sum(bucket, world)
+        torch.cuda.synchronize()
+    _, lines = summarize(prof, 1, 1.0, top=6)
+    for line in lines[:6]:                  # the top device ops of the pass
+        log(f"[nccl] one pass {line}")
+    log("[nccl] NCCL's ops in the pass (device ms): "
+        + json.dumps(_nccl_kernels(prof.key_averages()), sort_keys=True))
+    log("[nccl] " + json.dumps(records))
+    return records
+
+
+def _digest(torch, params):
+    """Per leaf: the sum of its words and their position-weighted sum, as
+    int64 (exact in any order), so equal digests mean equal bits with
+    overwhelming odds."""
+    from repro_torch.optim.adam import leaves
+    out = []
+    for p in leaves(params):
+        w = p.detach().contiguous().view(-1)
+        w = w.view({1: torch.uint8, 2: torch.int16, 4: torch.int32}[
+            w.element_size()]).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out.append((int(w.sum()), int((w * pos).sum())))
+    return out
+
+
+def phase_mesh(torch, cfg, step_lib, data_lib, summarize, port_names,
+               kernels, path_kernels):
+    """The full config, 4 x 1024 tokens, through the mesh path on a (1, 1)
+    mesh of the NCCL rank and through the mesh-free path, from the same
+    seed: bf16 wire and int8 wire, LSH on, MESH_STEPS steps each.  The
+    losses, the clip norms and every param leaf after the last step must
+    be bit-equal (the collectives of a group of one rank make no call).
+    Then one more step of each under the profiler: device busy ms,
+    launches, the port's kernels and NCCL's.  Returns the summaries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.launch.mesh import make_mesh
+    dev = torch.device("cuda")
+    mesh = make_mesh(1, 1)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=8)
+    ds = data_lib.SyntheticLMDataset(cfg.vocab_size, 1024, 4)
+    out = {}
+    for fmt in ("bf16", "int8"):
+        c = with_wire(cfg, wire_format=fmt)
+        runs = {}
+        for tag, m in (("mesh-free", None), ("mesh (1, 1)", mesh)):
+            t_run = time.time()
+            state = step_lib.init_train_state(c, opt, seed=0, device=dev,
+                                              mesh=m)
+            step_fn = step_lib.make_train_step(c, opt, use_lsh=True, mesh=m)
+            for k in kernels:
+                k.launches = 0
+            losses, norms, dts = [], [], []
+            for s in range(MESH_STEPS):
+                batch = step_lib.batch_to_device(ds.batch_at(s), dev)
+                t0 = time.perf_counter()
+                state, met = step_fn(state, batch)
+                losses.append(met["loss"].item())
+                norms.append(met["grad_norm"].item())
+                dts.append((time.perf_counter() - t0) * 1e3)
+            launches = {k.name: k.launches for k in kernels}
+            digest = _digest(torch, state.params)
+            # device activity only: kernels and their times, at a fraction
+            # of the trace's cost with the host's ops
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                state, met = step_fn(state, step_lib.batch_to_device(
+                    ds.batch_at(MESH_STEPS), dev))
+                met["loss"].item()
+                torch.cuda.synchronize()
+            busy, _ = summarize(prof, 1, dts[-1], top=0)
+            avgs = prof.key_averages()
+            rec = dict(losses=losses, grad_norms=norms, step_ms=dts,
+                       profiled_device_busy_ms=busy["device_busy_ms_per_step"],
+                       profiled_kernels=busy["device_kernels_per_step"],
+                       port_kernels_ms=_port_kernels(avgs, port_names),
+                       nccl_kernels_ms=_nccl_kernels(avgs),
+                       launches_per_step={n: v / MESH_STEPS
+                                          for n, v in launches.items()})
+            log(f"[mesh] {fmt} wire, LSH on, {tag} ({time.time() - t_run:.1f}"
+                " s): " + json.dumps(rec, sort_keys=True))
+            never = [k.name for k in path_kernels[fmt]
+                     if launches[k.name] == 0]
+            if never:
+                raise AssertionError(f"{fmt} {tag}: kernels never launched "
+                                     f"{never}")
+            if not all(math.isfinite(v) for v in losses + norms):
+                raise AssertionError(f"{fmt} {tag}: not finite {losses} "
+                                     f"{norms}")
+            runs[tag] = (rec, digest)
+            del state, step_fn, prof
+            torch.cuda.empty_cache()
+        (a, da), (b, db) = runs["mesh-free"], runs["mesh (1, 1)"]
+        same = (a["losses"] == b["losses"] and a["grad_norms"]
+                == b["grad_norms"] and da == db)
+        log(f"[mesh] {fmt} wire: mesh (1, 1) against mesh-free after "
+            f"{MESH_STEPS} steps: losses, clip norms and all {len(da)} "
+            f"param leaves {'bit-equal' if same else 'DIFFER'}; device "
+            f"busy {b['profiled_device_busy_ms']:.3f} against "
+            f"{a['profiled_device_busy_ms']:.3f} ms, launches "
+            f"{b['profiled_kernels']} against {a['profiled_kernels']}")
+        if not same:
+            raise AssertionError(f"{fmt} wire: the mesh (1, 1) path is not "
+                                 "bit-equal to the mesh-free path")
+        out[fmt] = runs
+    return out
+
+
 # -------------------------------------------------------------- main --
 
 def main() -> int:
@@ -1667,6 +1898,8 @@ def main() -> int:
               "checkout of the repository", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    import torch.distributed
+    from repro_torch.comm import collectives
     from repro_torch.configs.registry import get_config
     from repro_torch.core import clustering, hashing
     from repro_torch.core import moe as moe_lib
@@ -1689,11 +1922,15 @@ def main() -> int:
     log("[device] TF32 off (torch.backends.cuda.matmul.allow_tf32 = "
         "torch.backends.cudnn.allow_tf32 = False)")
     phase_build(build, kernels)
+    fused_lsh = (wire_quant.QUANTIZE, wire_quant.DEQUANTIZE,
+                 fused_wire.DEQUANTIZE_RESIDUAL)
+    routing_k, lsh_k = dispatch.ROUTING_KERNELS, dispatch.LSH_KERNELS
+    path_k = {"bf16": routing_k + lsh_k,
+              "int8": routing_k + lsh_k + fused_lsh}
     mods = dict(token_position=token_position, scatter_gather=scatter_gather,
                 lsh_hash=lsh_hash, segment_centroid=segment_centroid,
                 residual_apply=residual_apply, dispatch=dispatch,
                 wire_quant=wire_quant, fused_wire=fused_wire, build=build)
-    routing_k, lsh_k = dispatch.ROUTING_KERNELS, dispatch.LSH_KERNELS
     res = phase_kernels(torch, mods, ref, moe_lib, hashing)
     log(f"[time] kernels done at {time.time() - t_start:.1f} s")
     cfg = get_config(ARCH)
@@ -1717,12 +1954,14 @@ def main() -> int:
     wired = phase_train_wire(torch, cfg, step_lib, synthetic, kernels,
                              routing_k, lsh_k, summarize, port_names)
     log(f"[time] quantized training done at {time.time() - t_start:.1f} s")
-    fused_lsh = (wire_quant.QUANTIZE, wire_quant.DEQUANTIZE,
-                 fused_wire.DEQUANTIZE_RESIDUAL)
     phase_train_parity(torch, model_lib, step_lib, clustering, lsh_hash,
-                       kernels, {"bf16": routing_k + lsh_k,
-                                 "int8": routing_k + lsh_k + fused_lsh},
-                       cfg)
+                       kernels, path_k, cfg)
+    log(f"[time] train parity done at {time.time() - t_start:.1f} s")
+    phase_nccl(torch, collectives, summarize)
+    phase_mesh(torch, cfg, step_lib, synthetic, summarize, port_names,
+               kernels, path_k)
+    torch.distributed.destroy_process_group()
+    log(f"[time] mesh done at {time.time() - t_start:.1f} s")
 
     # launches of the main path's runs: the bf16 wire with LSH on for the
     # routing and LSH kernels, the int8 wire with LSH on for the kernels

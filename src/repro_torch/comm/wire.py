@@ -19,8 +19,9 @@ so that fused and composed paths give the same values and gradients bit
 for bit.  ``$REPRO_FUSED_WIRE=0`` sends the MoE layer down the composed
 path (core/moe.py), as in the JAX package.
 
-Moving a leaf is the identity on one card: ``flat_leaves`` stands where
-the all-to-all over the model axis goes (ROADMAP Queue 1 item 3).
+Moving a leaf is ``flat_leaves``' all-to-all over the model axis's
+process group (comm/collectives.py), the identity on one card.  The
+hierarchical and pipelined transports are ROADMAP Queue 1 item 3b.
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.comm import collectives
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.wire_quant import (BF16_FORMAT, QUANT_FORMATS,
                                             validate_wire_format)
@@ -105,15 +107,17 @@ def _identity(v: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def flat_leaves(model_axis: int = 1) -> Tuple[Leaf, Leaf]:
+def flat_leaves(group=None) -> Tuple[Leaf, Leaf]:
     """(fwd, bwd) movers of one leaf for the flat all-to-all over the model
-    axis (self-transpose).  On one card both are the identity."""
-    if model_axis != 1:
-        raise NotImplementedError(
-            "the all-to-all over a model axis of more than one card is "
-            "ROADMAP Queue 1 item 3 (expert parallelism over "
-            "torch.distributed)")
-    return _identity, _identity
+    axis's process group ``group`` (self-transpose): the leaf's leading
+    [R, ...] axis, payload and f32 scales sidecar alike.  A group of one
+    rank (or None) moves nothing: both are the identity."""
+    if collectives.group_size(group) == 1:
+        return _identity, _identity
+
+    def leaf(v: torch.Tensor) -> torch.Tensor:
+        return collectives.raw_all_to_all(v, group)
+    return leaf, leaf
 
 
 # ------------------------------------------------------- coded transfer --

@@ -3,9 +3,11 @@
 
 ``lsh_moe_init`` builds the param dict (router, padded expert stack, LSH
 rotations, expert placement permutation) with the JAX package's keys and
-shapes.  ``lsh_moe_apply`` routes to the expert-parallel path (train /
-prefill, LSH compression on unless ``use_lsh`` says otherwise) or the
-dense-dispatch decode path.
+shapes; with a mesh the experts pad to a multiple of the model axis and
+each rank keeps its shard of them (runtime/sharding.py).
+``lsh_moe_apply`` routes to the expert-parallel path (train / prefill, LSH
+compression on unless ``use_lsh`` says otherwise) or the dense-dispatch
+decode path.
 """
 from __future__ import annotations
 
@@ -14,14 +16,19 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.convert import shard_params
 from repro_torch.core import moe as moe_lib
 from repro_torch.core.hashing import make_rotations
 from repro_torch.models.layers import expert_mlp_init, fanin_init
+from repro_torch.runtime import sharding
 
 
 def lsh_moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
-                 mlp_act: str, dtype, device, model_axis: int = 1) -> Dict:
-    e_pad = moe_lib.padded_num_experts(cfg.num_experts, model_axis)
+                 mlp_act: str, dtype, device, mesh=None) -> Dict:
+    """Every rank draws the same full params from ``gen`` and keeps its
+    shard of the experts."""
+    e_pad = moe_lib.padded_num_experts(
+        cfg.num_experts, sharding.axis_size(mesh, "model"))
     p = expert_mlp_init(gen, e_pad, d_model, cfg.expert_ffn_dim, mlp_act,
                         dtype, device)
     p["router_w"] = fanin_init(gen, (d_model, cfg.num_experts),
@@ -31,12 +38,12 @@ def lsh_moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig, *,
                                   device)
     p["placement"] = torch.arange(cfg.num_experts, dtype=torch.int32,
                                   device=device)
-    return p
+    return p if mesh is None else shard_params(p, mesh)
 
 
 def lsh_moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig, *,
                   mlp_act: str, mode: str = "train",
-                  use_lsh: Optional[bool] = None
+                  use_lsh: Optional[bool] = None, mesh=None
                   ) -> Union[torch.Tensor, Tuple[torch.Tensor, Dict]]:
     """mode "train" | "prefill" -> expert-parallel path (+ LSH), returning
     (y, stats) with "aux_loss", "z_loss" and "expert_load" as the JAX
@@ -44,8 +51,9 @@ def lsh_moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig, *,
     reads no losses, and ``gating.gating_losses`` gives them to a caller
     that wants them."""
     if mode == "decode":
-        return moe_lib.moe_dense_dispatch(x, params, cfg, mlp_act=mlp_act)
+        return moe_lib.moe_dense_dispatch(x, params, cfg, mlp_act=mlp_act,
+                                          mesh=mesh)
     if mode in ("train", "prefill"):
         return moe_lib.moe_expert_parallel(x, params, cfg, mlp_act=mlp_act,
-                                           use_lsh=use_lsh)
+                                           use_lsh=use_lsh, mesh=mesh)
     raise ValueError(f"unknown mode {mode!r}")

@@ -1,19 +1,27 @@
-"""Mixture-of-Experts layers on one card (counterpart of
-``repro/core/moe.py``).  Both paths share one pipeline:
+"""Mixture-of-Experts layers (counterpart of ``repro/core/moe.py``).  Both
+paths share one pipeline:
 
     top_k_gating -> routing.build_dispatch_plan -> routing.dispatch_tokens
     -> expert MLP -> routing.combine_tokens
 
 1. ``moe_expert_parallel`` (train / prefill, the paper's setting): the
    dispatch buffer is optionally LSH-compressed (core/clustering.py),
-   exchanged over the model axis, run through the experts, exchanged back
-   and error-compensated.  On one card the model axis has size 1, so each
-   exchange is the identity up to its wire format's codec (comm/wire.py:
-   bf16 casts, or an int8 / fp8 payload with scales, fused into the
-   routing kernels unless $REPRO_FUSED_WIRE=0); a model axis above one
-   card is ROADMAP Queue 1 item 3.
-2. ``moe_dense_dispatch`` (decode): tiny token counts, no compression.
+   exchanged over the mesh's model axis (expert parallelism), run through
+   this rank's experts, exchanged back and error-compensated.  Each
+   exchange moves the wire format's leaves (comm/wire.py: a bf16 cast, or
+   an int8 / fp8 payload with scales, fused into the routing kernels
+   unless $REPRO_FUSED_WIRE=0) through the transport ``comm.planner``
+   resolves, flat: an all-to-all over the model axis's process group.
+2. ``moe_dense_dispatch`` (decode): tiny token counts, no compression;
+   over a model axis of several ranks the exchange goes through the same
+   plan (``_moe_dense_planned``).
 
+With a mesh, x is this rank's tokens (batch shard d, sequence slice m:
+runtime/sharding.py) and the expert weights are its shard [E_pad / model,
+H / data, F] (``P("model", "data", None)`` in the JAX package); the layer
+all-gathers them over ``data`` once, before the exchange, and their
+gradients come back reduce-scattered.  ``mesh`` None is one card: every
+collective is the identity, and the layer is the JAX one on one device.
 The kernel ops run the hand-written CUDA kernels for CUDA tensors
 (kernels/dispatch.py).
 """
@@ -24,12 +32,15 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.comm import collectives
+from repro_torch.comm import planner as comm_planner
 from repro_torch.comm import wire as wire_lib
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import clustering, routing
 from repro_torch.core.gating import gating_losses, top_k_gating
 from repro_torch.kernels.wire_quant import QUANT_FORMATS
 from repro_torch.models.layers import activation
+from repro_torch.runtime import sharding
 
 
 def padded_num_experts(num_experts: int, model_axis: int = 1) -> int:
@@ -59,21 +70,56 @@ def _expert_mlp(tok: torch.Tensor, w_gate: Optional[torch.Tensor],
     return torch.bmm(activation(h, g, mlp_act), w_down)
 
 
-def moe_dense_dispatch(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
-                       mlp_act: str, model_axis: int = 1) -> torch.Tensor:
-    """x: [B, S, H] with tiny B*S (decode) -> y [B, S, H].
+def _gathered_experts(params: Dict, cplan: comm_planner.CommPlan):
+    """The expert weights with their ``data`` (FSDP) shards gathered, once
+    a layer: [e_local, H, F] / [e_local, F, H]."""
+    wg = params.get("w_gate")
+    return (None if wg is None else cplan.all_gather(wg, "data", 1),
+            cplan.all_gather(params["w_up"], "data", 1),
+            cplan.all_gather(params["w_down"], "data", 1))
 
-    The JAX package's ``_moe_dense_gspmd`` on one card: no collectives.
-    The f32 dispatch buffer is cast to the model dtype before the expert
-    MLP, and the expert output back to f32 before the combine.  The JAX
-    stats (aux / z losses, expert load) are not made: decode reads none of
-    them, and ``gating.gating_losses`` gives them to a caller that does."""
-    if model_axis > 1:
-        raise NotImplementedError(
-            "moe_dense_dispatch over a model axis of more than one card is "
-            "ROADMAP Queue 1 item 3 (expert parallelism over "
-            "torch.distributed)")
-    e_pad = params["w_up"].shape[0]
+
+def _experts_fn(weights, mlp_act: str, dtype: torch.dtype,
+                out_dtype: Optional[torch.dtype]):
+    """[R, e_local, c, H] received wire tensor -> this rank's experts'
+    outputs, same shape: the R ranks' slots of an expert run as one
+    [e_local, R * c, H] batch.  ``out_dtype`` casts the result (None
+    keeps ``dtype``: a codec encodes it)."""
+    wg, wu, wd = weights
+
+    def expert_chunk(recv: torch.Tensor) -> torch.Tensor:
+        r, el, c, h = recv.shape
+        tok = recv.transpose(0, 1).reshape(el, r * c, h)
+        out = _expert_mlp(tok.to(dtype), wg, wu, wd, mlp_act)
+        out = out.reshape(el, r, c, h).transpose(0, 1)
+        return out if out_dtype is None else out.to(out_dtype)
+    return expert_chunk
+
+
+def moe_dense_dispatch(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
+                       mlp_act: str, mesh=None) -> torch.Tensor:
+    """x: [B, S, H] with tiny B*S (decode) -> y [B, S, H].  With a mesh,
+    x is this rank's batch shard, the same on every rank of a model slice.
+
+    Over a model axis of several ranks the exchange runs through the
+    planned all-to-all (``_moe_dense_planned``).  Otherwise it is the
+    JAX package's ``_moe_dense_gspmd``: one plan over every token of the
+    batch (over data ranks, their tokens are gathered first and this
+    rank's rows kept), the f32 dispatch buffer cast to the model dtype
+    before the expert MLP and the expert output back to f32 before the
+    combine.  Decode reads no stats, so none are made here;
+    ``gating.gating_losses`` gives them to a caller that wants them."""
+    if sharding.axis_size(mesh, "model") > 1:
+        y, _ = _moe_dense_planned(x, params, cfg, mesh=mesh, mlp_act=mlp_act)
+        return y
+    dp = sharding.dp_group(mesh)
+    n_dp = collectives.group_size(dp)
+    cplan = comm_planner.flat_plan(mesh=mesh)
+    wg, wu, wd = _gathered_experts(params, cplan)
+    B_loc = x.shape[0]
+    if n_dp > 1:
+        x = collectives.raw_all_gather(x, dp, 0)
+    e_pad = wu.shape[0]
     B, S, H = x.shape
     xf = x.reshape(B * S, H)
     gate = top_k_gating(xf, params["router_w"], cfg.top_k,
@@ -82,25 +128,68 @@ def moe_dense_dispatch(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
     plan = routing.build_dispatch_plan(gate.expert_ids, gate.weights, e_pad,
                                        cap)
     disp = routing.dispatch_tokens(plan, xf).to(x.dtype)
-    eo = _expert_mlp(disp, params.get("w_gate"), params["w_up"],
-                     params["w_down"], mlp_act)
+    eo = _expert_mlp(disp, wg, wu, wd, mlp_act)
     y = routing.combine_tokens(plan, eo.to(torch.float32))
-    return y.reshape(B, S, H).to(x.dtype)
+    y = y.reshape(B, S, H).to(x.dtype)
+    if n_dp > 1:
+        d = sharding.axis_index(mesh, "data")
+        y = y[d * B_loc:(d + 1) * B_loc]
+    return y
+
+
+def _moe_dense_planned(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
+                       mesh, mlp_act: str
+                       ) -> Tuple[torch.Tensor, Dict]:
+    """Decode dispatch over a model axis of several ranks, the JAX
+    ``_moe_dense_planned`` / ``_local_decode``: x [B_loc, S, H] is the
+    rank's batch shard, replicated along ``model``; every model rank
+    builds the same plan and the all-to-all moves each rank's slots to
+    the ranks that own their experts.  Returns (y, stats), the stats
+    reduced over the dp axes only (each token is on model_r ranks)."""
+    model_r = sharding.axis_size(mesh, "model")
+    e_local = params["w_up"].shape[0]
+    e_pad = e_local * model_r
+    B_loc, S, H = x.shape
+    capacity = expert_capacity(B_loc * S, e_pad, cfg.top_k, 2.0)
+    cplan = comm_planner.plan_collectives(
+        mesh, cfg.comm, axis_name="model",
+        msg_bytes=e_pad * capacity * H * x.element_size(),
+        chunk_extent=capacity)
+    xf = x.reshape(B_loc * S, H)
+    gate = top_k_gating(xf, params["router_w"], cfg.top_k,
+                        params["placement"])
+    plan = routing.build_dispatch_plan(gate.expert_ids, gate.weights, e_pad,
+                                       capacity)
+    disp = routing.dispatch_tokens(plan, xf).to(x.dtype)
+    send = disp.reshape(model_r, e_local, capacity, H)
+    expert_chunk = _experts_fn(_gathered_experts(params, cplan), mlp_act,
+                               x.dtype, x.dtype)
+    ret = cplan.moe_exchange(send, expert_chunk)
+    y = routing.combine_tokens(
+        plan, ret.reshape(e_pad, capacity, H).to(torch.float32))
+    losses = gating_losses(gate, params["placement"])
+    dp = sharding.dp_group(mesh)
+    stats = {"aux_loss": collectives.all_reduce_mean(losses.aux_loss, dp),
+             "z_loss": collectives.all_reduce_mean(losses.z_loss, dp),
+             "expert_load": collectives.all_reduce_sum(plan.load(), dp)}
+    return y.reshape(B_loc, S, H).to(x.dtype), stats
 
 
 # ---------------------------------------------------------------------------
-# Path 1: expert-parallel (train / prefill) on one card.
+# Path 1: expert-parallel (train / prefill), the paper's setting.
 # ---------------------------------------------------------------------------
 
 def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
                mlp_act: str, e_pad: int, capacity: int, use_lsh: bool,
                lsh_slots: int, wire_dtype: torch.dtype,
-               codec: Optional[wire_lib.WireCodec]
+               codec: Optional[wire_lib.WireCodec],
+               cplan: comm_planner.CommPlan, mesh
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
-    """The JAX ``_local_moe`` with a model axis of one card, in its order
-    of casts.  x: [B, S, H] -> (y, aux, z, load)."""
-    R = 1                                     # the model axis
+    """The JAX ``_local_moe``, in its order of casts.  x: [B_loc, S_loc,
+    H] -> (y, aux, z, load), the stats reduced over every rank."""
+    R = sharding.axis_size(mesh, "model")
+    e_local = e_pad // R
     B, S, H = x.shape
     T = B * S
     xf = x.reshape(T, H)
@@ -108,7 +197,6 @@ def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
                         params["placement"])
     plan = routing.build_dispatch_plan(gate.expert_ids, gate.weights, e_pad,
                                        capacity)
-    wg, wu, wd = params.get("w_gate"), params["w_up"], params["w_down"]
     # Fused codec path: a quantized wire whose leaves move whole, the codec
     # inside the routing kernels (kernels/fused_wire.py);
     # $REPRO_FUSED_WIRE=0 takes the composed path, with the same bits.
@@ -130,26 +218,22 @@ def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
         wire = None if fused else routing.dispatch_tokens(plan, xf)
     else:
         # no codec: the buffer crosses in the model dtype, unrounded
-        disp = routing.dispatch_tokens(plan, xf).to(x.dtype)
-        out = _expert_mlp(disp.to(wire_dtype), wg, wu, wd, mlp_act)
-        y = routing.combine_tokens(plan, out.to(wire_dtype).to(torch.float32))
-        return _finish(x, y, gate, plan, params)
+        comp, c_wire = None, capacity
+        wire = routing.dispatch_tokens(plan, xf).to(x.dtype)
 
-    def expert_chunk(recv: torch.Tensor) -> torch.Tensor:
-        """[R, E, c, H] decoded wire tensor -> the experts' outputs, same
-        shape and dtype x.dtype (not cast to the wire: the codec is)."""
-        out = _expert_mlp(recv.reshape(e_pad, -1, H).to(x.dtype), wg, wu, wd,
-                          mlp_act)
-        return out.reshape(R, e_pad, -1, H)
-
-    fwd_leaf, bwd_leaf = wire_lib.flat_leaves(R)
+    # the expert weights' FSDP gathers over data, once, before the exchange
+    expert_chunk = _experts_fn(_gathered_experts(params, cplan), mlp_act,
+                               x.dtype, None if codec is not None
+                               else wire_dtype)
+    if fused:
+        fwd_leaf, bwd_leaf = cplan.leaf_transports()
     if fused and use_lsh:
         # dispatch leg: the payload compress() encoded; combine leg: the
         # decode fused with decompress on the received payload
         recv = wire_lib.precoded_transfer(
-            wire.reshape(R, e_pad, c_wire, H),
-            comp.payload.reshape(R, e_pad, c_wire, H),
-            comp.scales.reshape(R, e_pad, c_wire), codec, fwd_leaf,
+            wire.reshape(R, e_local, c_wire, H),
+            comp.payload.reshape(R, e_local, c_wire, H),
+            comp.scales.reshape(R, e_local, c_wire), codec, fwd_leaf,
             bwd_leaf)
         slots, base, residual = clustering.fused_decompress_operands(comp)
         out_tok = wire_lib.fused_decode_residual_transfer(
@@ -169,50 +253,62 @@ def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
             fwd_leaf, bwd_leaf, R)
         y = y_f.reshape(T, cfg.top_k, H).sum(dim=1)
     else:
-        ret = wire_lib.coded_moe_exchange(
-            wire.reshape(R, e_pad, c_wire, H), expert_chunk, codec, fwd_leaf,
-            bwd_leaf)
+        if codec is None:
+            wire = wire.to(wire_dtype)
+        ret = cplan.moe_exchange(wire.reshape(R, e_local, c_wire, H),
+                                 expert_chunk, codec=codec)
         out_tok = ret.reshape(e_pad, c_wire, H).to(torch.float32)
         if use_lsh:
             out_tok = clustering.decompress(out_tok, comp)
         y = routing.combine_tokens(plan, out_tok)
-    return _finish(x, y, gate, plan, params)
-
-
-def _finish(x, y, gate, plan, params):
     losses = gating_losses(gate, params["placement"])
-    return (y.reshape(x.shape).to(x.dtype), losses.aux_loss, losses.z_loss,
-            plan.load())
+    world = sharding.all_group(mesh)
+    return (y.reshape(x.shape).to(x.dtype),
+            collectives.all_reduce_mean(losses.aux_loss, world),
+            collectives.all_reduce_mean(losses.z_loss, world),
+            collectives.all_reduce_sum(plan.load(), world))
 
 
 def moe_expert_parallel(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
-                        mlp_act: str, use_lsh: Optional[bool] = None
-                        ) -> Tuple[torch.Tensor, Dict]:
-    """x: [B, S, H] -> (y, {"aux_loss", "z_loss", "expert_load"}).
+                        mlp_act: str, use_lsh: Optional[bool] = None,
+                        mesh=None) -> Tuple[torch.Tensor, Dict]:
+    """x: [B_loc, S_loc, H], this rank's tokens -> (y, {"aux_loss",
+    "z_loss", "expert_load"}), y this rank's and the stats over all ranks
+    (aux / z averaged, load summed, as the JAX package's).
 
-    params: router_w [H, E], w_gate / w_up [E_pad, H, F], w_down
-    [E_pad, F, H], lsh_rot [L, H, Dr], placement [E].  The capacity is
-    ``expert_capacity(B*S, E_pad, k, capacity_factor)`` and the slots
-    ``num_lsh_slots(capacity, rate, multiple=overlap_chunks)``, as the JAX
-    path has them with its default (auto) transport.  The wire codec is
-    the JAX one's: ``cfg.lsh.wire_format`` with LSH on, and with LSH off
-    only a quantized format (the coded baseline).  One card: a model axis
-    over several is ROADMAP Queue 1 item 3."""
-    B, S, _ = x.shape
-    e_pad = params["w_up"].shape[0]
+    params: router_w [H, E], w_gate / w_up [e_local, H / data, F], w_down
+    [e_local, F / data, H], lsh_rot [L, H, Dr], placement [E]; e_local =
+    E_pad / model.  The capacity is ``expert_capacity(B_loc * S_loc,
+    E_pad, k, capacity_factor)`` (the JAX ``t_loc``) and the slots
+    ``num_lsh_slots(capacity, rate, multiple=overlap_chunks)``.  The wire
+    codec is the JAX one's: ``cfg.lsh.wire_format`` with LSH on, and with
+    LSH off only a quantized format (the coded baseline)."""
+    B, S, H = x.shape
+    model_r = sharding.axis_size(mesh, "model")
+    e_pad = params["w_up"].shape[0] * model_r
+    if cfg.num_experts > e_pad:
+        raise ValueError(f"{e_pad} padded experts for {cfg.num_experts}")
     capacity = expert_capacity(B * S, e_pad, cfg.top_k, cfg.capacity_factor)
     use_lsh = cfg.lsh.enabled if use_lsh is None else use_lsh
     chunk_mult = cfg.comm.overlap_chunks \
         if (cfg.comm.a2a_impl or "auto") in ("auto", "pipelined") else 1
-    lsh_slots = num_lsh_slots(capacity, cfg.lsh.compression_rate,
-                              multiple=chunk_mult) if use_lsh else 0
+    c_wire = num_lsh_slots(capacity, cfg.lsh.compression_rate,
+                           multiple=chunk_mult) if use_lsh else capacity
     wire_dtype = getattr(torch, cfg.lsh.wire_dtype) if use_lsh else x.dtype
     wire_fmt = cfg.lsh.wire_format if (
         use_lsh or cfg.lsh.wire_format in QUANT_FORMATS) else None
     codec = None if wire_fmt is None else wire_lib.make_codec(
         wire_fmt, wire_dtype=wire_dtype, compute_dtype=x.dtype)
+    # one resolution a layer call; the message size is the true wire
+    # bytes, scales sidecar included
+    cplan = comm_planner.plan_collectives(
+        mesh, cfg.comm, axis_name="model",
+        msg_bytes=clustering.wire_bytes(e_pad, c_wire, H, wire_fmt,
+                                        wire_dtype=wire_dtype),
+        chunk_extent=c_wire) if mesh is not None \
+        else comm_planner.flat_plan()
     y, aux, z, load = _local_moe(
         x, params, cfg, mlp_act=mlp_act, e_pad=e_pad, capacity=capacity,
-        use_lsh=use_lsh, lsh_slots=lsh_slots, wire_dtype=wire_dtype,
-        codec=codec)
+        use_lsh=use_lsh, lsh_slots=c_wire if use_lsh else 0,
+        wire_dtype=wire_dtype, codec=codec, cplan=cplan, mesh=mesh)
     return y, {"aux_loss": aux, "z_loss": z, "expert_load": load}

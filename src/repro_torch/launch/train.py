@@ -1,7 +1,6 @@
-"""Training launcher on one card (counterpart of
-``repro/launch/train.py``, without its later features: checkpoints,
-chaos, meshes, metrics and profiles are not ported, and argparse rejects
-their flags).
+"""Training launcher (counterpart of ``repro/launch/train.py``, without
+its later features: checkpoints, chaos, metrics and profiles are not
+ported, and argparse rejects their flags and ``--mesh-pipe``).
 
   PYTHONPATH=src python -m repro_torch.launch.train \
       --arch granite-moe-3b-a800m --steps 3 --batch 4 --seq 1024
@@ -15,6 +14,17 @@ steps, mean step ms after the first, tokens/s over those steps, final
 loss, and the peak of ``torch.cuda.max_memory_allocated`` (null on the
 CPU).  ``dt`` is the host clock around a step, which ends in a
 synchronise (the loss is read back).
+
+Expert parallelism: ``--mesh-data D --mesh-model M`` trains over a
+(data, model) mesh of D * M ranks, started by torchrun:
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.train --arch granite-moe-3b-a800m --smoke \
+      --device cpu --mesh-model 2 --steps 2 --batch 2 --seq 32
+
+Each rank runs on ``cuda:$LOCAL_RANK`` (NCCL) unless ``--device cpu``
+(gloo); every rank reads the same batches and keeps its part.  Only
+rank 0 prints.  Tokens/s counts the whole mesh's tokens.
 """
 from __future__ import annotations
 
@@ -35,20 +45,33 @@ def main(argv=None) -> int:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
     args = ap.parse_args(argv)
 
+    import os
+
     import torch
+    import torch.distributed as dist
 
     from repro_torch import resolve_device
     from repro_torch.configs.base import OptimizerConfig
     from repro_torch.configs.registry import get_config, get_smoke_config
     from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.launch.mesh import init_distributed, make_mesh
     from repro_torch.launch.serve import event_writer
     from repro_torch.runtime.step import (batch_to_device, init_train_state,
                                           make_train_step)
 
     dev = resolve_device(args.device)
-    emit = event_writer("")
+    mesh = None
+    if "RANK" in os.environ or args.mesh_data * args.mesh_model > 1:
+        if dev.type == "cuda":
+            dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        init_distributed(dev)
+        mesh = make_mesh(args.mesh_data, args.mesh_model)
+    rank0 = mesh is None or mesh.rank == 0
+    emit = event_writer("") if rank0 else (lambda *a, **k: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     opt = OptimizerConfig(lr=1e-3, warmup_steps=min(20, args.steps // 5),
                           total_steps=args.steps)
@@ -56,8 +79,8 @@ def main(argv=None) -> int:
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    state = init_train_state(cfg, opt, seed=0, device=dev)
-    step_fn = make_train_step(cfg, opt, use_lsh=use_lsh)
+    state = init_train_state(cfg, opt, seed=0, device=dev, mesh=mesh)
+    step_fn = make_train_step(cfg, opt, use_lsh=use_lsh, mesh=mesh)
     dts, loss = [], float("nan")
     for s in range(args.steps):
         batch = batch_to_device(ds.batch_at(s), dev)
@@ -84,7 +107,11 @@ def main(argv=None) -> int:
          peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else None),
          device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                 else "cpu"))
+                 else "cpu"),
+         mesh=None if mesh is None else mesh.shape)
+    if mesh is not None:
+        dist.barrier()
+        dist.destroy_process_group()
     return 0
 
 

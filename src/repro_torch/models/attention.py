@@ -1,7 +1,14 @@
 """GQA attention (counterpart of ``repro/models/attention.py``): the
 chunked, exact online-softmax training / prefill path, and single-token
 decode against a KV cache.  Plain torch, with the JAX package's f32
-softmax; no SDPA, so that the two packages stay like for like."""
+softmax; no SDPA, so that the two packages stay like for like.
+
+Over a mesh the residual stream is sharded by sequence over ``model``
+(runtime/sharding.py): each rank projects its own S / model queries, keys
+and values, gives them their global positions (RoPE), all-gathers K and
+V over ``model`` (comm/collectives.py; the backward reduce-scatters their
+cotangents) and attends over the whole sequence, whose kv chunks are then
+the one-device ones."""
 from __future__ import annotations
 
 import math
@@ -9,7 +16,9 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.comm import collectives
 from repro_torch.models.layers import apply_rope, fanin_init
+from repro_torch.runtime import sharding
 
 NEG_INF = -1e30
 
@@ -67,10 +76,15 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def attention_apply(params: Dict, x: torch.Tensor, *, num_heads: int,
                     num_kv_heads: int, head_dim: int, rope_theta: float,
                     causal: bool = True, kv_chunk: int = 1024,
-                    pos_offset: int = 0,
-                    use_rope: bool = True) -> torch.Tensor:
-    """Full-sequence self-attention (training / prefill).  x: [B, S, H]."""
+                    pos_offset: int = 0, use_rope: bool = True,
+                    mesh=None) -> torch.Tensor:
+    """Full-sequence self-attention (training / prefill).  x: [B, S, H],
+    with a mesh this rank's sequence slice m of S_loc positions: its
+    queries sit at pos_offset + m * S_loc, and it attends to the K / V of
+    every slice."""
     B, S, _ = x.shape
+    group = sharding.model_group(mesh)
+    pos_offset = pos_offset + sharding.axis_index(mesh, "model") * S
     q = (x @ params["wq"]).reshape(B, S, num_heads, head_dim)
     k = (x @ params["wk"]).reshape(B, S, num_kv_heads, head_dim)
     v = (x @ params["wv"]).reshape(B, S, num_kv_heads, head_dim)
@@ -78,6 +92,8 @@ def attention_apply(params: Dict, x: torch.Tensor, *, num_heads: int,
         pos = pos_offset + torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
+    k = collectives.all_gather(k, group, 1)
+    v = collectives.all_gather(v, group, 1)
     out = chunked_attention(q, k, v, causal=causal, kv_chunk=kv_chunk,
                             q_offset=pos_offset)
     return out.reshape(B, S, num_heads * head_dim) @ params["wo"]

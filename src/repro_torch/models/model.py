@@ -10,6 +10,15 @@ order: super-block major, layout entries interleaved inside, so layer
 ``sb * len(layout) + i`` is layout entry ``i`` of super-block ``sb``
 (convert.py keeps that order).
 
+Over a (data, model) mesh (launch/mesh.py) every function takes this
+rank's part: the residual stream between blocks is sharded by batch over
+``data`` and by sequence over ``model`` (runtime/sharding.py), so
+embedding, norms, the MoE layer, the head and the loss run on the rank's
+[B / data, S / model] tokens, attention gathers K and V over ``model``,
+and the experts are the rank's shard.  Each rank's loss is its share of
+the global loss, so that summing the replicated params' gradients over
+the ranks (runtime/step.py) gives the global gradient.
+
 Supported: attention mixers with MoE, dense or no FFN, RoPE or no position
 embedding.  Other mixers, learned positions and encoder-decoder raise.
 """
@@ -22,12 +31,14 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
+from repro_torch.comm import collectives
 from repro_torch.configs.base import ATTN, DENSE, MOE, NONE, ModelConfig
 from repro_torch.core.lsh_moe import lsh_moe_apply, lsh_moe_init
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (embed, embedding_init, fanin_init,
                                        mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init, unembed)
+from repro_torch.runtime import sharding
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -60,7 +71,8 @@ def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     return list(cfg.layout) * cfg.num_super_blocks
 
 
-def _layer_init(gen, cfg: ModelConfig, ffn: str, dtype, device) -> Dict:
+def _layer_init(gen, cfg: ModelConfig, ffn: str, dtype, device,
+                mesh) -> Dict:
     h = cfg.d_model
     p: Dict = {"norm1": rmsnorm_init(h, dtype, device),
                "mixer": attn_lib.attention_init(
@@ -72,16 +84,18 @@ def _layer_init(gen, cfg: ModelConfig, ffn: str, dtype, device) -> Dict:
     elif ffn == MOE:
         p["norm2"] = rmsnorm_init(h, dtype, device)
         p["ffn"] = lsh_moe_init(gen, h, cfg.moe, mlp_act=cfg.mlp_act,
-                                dtype=dtype, device=device)
+                                dtype=dtype, device=device, mesh=mesh)
     return p
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device: DeviceLike = None) -> Dict:
+                device: DeviceLike = None, mesh=None) -> Dict:
     """Random params from a ``torch.Generator`` seeded with ``seed``, made
     on ``device`` (the CUDA device unless "cpu" is asked for).  The
     distributions are the JAX package's; the numbers are not (the tests
-    share params through convert.params_from_jax)."""
+    share params through convert.params_from_jax).  With a mesh every
+    rank draws the same params and keeps its shard of the experts, which
+    pad to a multiple of the model axis."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
@@ -93,13 +107,13 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["head"] = {"w": fanin_init(gen, (cfg.d_model, cfg.vocab_size),
                                           dtype, dev)}
-    params["layers"] = [_layer_init(gen, cfg, ffn, dtype, dev)
+    params["layers"] = [_layer_init(gen, cfg, ffn, dtype, dev, mesh)
                         for _, ffn in layer_kinds(cfg)]
     return params
 
 
 def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, ffn: str, *,
-           use_lsh: Optional[bool]):
+           use_lsh: Optional[bool], mesh):
     """One (mixer, ffn) block of the training forward -> (x, aux, z,
     load); aux / z / load are None without a MoE FFN."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -107,7 +121,7 @@ def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, ffn: str, *,
         p["mixer"], h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
         rope_theta=cfg.rope_theta, causal=True, kv_chunk=cfg.kv_chunk,
-        use_rope=(cfg.pos_emb == "rope"))
+        use_rope=(cfg.pos_emb == "rope"), mesh=mesh)
     aux = z = load = None
     if ffn == DENSE:
         x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps),
@@ -116,7 +130,7 @@ def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, ffn: str, *,
         y, stats = lsh_moe_apply(p["ffn"], rmsnorm(p["norm2"], x,
                                                    cfg.norm_eps),
                                  cfg.moe, mlp_act=cfg.mlp_act,
-                                 mode="train", use_lsh=use_lsh)
+                                 mode="train", use_lsh=use_lsh, mesh=mesh)
         x = x + y
         aux, z, load = (stats["aux_loss"], stats["z_loss"],
                         stats["expert_load"])
@@ -133,11 +147,14 @@ def head_logits(params: Dict, cfg: ModelConfig,
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            use_lsh: Optional[bool] = None) -> Tuple[torch.Tensor, Dict]:
-    """tokens [B, S] -> (logits [B, S, V] f32, stats with "aux_loss",
-    "z_loss" summed over the MoE layers and "expert_load" summed per
-    expert).  Each block is recomputed in the backward pass
-    (``torch.utils.checkpoint``) when ``remat_policy`` is "nothing" or
+            use_lsh: Optional[bool] = None,
+            mesh=None) -> Tuple[torch.Tensor, Dict]:
+    """tokens [B, S] (with a mesh, this rank's [B / data, S / model]) ->
+    (logits [B, S, V] f32, stats with "aux_loss", "z_loss" summed over
+    the MoE layers and "expert_load" summed per expert, each over every
+    rank).  Each block is recomputed in the backward pass
+    (``torch.utils.checkpoint``, which runs its collectives again, in the
+    same order on every rank) when ``remat_policy`` is "nothing" or
     "dots", and kept when it is "full": the JAX rule, at block
     granularity."""
     check_supported(cfg)
@@ -148,7 +165,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     z = torch.zeros((), dtype=torch.float32, device=dev)
     load = None
     for (_, ffn), p in zip(layer_kinds(cfg), params["layers"]):
-        fn = partial(_block, p, cfg=cfg, ffn=ffn, use_lsh=use_lsh)
+        fn = partial(_block, p, cfg=cfg, ffn=ffn, use_lsh=use_lsh,
+                     mesh=mesh)
         if remat:
             x, a, zz, ld = checkpoint(fn, x, use_reentrant=False)
         else:
@@ -163,28 +181,48 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
 
 
 def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,
-                     labels: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                     labels: torch.Tensor,
+                     mesh=None) -> Tuple[torch.Tensor, Dict]:
     """CE over labels >= 0, + z-loss on the logits' log-sum-exp + the MoE
     aux and router-z losses.  The label log-prob is a gather, which picks
-    the same value as JAX's mask-and-reduce."""
+    the same value as JAX's mask-and-reduce.
+
+    Over n ranks the objective returned is this rank's share of the
+    global loss: its CE terms over the global label count, its z-loss
+    terms over the global token count, and the (already global) MoE terms
+    / n, so that the ranks' objectives sum to the global loss.  The
+    metrics are global (summed over the ranks, no gradient)."""
+    world = sharding.all_group(mesh)
+    n = collectives.group_size(world)
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1,
                       labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
-    ce = torch.sum((lse - ll) * mask) / torch.clamp(mask.sum(), min=1.0)
+    count = collectives.all_reduce_sum(mask.sum(), world)
+    ce = torch.sum((lse - ll) * mask) / torch.clamp(count, min=1.0)
     zl = cfg.z_loss_weight * torch.mean(torch.square(lse))
     moe_aux = (cfg.moe.router_aux_weight * stats["aux_loss"]
                + cfg.moe.router_z_weight * stats["z_loss"])
+    if n > 1:             # every rank holds the same number of tokens
+        zl, moe_aux = zl / n, moe_aux / n
     total = ce + zl + moe_aux
-    return total, {"ce": ce, "z_loss": zl, "moe_aux": stats["aux_loss"],
-                   "expert_load": stats["expert_load"], "loss": total}
+    metrics = {"ce": ce, "z_loss": zl, "loss": total}
+    metrics = {k: collectives.all_reduce_sum(v.detach(), world)
+               for k, v in metrics.items()}
+    metrics.update(moe_aux=stats["aux_loss"],
+                   expert_load=stats["expert_load"])
+    return total, metrics
 
 
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
-            use_lsh: Optional[bool] = None) -> Tuple[torch.Tensor, Dict]:
-    """batch {"tokens", "labels"}: [B, S] int -> (loss, metrics)."""
-    logits, stats = forward(params, cfg, batch["tokens"], use_lsh=use_lsh)
-    return loss_from_logits(cfg, logits, stats, batch["labels"])
+            use_lsh: Optional[bool] = None,
+            mesh=None) -> Tuple[torch.Tensor, Dict]:
+    """batch {"tokens", "labels"}: [B, S] int (with a mesh, this rank's
+    part: runtime.sharding.shard_batch) -> (loss, metrics); over a mesh
+    the loss is this rank's share (``loss_from_logits``)."""
+    logits, stats = forward(params, cfg, batch["tokens"], use_lsh=use_lsh,
+                            mesh=mesh)
+    return loss_from_logits(cfg, logits, stats, batch["labels"], mesh)
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -201,10 +239,13 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 
 @torch.no_grad()
 def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
-                tokens: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+                tokens: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: [B, 1] -> (logits [B, 1, V] f32, state).
     The KV caches in ``state`` are updated in place; the returned state
-    holds the same caches and the next position."""
+    holds the same caches and the next position.  With a mesh, tokens and
+    caches are this rank's batch shard, the same on every rank of a model
+    slice (decode batches are too small to shard further), and the MoE
+    exchange runs over the model axis (``moe_dense_dispatch``)."""
     pos = int(state["position"])
     x = embed(params["embed"], tokens)
     dh = cfg.resolved_head_dim
@@ -223,6 +264,6 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
             x = x + lsh_moe_apply(p["ffn"], rmsnorm(p["norm2"], x,
                                                     cfg.norm_eps),
                                   cfg.moe, mlp_act=cfg.mlp_act,
-                                  mode="decode")
+                                  mode="decode", mesh=mesh)
     return head_logits(params, cfg, x), {"layers": state["layers"],
                                          "position": pos + 1}

@@ -15,6 +15,7 @@ from typing import Any, Dict, List, NamedTuple, Optional
 
 import torch
 
+from repro_torch.comm import collectives
 from repro_torch.configs.base import OptimizerConfig
 
 _BLOCK = 128
@@ -89,22 +90,42 @@ def adamw_init(params: Any, cfg: OptimizerConfig) -> OptState:
         zero)
 
 
-def global_norm(grads: List[Optional[torch.Tensor]]) -> torch.Tensor:
-    """sqrt of the sum of squares of every gradient, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(g.to(torch.float32)))
-                          for g in grads if g is not None))
+def global_norm(grads: List[Optional[torch.Tensor]],
+                sharded: Optional[List[bool]] = None,
+                group=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every gradient, in f32, summed leaf
+    by leaf in leaf order.
+
+    Over a mesh it is the norm of the logical gradient: a replicated
+    leaf (the same on every rank) counts once, and the squares of a leaf
+    whose ``sharded`` entry is True (each rank holds a distinct shard)
+    are summed over ``group``'s ranks, in one all-reduce of those leaves'
+    sums."""
+    sq = [None if g is None else torch.sum(torch.square(g.to(torch.float32)))
+          for g in grads]
+    idx = [i for i, g in enumerate(grads)
+           if g is not None and sharded is not None and sharded[i]]
+    if idx and collectives.group_size(group) > 1:
+        tot = collectives.all_reduce_sum(torch.stack([sq[i] for i in idx]),
+                                         group)
+        for j, i in enumerate(idx):
+            sq[i] = tot[j]
+    return torch.sqrt(sum(s for s in sq if s is not None))
 
 
 def adamw_update(params: Any, grads: List[Optional[torch.Tensor]],
                  state: OptState, cfg: OptimizerConfig, lr: torch.Tensor,
-                 skip: Optional[torch.Tensor] = None) -> OptState:
+                 skip: Optional[torch.Tensor] = None, *,
+                 grad_norm: Optional[torch.Tensor] = None) -> OptState:
     """One AdamW step over ``leaves(params)``.  ``grads`` lists one entry
     per leaf: a tensor for a floating leaf (zeros where it has none), None
     for an integer leaf.  ``skip`` (a bool scalar tensor: non-finite loss),
     or a non-finite gradient norm, leaves params and moments unchanged and
-    counts one skip.  Params and moments are updated in place."""
+    counts one skip.  Params and moments are updated in place.
+    ``grad_norm`` is the clip norm when the caller has it (over a mesh:
+    ``global_norm`` of the logical gradient), else ``global_norm(grads)``."""
     step = state.step + 1
-    gn = global_norm(grads)
+    gn = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
     bad = ~torch.isfinite(gn)
     skip = bad if skip is None else (skip | bad)

@@ -1,0 +1,134 @@
+"""Mesh axes and the port's layout of tensors over them (counterpart of
+part of ``repro/runtime/sharding.py``).
+
+The JAX package maps logical axes to mesh axes by rules and lets GSPMD
+place every tensor.  The port places them itself, in one layout:
+
+  tokens         batch over the dp axes, sequence over ``model``: rank
+                 (d, m) holds [B / n_dp, S / model] (the JAX residual
+                 stream's ("batch", "seq") sharding);
+  expert weights w_gate / w_up / w_down [E_pad, X, Y] split E_pad over
+                 ``model`` and X over ``data`` (the JAX package's
+                 ``P("model", "data", None)``): [E_pad / model, X / data, Y];
+  everything else replicated on every rank.
+
+``mesh`` None is one card: every size is 1 and every group None.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    """Axes carrying pure data parallelism ("pod" is not ported)."""
+    if mesh is None:
+        return ()
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def axis_size(mesh, name: str) -> int:
+    return 1 if mesh is None else mesh.axis_size(name)
+
+
+def axis_index(mesh, name: str) -> int:
+    return 0 if mesh is None else mesh.axis_index(name)
+
+
+def num_ranks(mesh) -> int:
+    return 1 if mesh is None else mesh.size
+
+
+def group(mesh, axes) -> Optional[object]:
+    """The process group over ``axes`` (a name or a tuple) holding this
+    rank; None on one card or when the axes hold one rank."""
+    return None if mesh is None else mesh.group(axes)
+
+
+def model_group(mesh):
+    return group(mesh, "model")
+
+
+def dp_group(mesh):
+    return group(mesh, dp_axes(mesh))
+
+
+def all_group(mesh):
+    return group(mesh, () if mesh is None else mesh.axis_names)
+
+
+# ---------------------------------------------------------- the layout --
+
+def _walk(tree: Any, path: Tuple = ()):
+    """(path, leaf) of a dict / list tree, in insertion order (the order
+    of optim.adam.leaves)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _walk(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def expert_leaf_mask(params: Any) -> List[bool]:
+    """One bool per leaf of ``params`` (optim.adam.leaves order): True for
+    the sharded expert weights, the w_gate / w_up / w_down of a dict that
+    also holds a ``router_w`` (a MoE layer's params)."""
+    moe = {path[:-1] for path, _ in _walk(params)
+           if path and path[-1] == "router_w"}
+    return [bool(path) and path[-1] in EXPERT_KEYS and path[:-1] in moe
+            for path, _ in _walk(params)]
+
+
+def expert_slices(mesh, shape) -> Tuple[slice, slice]:
+    """This rank's (dim 0, dim 1) slices of a full expert weight."""
+    m, mr = axis_index(mesh, "model"), axis_size(mesh, "model")
+    d, dr = axis_index(mesh, "data"), axis_size(mesh, "data")
+    e, x = int(shape[0]), int(shape[1])
+    if e % mr or x % dr:
+        raise ValueError(f"expert weight {tuple(shape)} does not split over "
+                         f"model {mr} x data {dr}")
+    el, xl = e // mr, x // dr
+    return slice(m * el, (m + 1) * el), slice(d * xl, (d + 1) * xl)
+
+
+def token_slices(mesh, batch: int, seq: int) -> Tuple[slice, slice]:
+    """Rank (d, m)'s (batch, sequence) slices of a [batch, seq] array."""
+    n_dp = math.prod(axis_size(mesh, a) for a in dp_axes(mesh))
+    mr = axis_size(mesh, "model")
+    if batch % n_dp or seq % mr:
+        raise ValueError(f"a [{batch}, {seq}] batch does not split over "
+                         f"{n_dp} data ranks x {mr} model ranks (batch over "
+                         "data, sequence over model)")
+    d, m = axis_index(mesh, "data"), axis_index(mesh, "model")
+    bl, sl = batch // n_dp, seq // mr
+    return slice(d * bl, (d + 1) * bl), slice(m * sl, (m + 1) * sl)
+
+
+def shard_batch(batch: Dict, mesh) -> Dict:
+    """The rank's [B / n_dp, S / model] part of every [B, S, ...] entry
+    of a global batch (numpy arrays or tensors)."""
+    if mesh is None:
+        return batch
+    any_v = next(iter(batch.values()))
+    bs, ss = token_slices(mesh, any_v.shape[0], any_v.shape[1])
+    return {k: v[bs, ss] for k, v in batch.items()}
+
+
+def dp_only_batch_slice(mesh, batch: int) -> slice:
+    """The rank's rows under the pure data-parallel profile: the batch
+    over as many mesh axes as divide it, trimmed from the right (the JAX
+    package's ``bspec_for``); ranks past them hold a replica."""
+    axes = list(mesh.axis_names)
+    while axes and batch % math.prod(mesh.axis_size(a) for a in axes):
+        axes.pop()
+    n = math.prod(mesh.axis_size(a) for a in axes) if axes else 1
+    idx = 0
+    for a in axes:
+        idx = idx * mesh.axis_size(a) + mesh.axis_index(a)
+    rows = batch // n
+    return slice(idx * rows, (idx + 1) * rows)

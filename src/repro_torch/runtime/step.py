@@ -1,4 +1,4 @@
-"""The training step on one card (counterpart of ``repro/runtime/step.py``).
+"""The training step (counterpart of ``repro/runtime/step.py``).
 
   train_step(state, batch) -> (state, metrics)
 
@@ -6,9 +6,20 @@ forward + loss (models/model.py), gradients by autograd, then the shared
 optimizer tail ``apply_gradients``: the warm-up-cosine learning rate, the
 non-finite-loss skip and AdamW.  The state's params and moments are
 updated in place (optim/adam.py); the returned state holds the same
-tensors.  Microbatching is not ported, and neither are meshes: pipeline
-stages (ROADMAP Queue 1 item 6) and data parallelism over several cards
-(item 3).
+tensors.
+
+Over a (data, model) mesh (launch/mesh.py) every rank is handed the same
+global batch and keeps its [B / data, S / model] part.  Its loss is its
+share of the global loss, so after autograd the gradients of the
+replicated params are summed over every rank (one all-reduce a bucket).
+The expert weights' gradients are complete already: the all-to-all's
+backward brought them the other model ranks' tokens, and the FSDP
+gather's reduce-scatter summed them over ``data``; they are not summed
+again.  The clip norm is the logical gradient's (``adam.global_norm``).
+``cfg.dp_only`` is the pure data-parallel profile: the batch over every
+rank, the whole model on each, the gradients averaged over all ranks.
+Microbatching is not ported, and neither are pipeline stages (ROADMAP
+Queue 1 items 5 and 6).
 """
 from __future__ import annotations
 
@@ -18,11 +29,13 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike
+from repro_torch.comm import collectives
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.models import model as model_lib
 from repro_torch.optim.adam import (OptState, adamw_init, adamw_update,
-                                    leaves)
+                                    global_norm, leaves)
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.runtime import sharding
 
 
 class TrainState(NamedTuple):
@@ -31,21 +44,30 @@ class TrainState(NamedTuple):
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
-                     seed: int = 0, device: DeviceLike = None) -> TrainState:
-    params = model_lib.init_params(cfg, seed=seed, device=device)
+                     seed: int = 0, device: DeviceLike = None,
+                     mesh=None) -> TrainState:
+    """With a mesh: this rank's shard of the params (``init_params``);
+    under ``cfg.dp_only`` every rank holds all of them."""
+    params = model_lib.init_params(cfg, seed=seed, device=device,
+                                   mesh=None if cfg.dp_only else mesh)
     return TrainState(params, adamw_init(params, opt_cfg))
 
 
 def apply_gradients(state: TrainState, opt_cfg: OptimizerConfig,
-                    loss: torch.Tensor, metrics: Dict,
-                    grads) -> Tuple[TrainState, Dict]:
-    """Shared optimizer tail: lr schedule, non-finite skip, AdamW."""
+                    loss: torch.Tensor, metrics: Dict, grads, *,
+                    mesh=None) -> Tuple[TrainState, Dict]:
+    """Shared optimizer tail: lr schedule, non-finite skip, AdamW; the
+    metrics gain the clip norm ``grad_norm``.  With a mesh, ``loss`` is the
+    global loss and the norm counts the expert shards of every rank."""
     lr = warmup_cosine(state.opt.step, opt_cfg.lr, opt_cfg.warmup_steps,
                        opt_cfg.total_steps)
     skip = ~torch.isfinite(loss)
+    gn = global_norm(grads, sharding.expert_leaf_mask(state.params),
+                     sharding.all_group(mesh))
     new_opt = adamw_update(state.params, grads, state.opt, opt_cfg, lr,
-                           skip=skip)
-    metrics = dict(metrics, lr=lr, grad_skips=new_opt.grad_skips)
+                           skip=skip, grad_norm=gn)
+    metrics = dict(metrics, lr=lr, grad_norm=gn,
+                   grad_skips=new_opt.grad_skips)
     return TrainState(state.params, new_opt), metrics
 
 
@@ -55,34 +77,82 @@ def batch_to_device(batch: Dict[str, np.ndarray],
             for k, v in batch.items()}
 
 
+def _grads(params, loss: torch.Tensor):
+    """One gradient per leaf of ``params``: autograd's for a floating leaf
+    (zeros where it has none: the detached hash rotations, as JAX gives
+    them), None for an integer leaf."""
+    ps = leaves(params)
+    trainable = [p for p in ps if p.is_floating_point()]
+    got = iter(torch.autograd.grad(loss, trainable, allow_unused=True))
+    grads = []
+    for p in ps:
+        g = next(got) if p.is_floating_point() else None
+        if g is None and p.is_floating_point():
+            g = torch.zeros_like(p)
+        grads.append(g)
+    return grads
+
+
+def _loss_and_grads(state: TrainState, cfg: ModelConfig, batch: Dict,
+                    use_lsh: Optional[bool], mesh):
+    for p in leaves(state.params):
+        if p.is_floating_point():
+            p.requires_grad_(True)
+    with torch.enable_grad():
+        loss, metrics = model_lib.loss_fn(state.params, cfg, batch,
+                                          use_lsh=use_lsh, mesh=mesh)
+        grads = _grads(state.params, loss)
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
-                    use_lsh: Optional[bool] = None, microbatch: int = 0):
+                    use_lsh: Optional[bool] = None, microbatch: int = 0,
+                    mesh=None):
     """Returns train_step(state, batch) -> (state, metrics); batch holds
-    "tokens" and "labels" [B, S] integer tensors on the params' device."""
+    "tokens" and "labels" [B, S] integer tensors on the params' device,
+    the global batch (the same on every rank) when there is a mesh."""
     if microbatch:
         raise NotImplementedError(
             "microbatched gradient accumulation is not ported (ROADMAP "
             "Queue 1 item 5, the trainer)")
+    if cfg.dp_only and sharding.num_ranks(mesh) > 1:
+        return _make_dp_only_train_step(cfg, opt_cfg, mesh, use_lsh=use_lsh)
+    world = sharding.all_group(mesh)
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        params = leaves(state.params)
-        trainable = [p for p in params if p.is_floating_point()]
-        for p in trainable:
-            p.requires_grad_(True)
-        with torch.enable_grad():
-            loss, metrics = model_lib.loss_fn(state.params, cfg, batch,
-                                              use_lsh=use_lsh)
-            got = iter(torch.autograd.grad(loss, trainable,
-                                           allow_unused=True))
-        # a floating leaf without a gradient (the detached hash rotations)
-        # gets zeros, as JAX gives it; integer leaves get None
-        grads = []
-        for p in params:
-            g = next(got) if p.is_floating_point() else None
-            if g is None and p.is_floating_point():
-                g = torch.zeros_like(p)
-            grads.append(g)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        return apply_gradients(state, opt_cfg, loss.detach(), metrics, grads)
+        local = sharding.shard_batch(batch, mesh)
+        _, metrics, grads = _loss_and_grads(state, cfg, local, use_lsh,
+                                            mesh)
+        if collectives.group_size(world) > 1:
+            expert = sharding.expert_leaf_mask(state.params)
+            collectives.all_reduce_sum_(
+                [g for g, e in zip(grads, expert) if not e], world)
+        return apply_gradients(state, opt_cfg, metrics["loss"], metrics,
+                               grads, mesh=mesh)
+
+    return train_step
+
+
+def _make_dp_only_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
+                             mesh, *, use_lsh: Optional[bool]):
+    """The JAX ``_make_dp_only_train_step``: each rank runs the mesh-free
+    loss on its rows of the batch (over as many axes as divide it,
+    ``sharding.dp_only_batch_slice``), then the gradients, the loss and
+    the metrics are averaged over every rank."""
+    world = sharding.all_group(mesh)
+    n = collectives.group_size(world)
+
+    def mean(t: torch.Tensor) -> torch.Tensor:
+        return collectives.all_reduce_sum(t, world) / n
+
+    def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        rows = sharding.dp_only_batch_slice(mesh, batch["tokens"].shape[0])
+        local = {k: v[rows] for k, v in batch.items()}
+        loss, metrics, grads = _loss_and_grads(state, cfg, local, use_lsh,
+                                               None)
+        collectives.all_reduce_sum_(grads, world)
+        grads = [None if g is None else g / n for g in grads]
+        metrics = {k: mean(v) for k, v in metrics.items()}
+        return apply_gradients(state, opt_cfg, mean(loss), metrics, grads)
 
     return train_step

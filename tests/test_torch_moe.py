@@ -27,6 +27,7 @@ from repro_torch.core import routing
 from repro_torch.core.gating import gating_losses, top_k_gating
 from repro_torch.core.lsh_moe import lsh_moe_apply
 from repro_torch.core.moe import moe_dense_dispatch
+from repro_torch.launch.mesh import Mesh
 
 JAX_BACKENDS = ("reference", "pallas_interpret")
 CPU = torch.device("cpu")
@@ -171,7 +172,14 @@ def test_lsh_moe_train_modes_int8_wire_match_jax(mesh, mode):
 
 
 def test_moe_dense_dispatch_is_one_card_only():
+    """The one-card refusal is gone: over a model axis of two ranks the
+    decode layer takes the planned exchange (held against JAX's on four
+    CPU ranks in test_torch_distributed.py), whose transports other than
+    flat raise, citing item 3b, before any collective runs."""
     _, tcfg = _moe_cfgs("reference")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3"):
-        moe_dense_dispatch(torch.zeros(1, 1, 4), {}, tcfg, mlp_act="swiglu",
-                           model_axis=2)
+    tcfg = dataclasses.replace(tcfg, comm=tbase.CommConfig(
+        a2a_impl="pipelined", overlap_chunks=2))
+    params = {"w_up": torch.zeros(3, 4, 8)}          # e_local of 6 over 2
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3b"):
+        moe_dense_dispatch(torch.zeros(1, 1, 4), params, tcfg,
+                           mlp_act="swiglu", mesh=Mesh((1, 2)))

@@ -429,7 +429,9 @@ def test_train_cli_smoke_on_cpu(capsys):
 
 
 def test_train_cli_rejects_flags_of_later_items():
-    for flag in ("--ckpt", "--chaos", "--mesh-model", "--metrics-dir",
+    # --mesh-data / --mesh-model are ported (test_torch_dist_train.py);
+    # a pipe axis is ROADMAP Queue 1 item 6
+    for flag in ("--ckpt", "--chaos", "--mesh-pipe", "--metrics-dir",
                  "--profile"):
         with pytest.raises(SystemExit):
             train_cli.main(["--arch", ARCH, flag, "1"])

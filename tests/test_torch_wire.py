@@ -47,6 +47,7 @@ from repro.core.lsh_moe import lsh_moe_init as j_lsh_moe_init
 from repro.kernels import dispatch as jdispatch
 from repro.kernels.wire_quant import po2_scale as j_po2_scale
 from repro.kernels.wire_quant import quant_dtype as j_quant_dtype
+from repro_torch.comm import planner as tplanner
 from repro_torch.comm import wire as twire
 from repro_torch.configs import base as tbase
 from repro_torch.convert import tensor_from_numpy
@@ -55,6 +56,7 @@ from repro_torch.core.hashing import make_rotations
 from repro_torch.core.lsh_moe import lsh_moe_apply
 from repro_torch.kernels import dispatch, ref
 from repro_torch.kernels.wire_quant import qmax
+from repro_torch.launch.mesh import Mesh
 
 JAX_BACKENDS = ("reference", "pallas_interpret")
 FORMATS = ("int8", "fp8")
@@ -701,8 +703,16 @@ def test_wire_bytes_and_codec_validation():
             twire.make_codec(bad)
         with pytest.raises(ValueError, match="available"):
             tclust.wire_bytes(1, 1, 1, bad)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        twire.flat_leaves(2)
+    # one rank moves nothing; the all-to-all of several is checked on CPU
+    # ranks (test_torch_collectives.py), and the 2-hop transport of a
+    # model axis that factors into nodes is ROADMAP Queue 1 item 3b
+    fwd, bwd = twire.flat_leaves(None)
+    leaf = torch.ones(2, 3)
+    assert fwd(leaf) is leaf and bwd(leaf) is leaf
+    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
+        tplanner.plan_collectives(
+            Mesh((1, 4)), tbase.CommConfig(a2a_impl="hierarchical",
+                                           node_size=2))
     codec = twire.make_codec("int8", wire_dtype=torch.bfloat16,
                              compute_dtype=torch.float32)
     assert codec.quantized and codec.grad_dtype == torch.bfloat16
