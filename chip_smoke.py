@@ -125,6 +125,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
               2 bit-equal; then one more step of each under the profiler:
               step ms, device busy ms, kernel launches, the port's kernels
               and NCCL's (none: a group of one rank makes no call).
+ 10. comm   on that NCCL rank: the chunked all-to-all as raw calls (2 and
+              4 chunks of axis 2, every chunk issued asynchronously, then
+              waited) on the nccl phase's leaves, bitwise the unchunked
+              call, both timed; one full-config MoE layer (4 x 1024
+              tokens, LSH on, bf16 and int8 wires) forward and backward
+              through pipelined plans of 2 and 4 chunks over the one-rank
+              group against the flat plan: y within 2 bf16 steps of its
+              largest magnitude and each gradient within 2^-7 relative L2
+              (printed bitwise where they are), each chunk's int8 / fp8
+              encode and decode bitwise the slice of the whole, and one
+              profiled pass of each plan (launches, device ms); the tune
+              probe's kernel rows at its own size and at the training
+              shape, and autotune on the one-rank axis, which must store
+              no cache entry; then a full-config train step with
+              a2a_impl="pipelined", overlap_chunks=2 on mesh (1, 1):
+              the planner's degrade reason logged, and its loss
+              bit-equal to the flat mesh step's.
 The line before the last is the kernels' JSON record (times at the
 training shape, int8 for the wire kernels; launches of the bf16-wire
 LSH-on training run for the routing and LSH kernels, of the int8 runs
@@ -1886,6 +1903,301 @@ def phase_mesh(torch, cfg, step_lib, data_lib, summarize, port_names,
     return out
 
 
+# --------------------------------------------------------------- 10. comm --
+
+COMM_CHUNKS = (2, 4)
+# The pipelined layer against the flat one (bf16 model, one rank): the
+# chunked expert MLP is the same product on fewer rows, which cuBLAS may
+# round otherwise, and autograd sums each weight's chunk gradients in
+# bf16.  So y within 2 bf16 steps of its largest magnitude, and each
+# gradient within 2^-7 relative L2 (a few bf16 roundings of a sum).
+COMM_Y_STEPS = 2 ** -7
+COMM_GRAD_RTOL = 2 ** -7
+COMM_DIFF = ("router_w", "w_gate", "w_up", "w_down")
+
+
+def _chunked_raw(torch, collectives, x, group, chunks):
+    """The chunked all-to-all as raw calls: every chunk of axis 2 issued
+    asynchronously, then each waited."""
+    parts = [c.contiguous() for c in x.split(x.shape[2] // chunks, 2)]
+    pending = [collectives.raw_all_to_all_async(c, group) for c in parts]
+    return torch.cat([p.wait() for p in pending], dim=2)
+
+
+def comm_chunked_calls(torch, collectives):
+    """Item 1: the asynchronous chunked all-to-all on the NCCL rank's
+    group, on the nccl phase's wire leaves: bitwise the unchunked call,
+    both timed (median of NCCL_REPS)."""
+    import torch.distributed as dist
+    world = dist.group.WORLD
+    records = []
+    for i, (name, shape) in enumerate(NCCL_LEAVES):
+        x = _leaf(torch, name, shape, 2 * i)
+        whole = collectives.raw_all_to_all(x, world)
+        ms = {1: time_ms(torch, lambda: collectives.raw_all_to_all(x, world),
+                         reps=NCCL_REPS)}
+        for k in COMM_CHUNKS:
+            got = _chunked_raw(torch, collectives, x, world, k)
+            if not _same_bits(torch, got, whole):
+                raise AssertionError(f"chunked ({k}) all-to-all of the "
+                                     f"{name} leaf: the bits differ")
+            ms[k] = time_ms(torch, lambda k=k: _chunked_raw(
+                torch, collectives, x, world, k), reps=NCCL_REPS)
+        records.append({"leaf": name, "shape": list(shape), "ms": ms})
+        log(f"[comm] chunked all-to-all {name} {tuple(shape)}: chunks "
+            f"{list(COMM_CHUNKS)} bitwise the unchunked call; ms by chunks "
+            + json.dumps(ms))
+    return records
+
+
+@contextlib.contextmanager
+def _planned(planner, plan, sends):
+    """Every plan_collectives call returns ``plan``; every pipelined
+    exchange's send tensor is kept in ``sends``."""
+    orig_plan, orig_exchange = planner.plan_collectives, \
+        planner.pipelined_moe_exchange
+
+    def exchange(send, *a, **kw):
+        sends.append(send.detach())
+        return orig_exchange(send, *a, **kw)
+    if plan is not None:
+        planner.plan_collectives = lambda *a, **kw: plan
+    planner.pipelined_moe_exchange = exchange
+    try:
+        yield
+    finally:
+        planner.plan_collectives = orig_plan
+        planner.pipelined_moe_exchange = orig_exchange
+
+
+def _rel_l2(torch, a, b):
+    a, b = a.double(), b.double()
+    return float(torch.linalg.vector_norm(a - b)
+                 / max(float(torch.linalg.vector_norm(b)), 1e-30))
+
+
+def comm_codec_chunks(torch, wire_lib, send):
+    """Each chunk's encode (wire_quantize) and decode (wire_dequantize)
+    bitwise the slice of the whole tensor's, int8 and fp8."""
+    for fmt in WIRE_FORMATS:
+        codec = wire_lib.make_codec(fmt, wire_dtype=send.dtype,
+                                    compute_dtype=send.dtype)
+        q, sc = codec.encode(send)
+        dq = codec.decode((q, sc))
+        for k in COMM_CHUNKS:
+            n = send.shape[2] // k
+            for j in range(k):
+                sl = slice(j * n, (j + 1) * n)
+                qc, scc = codec.encode(send[:, :, sl].contiguous())
+                dqc = codec.decode((q[:, :, sl].contiguous(),
+                                    sc[:, :, sl].contiguous()))
+                if not (_same_bits(torch, qc, q[:, :, sl])
+                        and _same_bits(torch, scc, sc[:, :, sl])
+                        and _same_bits(torch, dqc, dq[:, :, sl])):
+                    raise AssertionError(f"{fmt} chunk {j} of {k}: encode or "
+                                         "decode is not the slice of the "
+                                         "whole")
+        log(f"[comm] {fmt} codec of the send {tuple(send.shape)} "
+            f"{send.dtype}: each chunk's encode (payload, scales) and decode "
+            f"bitwise the slice of the whole, chunks {list(COMM_CHUNKS)}")
+
+
+def comm_pipelined_layer(torch, cfg, moe_lib, planner, wire_lib, topo_lib,
+                         lsh_moe, mesh, kernels, summarize, port_names):
+    """Item 2: one full-config MoE layer (4 x 1024 tokens, LSH on) forward
+    and backward through pipelined plans of 2 and 4 chunks over the
+    one-rank group, against the flat plan, bf16 and int8 wires; the
+    codec's chunks against the whole; one profiled pass of each plan."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    H = cfg.d_model
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x0 = torch.randn((4, 1024, H), generator=gen, device=dev).to(
+        torch.bfloat16)
+    ct = torch.randn((4, 1024, H), generator=gen, device=dev)
+    out = {}
+    for fmt in ("bf16", "int8"):
+        c = with_wire(cfg, wire_format=fmt)
+        params = lsh_moe.lsh_moe_init(gen, H, c.moe, mlp_act=c.mlp_act,
+                                      dtype=torch.bfloat16, device=dev,
+                                      mesh=mesh)
+        plans = {"flat": None}
+        plans.update({f"pipelined{k}": planner.CommPlan(
+            planner.PIPELINED, "model", intra=1, chunks=k,
+            reason=f"{k} chunks over the one-rank group",
+            topology=topo_lib.build_topology(mesh), mesh=mesh)
+            for k in COMM_CHUNKS})
+
+        def run(plan, sends):
+            p = {k: (v.detach().clone().requires_grad_(True)
+                     if k in COMM_DIFF else v) for k, v in params.items()}
+            x = x0.clone().requires_grad_(True)
+            with _planned(planner, plan, sends):
+                y, st = moe_lib.moe_expert_parallel(
+                    x, p, c.moe, mlp_act=c.mlp_act, use_lsh=True, mesh=mesh)
+                obj = (y.float() * ct).sum() + st["aux_loss"] + st["z_loss"]
+                grads = torch.autograd.grad(obj, [x] + [p[k]
+                                                        for k in COMM_DIFF])
+            return y.detach(), grads
+
+        res = {}
+        for tag, plan in plans.items():
+            sends = []
+            y, grads = run(plan, sends)
+            if plan is None and planner.last_plan("model").algorithm \
+                    != planner.FLAT:
+                raise AssertionError(f"{fmt}: the one-rank plan is "
+                                     f"{planner.last_plan('model')}")
+            if plan is not None and len(sends) != 1:
+                raise AssertionError(f"{fmt} {tag}: the pipelined exchange "
+                                     f"ran {len(sends)} times")
+            for k in kernels:
+                k.launches = 0
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                run(plan, [])
+                torch.cuda.synchronize()
+            busy, _ = summarize(prof, 1, 1.0, top=0)
+            launches = {k.name: k.launches for k in kernels if k.launches}
+            res[tag] = (y, grads, sends)
+            out[(fmt, tag)] = {
+                "device_busy_ms": busy["device_busy_ms_per_step"],
+                "device_kernels": busy["device_kernels_per_step"],
+                "launches": launches,
+                "port_kernels_ms": _port_kernels(prof.key_averages(),
+                                                 port_names)}
+            log(f"[comm] layer {fmt} wire {tag}: fwd+bwd profile "
+                + json.dumps(out[(fmt, tag)], sort_keys=True))
+        y_f, g_f, _ = res["flat"]
+        scale = float(y_f.float().abs().max())
+        for tag in plans:
+            if tag == "flat":
+                continue
+            y, grads, sends = res[tag]
+            dy = float((y.float() - y_f.float()).abs().max())
+            rel = {name: _rel_l2(torch, g, gf) for name, g, gf in
+                   zip(("x",) + COMM_DIFF, grads, g_f)}
+            same = torch.equal(y, y_f)
+            bits = {name: torch.equal(g, gf) for name, g, gf in
+                    zip(("x",) + COMM_DIFF, grads, g_f)}
+            log(f"[comm] layer {fmt} wire {tag} against flat: y "
+                f"{'bitwise' if same else f'max |diff| {dy:.6g}'} (bound "
+                f"{COMM_Y_STEPS * scale:.6g} = 2^-7 x max |y| {scale:.6g}); "
+                f"gradients bitwise {json.dumps(bits, sort_keys=True)}, "
+                f"rel L2 {json.dumps(rel, sort_keys=True)} (bound "
+                f"{COMM_GRAD_RTOL})")
+            if dy > COMM_Y_STEPS * scale or max(rel.values()) > \
+                    COMM_GRAD_RTOL:
+                raise AssertionError(f"{fmt} {tag}: pipelined layer outside "
+                                     "its bound against flat")
+        comm_codec_chunks(torch, wire_lib, res["pipelined2"][2][0])
+        del params, res
+        torch.cuda.empty_cache()
+    return out
+
+
+def comm_probe_rows(torch, cfg, mesh):
+    """Item 3: the tune probe suite's kernel rows at the reference's probe
+    size and at the training shape; autotune on the one-rank axis stores
+    no cache entry."""
+    import os
+    import tempfile
+
+    from repro_torch.tune import cache
+    from repro_torch.tune.autotune import autotune
+    from repro_torch.tune.probe import probe_kernels
+    dev = torch.device("cuda")
+    rows = probe_kernels(sizes=((8, 256, 128),), device=dev)
+    rows += probe_kernels(sizes=((40, 1024, cfg.d_model),),
+                          num_hashes=cfg.moe.lsh.num_hashes, num_slots=208,
+                          device=dev)
+    for r in rows:
+        log(f"[comm] probe row {r.kind} {r.name} {r.wire_format} "
+            f"{r.msg_bytes} B: {r.seconds * 1e3:.6f} ms")
+    prev = os.environ.get(cache.ENV_CACHE)
+    with tempfile.TemporaryDirectory() as d:
+        os.environ[cache.ENV_CACHE] = d
+        try:
+            choices = autotune(mesh, ladder=(1 << 16,),
+                               wire_formats=("bf16", "int8"), warmup=1,
+                               iters=3, device=dev)
+        finally:
+            if prev is None:
+                os.environ.pop(cache.ENV_CACHE)
+            else:
+                os.environ[cache.ENV_CACHE] = prev
+        if choices.cache_path or os.listdir(d):
+            raise AssertionError("autotune stored an entry on a one-rank "
+                                 "axis")
+    log(f"[comm] autotune on the one-rank axis: {choices.n_rows} rows, all "
+        "kernel rows, no cache entry written")
+    return rows
+
+
+def comm_degrade(torch, cfg, step_lib, data_lib, planner, mesh, flat_loss):
+    """Item 4: a full-config train step with a2a_impl="pipelined",
+    overlap_chunks=2 on mesh (1, 1) degrades to flat with the reference's
+    reason, and its loss is bit-equal to the flat mesh step's."""
+    import dataclasses
+    import logging
+
+    from repro_torch.configs.base import CommConfig, OptimizerConfig
+    dev = torch.device("cuda")
+    c = with_wire(cfg, wire_format="bf16")
+    c = c.replace(moe=dataclasses.replace(c.moe, comm=CommConfig(
+        a2a_impl="pipelined", overlap_chunks=2)))
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+    handler = Keep(level=logging.WARNING)
+    logging.getLogger(planner.__name__).addHandler(handler)
+    try:
+        opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=8)
+        state = step_lib.init_train_state(c, opt, seed=0, device=dev,
+                                          mesh=mesh)
+        step_fn = step_lib.make_train_step(c, opt, use_lsh=True, mesh=mesh)
+        ds = data_lib.SyntheticLMDataset(c.vocab_size, 1024, 4)
+        _, met = step_fn(state, step_lib.batch_to_device(ds.batch_at(0),
+                                                         dev))
+        loss = met["loss"].item()
+    finally:
+        logging.getLogger(planner.__name__).removeHandler(handler)
+    reason = planner.last_plan("model").reason
+    want = "degraded: axis 'model' has size 1"
+    log(f"[comm] pipelined config on mesh (1, 1): plan "
+        f"{planner.last_plan('model').algorithm} ({reason}); logged "
+        f"{sorted(set(records))}; loss {loss!r} against the flat step's "
+        f"{flat_loss!r}")
+    if reason != want or not any(want in r for r in records):
+        raise AssertionError(f"the degrade was not logged: {reason!r}")
+    if loss != flat_loss:
+        raise AssertionError("the degraded step's loss differs from the "
+                             "flat step's")
+    del state, step_fn
+    torch.cuda.empty_cache()
+
+
+def phase_comm(torch, cfg, collectives, moe_lib, step_lib, data_lib,
+               summarize, port_names, kernels, flat_loss):
+    """The rest of comm/ on the NCCL rank: chunked calls, the pipelined
+    layer, the probe rows, the degrade."""
+    from repro_torch.comm import planner, topology
+    from repro_torch.comm import wire as wire_lib
+    from repro_torch.core import lsh_moe
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh(1, 1)
+    t0 = time.time()
+    calls = comm_chunked_calls(torch, collectives)
+    layer = comm_pipelined_layer(torch, cfg, moe_lib, planner, wire_lib,
+                                 topology, lsh_moe, mesh, kernels, summarize,
+                                 port_names)
+    rows = comm_probe_rows(torch, cfg, mesh)
+    comm_degrade(torch, cfg, step_lib, data_lib, planner, mesh, flat_loss)
+    log(f"[comm] done in {time.time() - t0:.1f} s")
+    return calls, layer, rows
+
+
 # -------------------------------------------------------------- main --
 
 def main() -> int:
@@ -1958,10 +2270,14 @@ def main() -> int:
                        kernels, path_k, cfg)
     log(f"[time] train parity done at {time.time() - t_start:.1f} s")
     phase_nccl(torch, collectives, summarize)
-    phase_mesh(torch, cfg, step_lib, synthetic, summarize, port_names,
-               kernels, path_k)
-    torch.distributed.destroy_process_group()
+    meshed = phase_mesh(torch, cfg, step_lib, synthetic, summarize,
+                        port_names, kernels, path_k)
     log(f"[time] mesh done at {time.time() - t_start:.1f} s")
+    phase_comm(torch, cfg, collectives, moe_lib, step_lib, synthetic,
+               summarize, port_names, kernels,
+               meshed["bf16"]["mesh (1, 1)"][0]["losses"][0])
+    torch.distributed.destroy_process_group()
+    log(f"[time] comm done at {time.time() - t_start:.1f} s")
 
     # launches of the main path's runs: the bf16 wire with LSH on for the
     # routing and LSH kernels, the int8 wire with LSH on for the kernels

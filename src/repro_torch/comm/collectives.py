@@ -14,6 +14,12 @@ int8 as they are.  The reduce-scatter is the JAX one's: an
 all-to-all of the addends, then a sum in f32 in rank order, cast back;
 so it is deterministic and the same on every backend.
 
+``raw_all_to_all_async`` issues the all-to-all with ``async_op=True``
+and returns a ``Pending`` (the result, the backend's ``Work`` and the
+buffers it uses), waited just before the result is read: the pipelined
+transport's chunks (comm/pipeline.py).  The hierarchical transport's two
+hops are ``raw_all_to_all`` over a rank's subgroups (comm/hierarchical.py).
+
 A group of one rank (``None``, or a group of size 1) is the identity
 with no call, as XLA drops a collective over one device.  The
 ``AllToAll``, ``AllGather`` and ``ReduceScatter`` classes always call
@@ -50,6 +56,39 @@ def raw_all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     out = torch.empty_like(b)
     dist.all_to_all_single(out, b, group=group)
     return _unbits(out, x.dtype)
+
+
+class Pending:
+    """An all-to-all in flight: its result ``out`` (filled once ``work``
+    completes) and the backend's ``work`` (None: nothing in flight).  It
+    holds the send and receive buffers until ``wait``, so that the
+    caching allocator cannot hand them out while the backend uses them."""
+
+    def __init__(self, out: torch.Tensor, work=None, buffers=()):
+        self.out, self.work, self._buffers = out, work, buffers
+
+    def wait(self) -> torch.Tensor:
+        """The result, once it is there: on NCCL the current stream waits
+        for the transfer (the host does not), on gloo the host waits."""
+        if self.work is not None:
+            self.work.wait()
+            self.work, self._buffers = None, ()
+        return self.out
+
+
+def raw_all_to_all_async(x: torch.Tensor, group) -> Pending:
+    """``raw_all_to_all`` issued with ``async_op=True``: returns at once,
+    the transfer in flight; ``wait()`` before reading the result."""
+    b = _bits(x)
+    out = torch.empty_like(b)
+    work = dist.all_to_all_single(out, b, group=group, async_op=True)
+    return Pending(_unbits(out, x.dtype), work, (b, out))
+
+
+def all_to_all_async(x: torch.Tensor, group) -> Pending:
+    """``raw_all_to_all_async``; over a group of one rank, x, no call."""
+    return Pending(x) if group_size(group) == 1 \
+        else raw_all_to_all_async(x, group)
 
 
 def raw_all_gather(x: torch.Tensor, group, axis: int) -> torch.Tensor:

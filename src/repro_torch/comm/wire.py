@@ -20,8 +20,17 @@ for bit.  ``$REPRO_FUSED_WIRE=0`` sends the MoE layer down the composed
 path (core/moe.py), as in the JAX package.
 
 Moving a leaf is ``flat_leaves``' all-to-all over the model axis's
-process group (comm/collectives.py), the identity on one card.  The
-hierarchical and pipelined transports are ROADMAP Queue 1 item 3b.
+process group (comm/collectives.py), the identity on one card, or
+``hierarchical_leaves``' 2-hop (comm/hierarchical.py), which every leaf,
+the scales sidecar included, crosses hop by hop.
+
+A ``Leg`` is one planned transfer of a float tensor that can also be
+issued and waited in two halves (``start`` / ``wait``): the pipelined
+transport (comm/pipeline.py) moves each slot chunk with one, so that a
+chunk's transfer is in flight while the previous chunk's experts run.
+``transfer_fn(codec, group)`` is the coded one.  Quantization is per slot
+row, so encoding a chunk is bitwise the chunk of the encoded tensor,
+payload and scales alike.
 """
 from __future__ import annotations
 
@@ -32,6 +41,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.comm import collectives
+from repro_torch.comm.hierarchical import two_hop
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.wire_quant import (BF16_FORMAT, QUANT_FORMATS,
                                             validate_wire_format)
@@ -120,6 +130,17 @@ def flat_leaves(group=None) -> Tuple[Leaf, Leaf]:
     return leaf, leaf
 
 
+def hierarchical_leaves(groups) -> Tuple[Leaf, Leaf]:
+    """(fwd, bwd) movers of one leaf over the 2-hop (``groups``: this
+    rank's (intra, inter) subgroups): fwd the 2-hop, bwd its mirror."""
+    def fwd(v: torch.Tensor) -> torch.Tensor:
+        return two_hop(v, groups)
+
+    def bwd(v: torch.Tensor) -> torch.Tensor:
+        return two_hop(v, groups, mirrored=True)
+    return fwd, bwd
+
+
 # ------------------------------------------------------- coded transfer --
 
 class _CodedTransfer(torch.autograd.Function):
@@ -141,6 +162,117 @@ def coded_transfer(x: torch.Tensor, codec: WireCodec, fwd_leaf: Leaf,
     with ``fwd_leaf``, decode.  Backward: ``bwd_leaf`` of the cotangent
     in ``codec.grad_dtype``, returned in x's dtype."""
     return _CodedTransfer.apply(x, codec, fwd_leaf, bwd_leaf)
+
+
+# ------------------------------------------------------------- legs --
+
+class _Issue(torch.autograd.Function):
+    """The first half of a leg: issue the transfer of x into ``handle``;
+    the output only links the second half to x for autograd."""
+
+    @staticmethod
+    def forward(ctx, x, leg, handle):
+        ctx.leg, ctx.x_dtype = leg, x.dtype
+        handle.pending = leg.issue(x.detach())
+        return torch.empty((), dtype=leg.out_dtype(x),
+                           device=x.device).expand(x.shape)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ctx.leg.transpose(ct).to(ctx.x_dtype), None, None
+
+
+class _Wait(torch.autograd.Function):
+    """The second half: wait for the transfer and return its result."""
+
+    @staticmethod
+    def forward(ctx, link, handle):
+        out, handle.pending = handle.pending.wait(), None
+        return out
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct, None
+
+
+class Handle:
+    """A leg's transfer in flight (``Leg.start``)."""
+    link = pending = None
+
+    def wait(self) -> torch.Tensor:
+        return _Wait.apply(self.link, self)
+
+
+class Leg:
+    """One transfer of a float tensor over the model axis's ``group``,
+    whole (``__call__``) or in two halves (``start`` returns a
+    ``Handle``; its ``wait`` gives the result, and the backward runs the
+    transposed move at once).  Subclasses give ``issue`` (start the move
+    of a detached tensor; returns an object whose ``wait`` gives the
+    result), ``out_dtype`` and ``transpose`` (the backward's move of a
+    cotangent)."""
+
+    def __init__(self, group):
+        self.group = group
+
+    def start(self, x: torch.Tensor) -> Handle:
+        handle = Handle()
+        handle.link = _Issue.apply(x, self, handle)
+        return handle
+
+
+class RawLeg(Leg):
+    """The flat all-to-all of a tensor as it is (no codec)."""
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return collectives.all_to_all(x, self.group)
+
+    def issue(self, x: torch.Tensor) -> collectives.Pending:
+        return collectives.all_to_all_async(x, self.group)
+
+    def out_dtype(self, x: torch.Tensor) -> torch.dtype:
+        return x.dtype
+
+    def transpose(self, ct: torch.Tensor) -> torch.Tensor:
+        return collectives.all_to_all(ct, self.group)
+
+
+class _Decoding:
+    def __init__(self, codec: "WireCodec", pending):
+        self.codec, self.pending = codec, pending
+
+    def wait(self) -> torch.Tensor:
+        return self.codec.decode(tuple(p.wait() for p in self.pending))
+
+
+class CodedLeg(Leg):
+    """``coded_transfer`` over the flat all-to-all: encode, move every
+    leaf, decode; backward straight through in ``codec.grad_dtype``."""
+
+    def __init__(self, codec: "WireCodec", group):
+        super().__init__(group)
+        self.codec = codec
+        self.fwd, self.bwd = flat_leaves(group)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return coded_transfer(x, self.codec, self.fwd, self.bwd)
+
+    def issue(self, x: torch.Tensor) -> _Decoding:
+        return _Decoding(self.codec, [
+            collectives.all_to_all_async(leaf, self.group)
+            for leaf in self.codec.encode(x)])
+
+    def out_dtype(self, x: torch.Tensor) -> torch.dtype:
+        return _dtype(self.codec.compute_dtype)
+
+    def transpose(self, ct: torch.Tensor) -> torch.Tensor:
+        return self.bwd(ct.to(self.codec.grad_dtype))
+
+
+def transfer_fn(codec: WireCodec, group) -> CodedLeg:
+    """The coded flat transfer, as a leg: the pipelined transport runs it
+    on each slot chunk, payload and scales sliced in lockstep."""
+    return CodedLeg(codec, group)
 
 
 def coded_moe_exchange(send: torch.Tensor, compute_fn, codec: WireCodec,

@@ -10,8 +10,10 @@ paths share one pipeline:
    this rank's experts, exchanged back and error-compensated.  Each
    exchange moves the wire format's leaves (comm/wire.py: a bf16 cast, or
    an int8 / fp8 payload with scales, fused into the routing kernels
-   unless $REPRO_FUSED_WIRE=0) through the transport ``comm.planner``
-   resolves, flat: an all-to-all over the model axis's process group.
+   unless $REPRO_FUSED_WIRE=0 or the transport is pipelined) through the
+   transport ``comm.planner`` resolves: the flat all-to-all over the
+   model axis's process group, the 2-hop over its node subgroups, or the
+   chunk-pipelined exchange, which encodes each slot chunk on its own.
 2. ``moe_dense_dispatch`` (decode): tiny token counts, no compression;
    over a model axis of several ranks the exchange goes through the same
    plan (``_moe_dense_planned``).
@@ -31,6 +33,7 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.comm import collectives
 from repro_torch.comm import planner as comm_planner
@@ -198,9 +201,12 @@ def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
     plan = routing.build_dispatch_plan(gate.expert_ids, gate.weights, e_pad,
                                        capacity)
     # Fused codec path: a quantized wire whose leaves move whole, the codec
-    # inside the routing kernels (kernels/fused_wire.py);
-    # $REPRO_FUSED_WIRE=0 takes the composed path, with the same bits.
+    # inside the routing kernels (kernels/fused_wire.py).  The pipelined
+    # transport keeps the per-chunk coded path (it slices the float tensor
+    # before it encodes); $REPRO_FUSED_WIRE=0 takes the composed path,
+    # with the same bits.
     fused = (codec is not None and codec.quantized
+             and cplan.transport != comm_planner.PIPELINED
              and wire_lib.fused_wire_enabled())
 
     if use_lsh:
@@ -230,27 +236,32 @@ def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
     if fused and use_lsh:
         # dispatch leg: the payload compress() encoded; combine leg: the
         # decode fused with decompress on the received payload
-        recv = wire_lib.precoded_transfer(
-            wire.reshape(R, e_local, c_wire, H),
-            comp.payload.reshape(R, e_local, c_wire, H),
-            comp.scales.reshape(R, e_local, c_wire), codec, fwd_leaf,
-            bwd_leaf)
+        with record_function("dispatch"):
+            recv = wire_lib.precoded_transfer(
+                wire.reshape(R, e_local, c_wire, H),
+                comp.payload.reshape(R, e_local, c_wire, H),
+                comp.scales.reshape(R, e_local, c_wire), codec, fwd_leaf,
+                bwd_leaf)
+        eo = expert_chunk(recv)
         slots, base, residual = clustering.fused_decompress_operands(comp)
-        out_tok = wire_lib.fused_decode_residual_transfer(
-            expert_chunk(recv), slots, base, residual, codec, fwd_leaf,
-            bwd_leaf)
+        with record_function("combine"):
+            out_tok = wire_lib.fused_decode_residual_transfer(
+                eo, slots, base, residual, codec, fwd_leaf, bwd_leaf)
         y = routing.combine_tokens(plan, out_tok)
     elif fused:
         # both legs inside the routing kernels: scatter + quantize out,
         # dequantize + gather back
         src = torch.repeat_interleave(xf, cfg.top_k, dim=0)
-        recv = wire_lib.fused_dispatch_transfer(
-            plan.flat_ids, plan.positions, src, codec, fwd_leaf, bwd_leaf,
-            R, e_pad, capacity)
+        with record_function("dispatch"):
+            recv = wire_lib.fused_dispatch_transfer(
+                plan.flat_ids, plan.positions, src, codec, fwd_leaf,
+                bwd_leaf, R, e_pad, capacity)
+        eo = expert_chunk(recv)
         w_flat = plan.weights.reshape(T * cfg.top_k).to(torch.float32)
-        y_f = wire_lib.fused_combine_transfer(
-            expert_chunk(recv), plan.flat_ids, plan.positions, w_flat, codec,
-            fwd_leaf, bwd_leaf, R)
+        with record_function("combine"):
+            y_f = wire_lib.fused_combine_transfer(
+                eo, plan.flat_ids, plan.positions, w_flat, codec, fwd_leaf,
+                bwd_leaf, R)
         y = y_f.reshape(T, cfg.top_k, H).sum(dim=1)
     else:
         if codec is None:

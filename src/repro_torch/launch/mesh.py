@@ -13,6 +13,15 @@ rank in the same order (``dist.new_group`` is collective), and one for
 the whole mesh; an axis of one rank has no group, and the collectives
 treat a missing group as the identity (comm/collectives.py).
 
+Where the node size factors the model axis (1 < intra < model, intra
+divides it), ``make_mesh`` also builds the 2-hop's subgroups
+(comm/hierarchical.py), for each data index: the intra-node groups, then
+the inter-node groups of ranks with one local index
+(``comm.hierarchical.intra_groups`` / ``inter_groups``).  ``Mesh.hop_groups``
+returns this rank's pair, and builds those of another node size (a
+``CommConfig.node_size`` or ``$REPRO_NODE_SIZE`` that differs from the
+mesh's) on first use.
+
 ``init_distributed`` starts the default group.  The device picks the
 backend, as it picks the kernels: NCCL for a CUDA device, gloo for the
 CPU.  With no store it reads torchrun's environment (``env://``).
@@ -34,6 +43,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.comm.hierarchical import inter_groups, intra_groups
+from repro_torch.comm.topology import factor
 
 AXES = ("data", "model")
 
@@ -99,6 +111,7 @@ class Mesh:
                                (rank // self.shape["model"],
                                 rank % self.shape["model"])))
         self._groups = dict(groups or {})
+        self._hops: Dict[int, Tuple[object, object]] = {}
         self.node_size = int(node_size)
 
     def axis_size(self, name: str) -> int:
@@ -113,6 +126,21 @@ class Mesh:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         return self._groups.get(tuple(a for a in self.axis_names
                                       if a in axes))
+
+    def hop_groups(self, intra: int) -> Tuple[object, object]:
+        """This rank's (intra-node, inter-node) subgroups of the model axis
+        at ``intra`` ranks a node (comm/hierarchical.py).  Those of the
+        mesh's own node size are built by ``make_mesh``.  Another node
+        size's are built on its first use and kept: ``dist.new_group`` is
+        collective, so every rank must ask for them at the same point, as
+        every rank does when it plans the same layer."""
+        if intra not in self._hops:
+            if not self._groups or not dist.is_initialized():
+                raise RuntimeError(f"{self!r} has no process groups; the "
+                                   "2-hop needs a mesh from make_mesh")
+            self._hops[intra] = _new_hop_groups(self.shape, self.rank,
+                                                intra)
+        return self._hops[intra]
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, rank={self.rank})"
@@ -142,12 +170,33 @@ def _product(ranges):
             yield (i,) + rest
 
 
+def _new_hop_groups(shape: Dict[str, int], rank: int, intra: int
+                    ) -> Tuple[object, object]:
+    """Make every 2-hop subgroup of the mesh (collective: every rank, in
+    one order) and return this rank's (intra, inter) pair."""
+    m = shape["model"]
+    if factor(m, intra)[0] == 1:
+        raise ValueError(f"{intra} ranks a node do not factor a model "
+                         f"axis of {m}")
+    mine = [None, None]
+    for d in range(shape["data"]):
+        for hop, lists in enumerate((intra_groups(m, intra),
+                                     inter_groups(m, intra))):
+            for local in lists:
+                ranks = [d * m + r for r in local]
+                g = dist.new_group(ranks)
+                if rank in ranks:
+                    mine[hop] = g
+    return mine[0], mine[1]
+
+
 def make_mesh(data: int = 1, model: int = 1, pipe: int = 1, *,
               node_size: int = 0) -> Mesh:
     """The (data, model) mesh over the started default group, whose size
     must be data * model.  ``node_size`` is the ranks a node holds (0:
     torchrun's LOCAL_WORLD_SIZE when the mesh spans several hosts), for
-    the planner.  ``pipe`` > 1 raises: pipeline stages are ROADMAP Queue 1
+    the planner; where it factors the model axis, the 2-hop's subgroups
+    are built too.  ``pipe`` > 1 raises: pipeline stages are ROADMAP Queue 1
     item 6."""
     if int(pipe) > 1:
         raise NotImplementedError(
@@ -174,8 +223,11 @@ def make_mesh(data: int = 1, model: int = 1, pipe: int = 1, *,
         # ranks a host holds, when the mesh spans several hosts
         local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
         node_size = local if 0 < local < world else 0
-    return Mesh((shape["data"], shape["model"]), rank=rank, groups=groups,
+    mesh = Mesh((shape["data"], shape["model"]), rank=rank, groups=groups,
                 node_size=node_size)
+    if factor(shape["model"], node_size)[0] > 1:
+        mesh.hop_groups(node_size)
+    return mesh
 
 
 # ------------------------------------------------- local CPU ranks --

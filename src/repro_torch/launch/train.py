@@ -25,6 +25,12 @@ Expert parallelism: ``--mesh-data D --mesh-model M`` trains over a
 Each rank runs on ``cuda:$LOCAL_RANK`` (NCCL) unless ``--device cpu``
 (gloo); every rank reads the same batches and keeps its part.  Only
 rank 0 prints.  Tokens/s counts the whole mesh's tokens.
+``--node-size N`` says how many ranks a node holds along the model axis
+(the planner's 2-hop transport; 0: $REPRO_NODE_SIZE, else torchrun's
+LOCAL_WORLD_SIZE across hosts).  ``--autotune`` probes the mesh and fills
+the comm tuning cache before step 0 (tune/), and makes this run read it
+unless $REPRO_TUNE is set; ``CommConfig.tuning="probe"`` probes on a
+cache miss without the flag.
 """
 from __future__ import annotations
 
@@ -47,6 +53,12 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     ap.add_argument("--mesh-data", type=int, default=1)
     ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--node-size", type=int, default=0,
+                    help="ranks a node along the model axis (0 = "
+                         "$REPRO_NODE_SIZE, else LOCAL_WORLD_SIZE)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="probe the mesh and fill the comm tuning cache "
+                         "before step 0, and read it in this run")
     args = ap.parse_args(argv)
 
     import os
@@ -62,6 +74,7 @@ def main(argv=None) -> int:
     from repro_torch.launch.serve import event_writer
     from repro_torch.runtime.step import (batch_to_device, init_train_state,
                                           make_train_step)
+    from repro_torch.tune import runtime as tune_runtime
 
     dev = resolve_device(args.device)
     mesh = None
@@ -69,10 +82,22 @@ def main(argv=None) -> int:
         if dev.type == "cuda":
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         init_distributed(dev)
-        mesh = make_mesh(args.mesh_data, args.mesh_model)
+        mesh = make_mesh(args.mesh_data, args.mesh_model,
+                         node_size=args.node_size)
     rank0 = mesh is None or mesh.rank == 0
     emit = event_writer("") if rank0 else (lambda *a, **k: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    comm = cfg.moe.comm if cfg.has_moe() else None
+    if args.autotune:
+        # a cache that nobody reads is of no use: this run reads it
+        os.environ.setdefault(tune_runtime.ENV_TUNE, "cache")
+    if cfg.has_moe() and (args.autotune
+                          or tune_runtime.tuning_mode(comm) == "probe"):
+        calib = tune_runtime.ensure_calibrated(mesh, comm,
+                                               probe=args.autotune,
+                                               device=dev)
+        if calib is not None:
+            emit("tune_calibrated", fingerprint=calib.key)
     opt = OptimizerConfig(lr=1e-3, warmup_steps=min(20, args.steps // 5),
                           total_steps=args.steps)
     use_lsh = None if args.lsh is None else (args.lsh == "on")

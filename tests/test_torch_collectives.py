@@ -1,5 +1,5 @@
 """The port's collectives (comm/collectives.py) over 2 and 4 CPU ranks
-(gloo), the planner's refusals (comm/planner.py), the clip norm over
+(gloo), the planner's resolutions (comm/planner.py), the clip norm over
 sharded gradients (optim/adam.py) and ``shard_params`` /
 ``gather_params`` (convert.py).
 
@@ -224,24 +224,42 @@ def _plan(shape, pipeline=None, **comm):
         chunk_extent=208, pipeline=pipeline)
 
 
-@pytest.mark.parametrize("comm", [
-    dict(a2a_impl="hierarchical", node_size=2),
-    dict(a2a_impl="pipelined", overlap_chunks=4),
-    dict(overlap_chunks=2),                      # auto -> pipelined
-    dict(node_size=2),                           # auto -> hierarchical
-    dict(tuning="cache"),                        # the calibrated planner
+@pytest.mark.parametrize("comm,want", [
+    (dict(a2a_impl="hierarchical", node_size=2), ("hierarchical", 2, 1)),
+    (dict(a2a_impl="pipelined", overlap_chunks=4), ("pipelined", 4, 4)),
+    (dict(overlap_chunks=2), ("pipelined", 4, 2)),      # auto -> pipelined
+    (dict(node_size=2), ("hierarchical", 2, 1)),        # auto -> 2-hop
+    (dict(tuning="cache", node_size=2), ("flat", 2, 1)),   # calibrated
 ], ids=["hierarchical", "pipelined", "auto-pipelined", "auto-hierarchical",
         "calibrated"])
-def test_planner_raises_for_item_3b(comm):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3b"):
-        _plan((1, 4), **comm)
+def test_planner_raises_for_item_3b(comm, want, tmp_path, monkeypatch):
+    """The transports the planner once refused now resolve: (algorithm,
+    intra, chunks) as the reference's rule gives them (held against it
+    over a grid in test_torch_topology.py).  The calibrated case reads a
+    cache entry whose measured intra-node link is slow, which turns the
+    static rule's 2-hop into flat."""
+    from repro_torch.tune import cache
+    from repro_torch.tune.fingerprint import fingerprint_for
+    from repro_torch.tune.model import CalibratedCostModel
+    monkeypatch.setenv(cache.ENV_CACHE, str(tmp_path))
+    monkeypatch.delenv("REPRO_TUNE", raising=False)
+    monkeypatch.delenv(tplanner.ENV_VAR, raising=False)
+    topo = tplanner.build_topology(tmesh.Mesh((1, 4)), node_size=2)
+    fp = fingerprint_for(tmesh.Mesh((1, 4)), topo)
+    cache.store(fp, CalibratedCostModel(
+        key=fp.key(), intra_bw=1e8, inter_lat=1e-7).to_payload())
+    plan = _plan((1, 4), **comm)
+    assert (plan.algorithm, plan.intra, plan.chunks) == want
+    assert plan.calibrated == ("tuning" in comm)
+    assert not plan.degraded
 
 
 def test_planner_raises_for_bubble_in_a_pipeline():
     """Inside a 1F1B pipeline the reference's auto rule picks the bubble
-    variant; outside one an explicit bubble degrades to flat, as in the
+    variant, which rides the 1F1B schedule (item 6) and so raises;
+    outside one an explicit bubble degrades to flat, as in the
     reference."""
-    with pytest.raises(NotImplementedError, match="item 3b"):
+    with pytest.raises(NotImplementedError, match="item 6"):
         _plan((1, 4), pipeline=tplanner.PipelineContext(2, 4, 0.2))
     plan = _plan((1, 4), a2a_impl="bubble")
     assert plan.algorithm == "flat" and plan.degraded
@@ -272,8 +290,9 @@ def test_planner_reads_the_environment(monkeypatch):
             tmesh.Mesh((1, 4)), tbase.CommConfig(node_size=2), msg_bytes=0)
     assert plan().algorithm == "flat"
     monkeypatch.setenv(tplanner.ENV_VAR, "hierarchical")
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        plan()
+    got = plan()
+    assert (got.algorithm, got.intra) == ("hierarchical", 2)
+    assert tplanner.ENV_VAR in got.reason
     monkeypatch.setenv(tplanner.ENV_VAR, "ring")
     with pytest.raises(ValueError, match="available"):
         _plan((1, 2))

@@ -171,15 +171,31 @@ def test_lsh_moe_train_modes_int8_wire_match_jax(mesh, mode):
                                   np.asarray(stats["expert_load"]))
 
 
-def test_moe_dense_dispatch_is_one_card_only():
+def test_moe_dense_dispatch_is_one_card_only(monkeypatch):
     """The one-card refusal is gone: over a model axis of two ranks the
     decode layer takes the planned exchange (held against JAX's on four
-    CPU ranks in test_torch_distributed.py), whose transports other than
-    flat raise, citing item 3b, before any collective runs."""
+    CPU ranks in test_torch_distributed.py and test_torch_dist_comm.py).
+    With ``a2a_impl="pipelined"`` it plans the pipelined transport (2
+    chunks of the capacity of 8) and hands its exchange to
+    ``pipelined_moe_exchange`` (here a stand-in that runs the experts,
+    since this mesh has no process groups)."""
+    from repro_torch.comm import planner as tplanner
     _, tcfg = _moe_cfgs("reference")
     tcfg = dataclasses.replace(tcfg, comm=tbase.CommConfig(
         a2a_impl="pipelined", overlap_chunks=2))
-    params = {"w_up": torch.zeros(3, 4, 8)}          # e_local of 6 over 2
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 3b"):
-        moe_dense_dispatch(torch.zeros(1, 1, 4), params, tcfg,
+    calls = []
+
+    def exchange(send, compute_fn, group, chunks, transfer=None):
+        calls.append((tuple(send.shape), group, chunks, transfer))
+        return compute_fn(send)
+    monkeypatch.setattr(tplanner, "pipelined_moe_exchange", exchange)
+    params = {"w_up": torch.zeros(3, 4, 8), "w_gate": torch.zeros(3, 4, 8),
+              "w_down": torch.zeros(3, 8, 4),
+              "router_w": torch.zeros(4, 6),
+              "placement": torch.arange(6, dtype=torch.int32)}
+    y = moe_dense_dispatch(torch.zeros(1, 1, 4), params, tcfg,
                            mlp_act="swiglu", mesh=Mesh((1, 2)))
+    assert y.shape == (1, 1, 4)
+    assert calls == [((2, 3, 8, 4), None, 2, None)]
+    plan = tplanner.last_plan("model")
+    assert (plan.algorithm, plan.chunks) == ("pipelined", 2)

@@ -704,15 +704,19 @@ def test_wire_bytes_and_codec_validation():
         with pytest.raises(ValueError, match="available"):
             tclust.wire_bytes(1, 1, 1, bad)
     # one rank moves nothing; the all-to-all of several is checked on CPU
-    # ranks (test_torch_collectives.py), and the 2-hop transport of a
-    # model axis that factors into nodes is ROADMAP Queue 1 item 3b
+    # ranks (test_torch_collectives.py), and so is the 2-hop transport of
+    # a model axis that factors into nodes (test_torch_transports.py):
+    # its plan moves each leaf over an intra-node hop, then an inter-node
+    # one
     fwd, bwd = twire.flat_leaves(None)
     leaf = torch.ones(2, 3)
     assert fwd(leaf) is leaf and bwd(leaf) is leaf
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3b"):
-        tplanner.plan_collectives(
-            Mesh((1, 4)), tbase.CommConfig(a2a_impl="hierarchical",
-                                           node_size=2))
+    plan = tplanner.plan_collectives(
+        Mesh((1, 4)), tbase.CommConfig(a2a_impl="hierarchical",
+                                       node_size=2))
+    assert (plan.transport, plan.intra) == ("hierarchical", 2)
+    assert [h.hop for h in plan.wire_cost(40 * 208 * 1540)] == \
+        ["intra", "inter"]
     codec = twire.make_codec("int8", wire_dtype=torch.bfloat16,
                              compute_dtype=torch.float32)
     assert codec.quantized and codec.grad_dtype == torch.bfloat16
