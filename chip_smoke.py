@@ -142,6 +142,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
               a2a_impl="pipelined", overlap_chunks=2 on mesh (1, 1):
               the planner's degrade reason logged, and its loss
               bit-equal to the flat mesh step's.
+ 11. resilience  (a) the config cut to 2 super-blocks at full width,
+              bf16, LSH on, 4 x 1024 tokens: 4 steps with
+              CheckpointManager saving after step 2, then a state of
+              another seed restored from it and steps 3-4 again: losses
+              and every param and moment bit-equal, the restored steps
+              launching every kernel of the path; bytes on disk, host copy
+              ms, save thread ms, restore ms and the step times beside the
+              save printed.  (b) launch/train.py on the smoke config on
+              the card, in subprocesses: an uninterrupted run, SIGKILL at
+              step 3 under --auto-restart, and ckpt_flip@1,
+              ckpt_truncate@2, sigkill@3 (two steps quarantined): per-step
+              losses bit-equal to the uninterrupted run's (the first in
+              this process, the other two at once).  (c) microbatch
+              2 at 4 x 64 tokens, 2 layers, f32 with the f32 wire, the
+              card's step against the CPU's within the train-parity f32
+              bounds; one full-depth bf16 step pair at 4 x 1024 with
+              microbatch 2, step ms and peak memory beside phase train's
+              whole-batch peak.  (d) prefill at 2 layers f32, f32 wire:
+              last logits within 1e-3 of the CPU's, equal greedy tokens,
+              every kernel of the path launched; the full depth's prefill
+              of 8 x 1024 tokens timed.  Checkpoints go to a directory of the
+              checkout that is removed afterwards.
 The line before the last is the kernels' JSON record (times at the
 training shape, int8 for the wire kernels; launches of the bf16-wire
 LSH-on training run for the routing and LSH kernels, of the int8 runs
@@ -154,6 +176,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -1589,6 +1612,78 @@ def check_training_slots(torch, scm, ref, sets):
 
 # ------------------------------------------------------ 7. train parity --
 
+def _parity_runs(torch, model_lib, step_lib, clustering, kernels, expect,
+                 cfg, opt, batch, microbatch=0, seed=5):
+    """One train step of ``cfg`` on the card (kernels) and on the CPU
+    (plain versions) from the same params and batch.  Returns per device
+    its slots and hash inputs (every assign_slots call), the gradients
+    AdamW was handed, the loss and the params after the step; the card's
+    run must launch exactly the kernels named in ``expect``."""
+    orig_assign, orig_update = clustering.assign_slots, step_lib.adamw_update
+    cpu = torch.device("cpu")
+    params_cpu = model_lib.init_params(cfg, seed=seed, device=cpu)
+    runs = {}
+    try:
+        for name, dev in (("cuda", torch.device("cuda")), ("cpu", cpu)):
+            rec = {"slots": [], "inputs": [], "grads": None}
+
+            def spy(tokens, rotations, num_slots, hash_type, rec=rec):
+                out = orig_assign(tokens, rotations, num_slots, hash_type)
+                rec["slots"].append(out.cpu())
+                rec["inputs"].append(
+                    (tokens.detach().reshape(-1, tokens.shape[-1])
+                     .float().cpu(), rotations.detach().float().cpu()))
+                return out
+
+            def update(params, grads, *a, rec=rec, **k):
+                rec["grads"] = [None if g is None else g.detach().cpu()
+                                for g in grads]
+                return orig_update(params, grads, *a, **k)
+
+            clustering.assign_slots = spy
+            step_lib.adamw_update = update
+            params = (tree_to(params_cpu, dev) if dev.type == "cuda"
+                      else params_cpu)
+            state = step_lib.TrainState(params,
+                                        step_lib.adamw_init(params, opt))
+            before = [k.launches for k in kernels]
+            state, m = step_lib.make_train_step(cfg, opt,
+                                                microbatch=microbatch)(
+                state, step_lib.batch_to_device(batch, dev))
+            ran = {k.name: k.launches - b for k, b in zip(kernels, before)}
+            if {n for n, c in ran.items() if c} != (
+                    expect if dev.type == "cuda" else set()):
+                raise AssertionError(f"{name} run launched {ran}")
+            rec["loss"] = float(m["loss"])
+            rec["params"] = [p.detach().cpu()
+                             for p in step_lib.leaves(state.params)]
+            runs[name] = rec
+    finally:
+        clustering.assign_slots = orig_assign
+        step_lib.adamw_update = orig_update
+    return runs["cuda"], runs["cpu"]
+
+
+def _parity_stats(torch, lh, a, b, n_moe):
+    """(slot ids differing per record, smallest near-tie margin of the
+    forward's hashes, loss rel, worst gradient rel L2, worst param rel
+    L2) of two _parity_runs records."""
+    n_diff = [int((x != y).sum()) for x, y in zip(a["slots"], b["slots"])]
+    margin = min(float(lh.near_tie_margin(x, r).min())
+                 for x, r in b["inputs"][:n_moe])
+
+    def rel(u, v):
+        return float((u.double() - v.double()).norm()
+                     / v.double().norm().clamp_min(1e-30))
+
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    g_rel = max(rel(x, y) for x, y in zip(a["grads"], b["grads"])
+                if y is not None and y.any())
+    p_rel = max(rel(x, y) for x, y in zip(a["params"], b["params"])
+                if y.is_floating_point())
+    return n_diff, margin, loss_rel, g_rel, p_rel
+
+
 def phase_train_parity(torch, model_lib, step_lib, clustering, lh, kernels,
                        path_kernels, cfg_full):
     """One train step on the card (kernels) and on the CPU (plain
@@ -1596,102 +1691,47 @@ def phase_train_parity(torch, model_lib, step_lib, clustering, lh, kernels,
     int8 (``path_kernels``: the kernels each launches on the card)."""
     from repro_torch.configs.base import OptimizerConfig
     from repro_torch.data.synthetic import SyntheticLMDataset
-    from repro_torch.optim.adam import leaves
     # the first step of a 10-step warm-up (lr 1e-4): a first AdamW step
     # moves each param by about lr * sign(g), so a tiny gradient whose sign
     # the two devices' f32 sums disagree on moves the param by a full lr
     opt = OptimizerConfig(lr=1e-3, warmup_steps=10, total_steps=100)
-    orig_assign, orig_update = clustering.assign_slots, step_lib.adamw_update
-    cpu = torch.device("cpu")
-    try:
-        for wire, fmt in (("float32", "bf16"), ("bfloat16", "bf16"),
-                          ("bfloat16", "int8")):
-            cfg = with_wire(cfg_full.replace(num_super_blocks=2,
-                                             dtype="float32"),
-                            wire_dtype=wire, wire_format=fmt)
-            expect = {k.name for k in path_kernels[fmt]}
-            params_cpu = model_lib.init_params(cfg, seed=5, device=cpu)
-            batch = SyntheticLMDataset(cfg.vocab_size, 64, 2).batch_at(0)
-            runs = {}
-            for name, dev in (("cuda", torch.device("cuda")), ("cpu", cpu)):
-                rec = {"slots": [], "inputs": [], "grads": None}
-
-                def spy(tokens, rotations, num_slots, hash_type, rec=rec):
-                    out = orig_assign(tokens, rotations, num_slots,
-                                      hash_type)
-                    rec["slots"].append(out.cpu())
-                    rec["inputs"].append(
-                        (tokens.detach().reshape(-1, tokens.shape[-1])
-                         .float().cpu(), rotations.detach().float().cpu()))
-                    return out
-
-                def update(params, grads, *a, rec=rec, **k):
-                    rec["grads"] = [None if g is None else g.detach().cpu()
-                                    for g in grads]
-                    return orig_update(params, grads, *a, **k)
-
-                clustering.assign_slots = spy
-                step_lib.adamw_update = update
-                params = (tree_to(params_cpu, dev) if dev.type == "cuda"
-                          else params_cpu)
-                state = step_lib.TrainState(
-                    params, step_lib.adamw_init(params, opt))
-                before = [k.launches for k in kernels]
-                state, m = step_lib.make_train_step(cfg, opt)(
-                    state, step_lib.batch_to_device(batch, dev))
-                ran = {k.name: k.launches - b
-                       for k, b in zip(kernels, before)}
-                if {n for n, c in ran.items() if c} != (
-                        expect if dev.type == "cuda" else set()):
-                    raise AssertionError(f"{name} run launched {ran}")
-                rec["loss"] = float(m["loss"])
-                rec["params"] = [p.detach().cpu()
-                                 for p in leaves(state.params)]
-                runs[name] = rec
-            a, b = runs["cuda"], runs["cpu"]
-            n_moe = cfg.num_layers
-            n_diff = [int((x != y).sum()) for x, y in zip(a["slots"],
-                                                          b["slots"])]
-            margin = min(float(lh.near_tie_margin(x, r).min())
-                         for x, r in b["inputs"][:n_moe])    # forward
-
-            def rel(u, v):
-                return float((u.double() - v.double()).norm()
-                             / v.double().norm().clamp_min(1e-30))
-
-            loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
-            g_rel = max(rel(x, y) for x, y in zip(a["grads"], b["grads"])
-                        if y is not None and y.any())
-            p_rel = max(rel(x, y) for x, y in zip(a["params"], b["params"])
-                        if y.is_floating_point())
-            log(f"[train-parity] wire {fmt} ({wire}): slot ids differing "
-                "per record "
-                f"(forward of {n_moe} MoE layers, then their recompute) "
-                f"{n_diff}; smallest near-tie margin of the forward hashes "
-                f"{margin:.3g}; loss cuda {a['loss']} cpu {b['loss']} "
-                f"(rel {loss_rel:.3g}); worst gradient rel L2 {g_rel:.3g}; "
-                f"worst param-after-AdamW rel L2 {p_rel:.3g}; TF32 off")
-            if wire == "float32":
-                # every layer's slots, and the stated tolerances
-                ok = (not any(n_diff) and loss_rel <= LOSS_RTOL
-                      and g_rel <= GRAD_RTOL and p_rel <= PARAM_RTOL)
-            else:
-                # The bf16 wire rounds the centroids and the cotangents:
-                # where the two devices' f32 sums differ in the last bit,
-                # a value next to a bf16 boundary rounds the other way, so
-                # the next layer's hash input moves by a bf16 step and a
-                # token near a hash tie may change slot.  Only the first
-                # layer's input is free of it.  The int8 wire sends the
-                # same bf16 cotangents and rounds the centroids and
-                # expert outputs to a quantum of their row's absmax / 127,
-                # so it is held to the same bound.
-                ok = n_diff[0] == 0 and loss_rel <= BF16_WIRE_LOSS_RTOL
-            if not ok:
-                raise AssertionError(f"wire {fmt} ({wire}): CUDA and CPU "
-                                     "train steps disagree")
-    finally:
-        clustering.assign_slots = orig_assign
-        step_lib.adamw_update = orig_update
+    for wire, fmt in (("float32", "bf16"), ("bfloat16", "bf16"),
+                      ("bfloat16", "int8")):
+        cfg = with_wire(cfg_full.replace(num_super_blocks=2,
+                                         dtype="float32"),
+                        wire_dtype=wire, wire_format=fmt)
+        batch = SyntheticLMDataset(cfg.vocab_size, 64, 2).batch_at(0)
+        a, b = _parity_runs(torch, model_lib, step_lib, clustering, kernels,
+                            {k.name for k in path_kernels[fmt]}, cfg, opt,
+                            batch)
+        n_moe = cfg.num_layers
+        n_diff, margin, loss_rel, g_rel, p_rel = _parity_stats(
+            torch, lh, a, b, n_moe)
+        log(f"[train-parity] wire {fmt} ({wire}): slot ids differing "
+            "per record "
+            f"(forward of {n_moe} MoE layers, then their recompute) "
+            f"{n_diff}; smallest near-tie margin of the forward hashes "
+            f"{margin:.3g}; loss cuda {a['loss']} cpu {b['loss']} "
+            f"(rel {loss_rel:.3g}); worst gradient rel L2 {g_rel:.3g}; "
+            f"worst param-after-AdamW rel L2 {p_rel:.3g}; TF32 off")
+        if wire == "float32":
+            # every layer's slots, and the stated tolerances
+            ok = (not any(n_diff) and loss_rel <= LOSS_RTOL
+                  and g_rel <= GRAD_RTOL and p_rel <= PARAM_RTOL)
+        else:
+            # The bf16 wire rounds the centroids and the cotangents:
+            # where the two devices' f32 sums differ in the last bit,
+            # a value next to a bf16 boundary rounds the other way, so
+            # the next layer's hash input moves by a bf16 step and a
+            # token near a hash tie may change slot.  Only the first
+            # layer's input is free of it.  The int8 wire sends the
+            # same bf16 cotangents and rounds the centroids and
+            # expert outputs to a quantum of their row's absmax / 127,
+            # so it is held to the same bound.
+            ok = n_diff[0] == 0 and loss_rel <= BF16_WIRE_LOSS_RTOL
+        if not ok:
+            raise AssertionError(f"wire {fmt} ({wire}): CUDA and CPU "
+                                 "train steps disagree")
 
 
 # --------------------------------------------------------------- 8. mesh --
@@ -2198,6 +2238,329 @@ def phase_comm(torch, cfg, collectives, moe_lib, step_lib, data_lib,
     return calls, layer, rows
 
 
+# --------------------------------------------------------- 11. resilience --
+
+RESTORE_STEPS, RESTORE_AT = 4, 2           # train 4 steps, save after 2
+SMOKE_ARGV = ["--arch", ARCH, "--smoke", "--steps", "6", "--batch", "4",
+              "--seq", "32", "--log-every", "1"]
+WHOLE_BATCH_PEAK = None                    # set by main from phase train
+PREFILL_BATCH, PREFILL_SEQ = 8, 1024
+
+
+def _tree_mismatch(torch, a, b):
+    """Keys of the leaves of two trees whose bits differ (or are missing
+    on one side)."""
+    from repro_torch.checkpoint.checkpoint import _flatten
+    fa = {k: v for k, v, _ in _flatten(a)}
+    fb = {k: v for k, v, _ in _flatten(b)}
+    bad = sorted(set(fa) ^ set(fb))
+    for k in set(fa) & set(fb):
+        x, y = fa[k].detach(), fb[k].detach()
+        if x.dtype == torch.bfloat16:
+            x, y = x.view(torch.int16), y.view(torch.int16)
+        if x.dtype != y.dtype or x.shape != y.shape \
+                or not torch.equal(x, y.to(x.device)):
+            bad.append(k)
+    return bad
+
+
+def resilience_restore(torch, cfg_full, step_lib, data_lib, kernels,
+                       path_kernels, dev, workdir, seq=1024):
+    """(a) The config cut to 2 super-blocks (bf16, LSH on, bf16 wire), 4 x
+    ``seq`` tokens: 4 steps with CheckpointManager saving after step 2
+    (the write overlapping steps 3 and 4), then a state of another seed
+    restored from step 2 and steps 3 and 4 again: losses and every param
+    and moment bit-equal.  Returns the restored steps' kernel launches."""
+    from repro_torch.checkpoint.checkpoint import (CheckpointManager,
+                                                   load_checkpoint)
+    from repro_torch.configs.base import OptimizerConfig
+    cfg = cfg_full.replace(num_super_blocks=2)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=RESTORE_STEPS)
+    ds = data_lib.SyntheticLMDataset(cfg.vocab_size, seq, 4)
+    batches = [step_lib.batch_to_device(ds.batch_at(s), dev)
+               for s in range(RESTORE_STEPS)]
+    step = step_lib.make_train_step(cfg, opt)
+
+    def run(state, first):
+        losses, ms = [], []
+        for s in range(first, RESTORE_STEPS):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[s])
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if s + 1 == RESTORE_AT and first == 0:
+                mgr.save_async(RESTORE_AT, state)
+        return state, losses, ms
+
+    mgr = CheckpointManager(str(workdir / "restore"))
+    state, want, ms_a = run(step_lib.init_train_state(cfg, opt, seed=0,
+                                                      device=dev), 0)
+    overlapped = mgr.in_flight
+    mgr.wait()
+    fresh = step_lib.init_train_state(cfg, opt, seed=1, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored, start, _ = load_checkpoint(str(workdir / "restore"), fresh)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    del fresh
+    for k in kernels:
+        k.launches = 0
+    restored, got, ms_b = run(restored, start)
+    launches = {k.name: k.launches for k in kernels}
+    bad = _tree_mismatch(torch, restored, state)
+    n_leaves = len(step_lib.leaves(state.params))
+    log(f"[resilience] restore: {cfg.num_layers} layers at full width, 4 x "
+        f"{seq} tokens; checkpoint of step {RESTORE_AT}: "
+        f"{mgr.last_bytes} bytes on disk, host copy "
+        f"{mgr.last_host_copy_s * 1e3:.1f} ms (the only blocking part), save "
+        f"thread {mgr.last_write_s * 1e3:.1f} ms, restore "
+        f"{restore_ms:.1f} ms; the save was still writing after the last "
+        f"step: {overlapped}; step ms {[round(x, 1) for x in ms_a]} (steps "
+        f"{RESTORE_AT + 1}-{RESTORE_STEPS} beside the save) and restored "
+        f"{[round(x, 1) for x in ms_b]}; losses {want} and restored {got}")
+    if start != RESTORE_AT or got != want[RESTORE_AT:] or bad:
+        raise AssertionError(f"restored run differs: step {start}, losses "
+                             f"{got} vs {want[RESTORE_AT:]}, leaves {bad[:5]}"
+                             f" of {n_leaves} params and their moments")
+    never = [k.name for k in path_kernels if launches[k.name] == 0] \
+        if dev.type == "cuda" else []
+    if never:
+        raise AssertionError(f"the restored steps never launched {never}")
+    log("[resilience] restore: losses and every param and moment "
+        "bit-equal; kernel launches of the restored steps "
+        + json.dumps(launches))
+    zlib_rates(torch, state)
+    del state, restored
+    return {"bytes": mgr.last_bytes,
+            "host_copy_ms": mgr.last_host_copy_s * 1e3,
+            "save_thread_ms": mgr.last_write_s * 1e3,
+            "restore_ms": restore_ms, "launches": launches}
+
+
+ZLIB_SAMPLE = 16 << 20
+
+
+def zlib_rates(torch, state):
+    """This host's zlib at levels 0, 1 and 3 and sha256 on 16 MiB of the
+    first MoE layer's w_up (bf16) and of its f32 first moment: MB/s and
+    the share of the bytes kept (why the checkpoint writes level 0)."""
+    import hashlib
+    import zlib
+    ffn = state.params["layers"][0]["ffn"]
+    for name, t in (("w_up bf16", ffn["w_up"].view(torch.int16)),
+                    ("m(w_up) f32", state.opt.m["layers"][0]["ffn"]["w_up"])):
+        raw = t.detach().cpu().numpy().tobytes()[:ZLIB_SAMPLE]
+        parts = []
+        for level in (0, 1, 3):
+            t0 = time.perf_counter()
+            n = len(zlib.compress(raw, level))
+            dt = time.perf_counter() - t0
+            parts.append(f"level {level} {len(raw) / dt / 1e6:.0f} MB/s "
+                         f"keeps {n / len(raw):.3f}")
+        t0 = time.perf_counter()
+        hashlib.sha256(raw).digest()
+        rate = len(raw) / (time.perf_counter() - t0) / 1e6
+        parts.append(f"sha256 {rate:.0f} MB/s")
+        log(f"[resilience] this host's CPU on 16 MiB of {name}: "
+            + "; ".join(parts))
+
+
+def _launcher_argv(argv, device):
+    return [*SMOKE_ARGV, *([] if device == "cuda" else ["--device", device]),
+            *argv]
+
+
+def _run_events(d):
+    with open(d / "events.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def resilience_kill(train, workdir, device="cuda"):
+    """(b) The launcher on the smoke config on the card: an uninterrupted
+    run (in this process), then, in two supervised subprocesses at once,
+    a SIGKILL at step 3 and two damaged checkpoints followed by a SIGKILL
+    (both under --auto-restart): each run's step losses bit for bit the
+    uninterrupted run's (JSON floats: equal values are equal bits)."""
+    t0 = time.perf_counter()
+    base = workdir / "base"
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = train.main(_launcher_argv(
+            ["--ckpt-every", "2", "--ckpt", str(base / "ckpt"),
+             "--metrics-dir", str(base)], device))
+    if rc != 0:
+        raise AssertionError(f"the uninterrupted launcher run returned {rc}")
+    want = {e["step"]: e["loss"] for e in _run_events(base)
+            if e["kind"] == "step"}
+    log(f"[resilience] launcher base: {time.perf_counter() - t0:.1f} s, "
+        f"losses {[want[s] for s in sorted(want)]}")
+    env = dict(os.environ, PYTHONPATH=str(SRC), RESTART_BACKOFF_S="0",
+               MAX_RESTARTS="3")
+    env.pop("REPRO_CHAOS", None)
+    procs = {}
+    for name, argv in (
+            ("sigkill", ["--ckpt-every", "2", "--chaos", "sigkill@3"]),
+            ("corrupt", ["--ckpt-every", "1", "--chaos",
+                         "ckpt_flip@1,ckpt_truncate@2,sigkill@3"])):
+        d = workdir / name
+        procs[name] = (d, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.train",
+             *_launcher_argv([*argv, "--auto-restart", "--ckpt",
+                              str(d / "ckpt"), "--metrics-dir", str(d)],
+                             device)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env))
+    for name, (d, proc) in procs.items():
+        _, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"launcher run {name} exited "
+                                 f"{proc.returncode}:\n{err[-3000:]}")
+        ev = _run_events(d)
+        losses = {e["step"]: e["loss"] for e in ev if e["kind"] == "step"}
+        restarts = [e["classification"] for e in ev
+                    if e["kind"] == "restart"]
+        corrupt = [e["step"] for e in ev if e["kind"] == "checkpoint_corrupt"]
+        log(f"[resilience] launcher {name}: restarts {restarts}, "
+            f"quarantined {corrupt}, losses "
+            f"{[losses[s] for s in sorted(losses)]}")
+        if losses != want or restarts != ["signal_9"]:
+            raise AssertionError(f"{name}: trajectory or restarts differ "
+                                 "from the uninterrupted run")
+        if name == "corrupt" and sorted(corrupt) != [2, 3]:
+            raise AssertionError(f"corrupt run quarantined {corrupt}")
+    log(f"[resilience] launcher: SIGKILL and damaged-checkpoint runs "
+        f"bit-equal to the uninterrupted run ({time.perf_counter() - t0:.1f}"
+        " s)")
+
+
+def resilience_microbatch(torch, cfg_full, model_lib, step_lib, data_lib,
+                          clustering, lh, kernels, path_kernels):
+    """(c) microbatch 2 at 4 x 64 tokens, 2 layers at full width, f32 with
+    the f32 wire: the card's step against the CPU's within the train-
+    parity phase's f32-wire bounds.  Then one full-depth bf16 step at
+    4 x 1024 tokens with microbatch 2: its time and peak memory beside the
+    whole-batch run's.  Returns the full-depth params for the prefill."""
+    from repro_torch.configs.base import OptimizerConfig
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=10, total_steps=100)
+    cfg = with_wire(cfg_full.replace(num_super_blocks=2, dtype="float32"),
+                    wire_dtype="float32")
+    batch = data_lib.SyntheticLMDataset(cfg.vocab_size, 64, 4).batch_at(0)
+    a, b = _parity_runs(torch, model_lib, step_lib, clustering, kernels,
+                        {k.name for k in path_kernels}, cfg, opt, batch,
+                        microbatch=2)
+    n_diff, margin, loss_rel, g_rel, p_rel = _parity_stats(
+        torch, lh, a, b, cfg.num_layers)
+    log(f"[resilience] microbatch 2 x 2 rows, f32 wire: slot ids differing "
+        f"per record {n_diff}; smallest near-tie margin {margin:.3g}; last "
+        f"microbatch's loss cuda {a['loss']} cpu {b['loss']} (rel "
+        f"{loss_rel:.3g}); worst gradient rel L2 {g_rel:.3g}; worst param "
+        f"rel L2 {p_rel:.3g}; TF32 off")
+    if any(n_diff) or loss_rel > LOSS_RTOL or g_rel > GRAD_RTOL \
+            or p_rel > PARAM_RTOL:
+        raise AssertionError("CUDA and CPU microbatched steps disagree")
+    dev = torch.device("cuda")
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=2)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = step_lib.init_train_state(cfg_full, opt, seed=0, device=dev)
+    step = step_lib.make_train_step(cfg_full, opt, microbatch=2)
+    ds = data_lib.SyntheticLMDataset(cfg_full.vocab_size, 1024, 4)
+    ms = []
+    for s in range(2):
+        batch = step_lib.batch_to_device(ds.batch_at(s), dev)
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not math.isfinite(loss) or int(m["grad_skips"]):
+            raise AssertionError("full-depth microbatched step failed")
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[resilience] full depth, 4 x 1024 tokens, microbatch 2: step ms "
+        f"{[round(x, 1) for x in ms]}, last loss {loss}, peak memory "
+        f"{peak / 1e9:.2f} GB (the whole-batch run of phase train: "
+        f"{(WHOLE_BATCH_PEAK or 0) / 1e9:.2f} GB)")
+    params = state.params
+    del state, m
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "peak_bytes": peak}, params
+
+
+def resilience_prefill(torch, cfg_full, model_lib, step_lib, kernels,
+                       path_kernels, params_full):
+    """(d) prefill, 2 layers at full width in f32 with the f32 wire (as
+    (c): the bf16 wire turns last-bit f32 differences into bf16 steps):
+    the card's last logits against the CPU's within the decode parity's
+    bound, equal greedy tokens; then the full depth's prefill of
+    8 x 1024 tokens timed."""
+    cfg = with_wire(cfg_full.replace(num_super_blocks=2, dtype="float32"),
+                    wire_dtype="float32")
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+    params_cpu = model_lib.init_params(cfg, seed=7, device=cpu)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64),
+                           generator=torch.Generator().manual_seed(8))
+    before = [k.launches for k in kernels]
+    got, st = step_lib.make_prefill_step(cfg)(tree_to(params_cpu, dev),
+                                              {"tokens": tokens.to(dev)})
+    ran = {k.name: k.launches - b for k, b in zip(kernels, before)}
+    want, _ = step_lib.make_prefill_step(cfg)(params_cpu, {"tokens": tokens})
+    err = float((got.cpu() - want).abs().max())
+    same = bool(torch.equal(got.cpu().argmax(-1), want.argmax(-1)))
+    never = [k.name for k in path_kernels if not ran[k.name]]
+    log(f"[resilience] prefill 2 layers f32, f32 wire, 2 x 64 tokens: max "
+        f"|last logits cuda - cpu| {err} (atol {PARITY_ATOL}), greedy tokens "
+        f"equal {same}, position {st['position']}; launches {ran}")
+    if err > PARITY_ATOL or not same or st["position"] != 64 or never:
+        raise AssertionError(f"CUDA and CPU prefill disagree (never "
+                             f"launched: {never})")
+    fn = step_lib.make_prefill_step(cfg_full)
+    toks = torch.randint(0, cfg_full.vocab_size, (PREFILL_BATCH, PREFILL_SEQ),
+                         generator=torch.Generator().manual_seed(9)).to(dev)
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = fn(params_full, {"tokens": toks})
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    if not bool(torch.isfinite(logits).all()):
+        raise AssertionError("non-finite full-depth prefill logits")
+    log(f"[resilience] prefill full depth, {PREFILL_BATCH} x {PREFILL_SEQ} "
+        f"tokens: ms {[round(x, 1) for x in ms]} (the first warms up), "
+        f"{PREFILL_BATCH * PREFILL_SEQ / (min(ms[1:]) / 1e3):.0f} tokens/s")
+    return {"prefill_ms": ms}
+
+
+def phase_resilience(torch, train, cfg, model_lib, step_lib, data_lib,
+                     clustering, lh, kernels, path_kernels):
+    """(a) in-process restore, (b) kill and resume of the launcher, (c)
+    microbatched steps, (d) prefill; the checkpoints go to a directory of
+    the checkout that is removed afterwards."""
+    import shutil
+    import tempfile
+    workdir = Path(tempfile.mkdtemp(prefix=".resilience-", dir=ROOT))
+    t0 = time.time()
+    try:
+        out = {"restore": resilience_restore(
+            torch, cfg, step_lib, data_lib, kernels, path_kernels,
+            torch.device("cuda"), workdir)}
+        torch.cuda.empty_cache()
+        log(f"[time] resilience (a) {time.time() - t0:.1f} s")
+        resilience_kill(train, workdir)
+        log(f"[time] resilience (b) {time.time() - t0:.1f} s")
+        out["microbatch"], params = resilience_microbatch(
+            torch, cfg, model_lib, step_lib, data_lib, clustering, lh,
+            kernels, path_kernels)
+        log(f"[time] resilience (c) {time.time() - t0:.1f} s")
+        out["prefill"] = resilience_prefill(
+            torch, cfg, model_lib, step_lib, kernels, path_kernels, params)
+        del params
+        torch.cuda.empty_cache()
+        log(f"[time] resilience (d) {time.time() - t0:.1f} s")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 # -------------------------------------------------------------- main --
 
 def main() -> int:
@@ -2278,6 +2641,12 @@ def main() -> int:
                meshed["bf16"]["mesh (1, 1)"][0]["losses"][0])
     torch.distributed.destroy_process_group()
     log(f"[time] comm done at {time.time() - t_start:.1f} s")
+    global WHOLE_BATCH_PEAK
+    WHOLE_BATCH_PEAK = trained["on"][0]["peak_memory_bytes"]
+    torch.cuda.empty_cache()
+    phase_resilience(torch, train, cfg, model_lib, step_lib, synthetic,
+                     clustering, lsh_hash, kernels, routing_k + lsh_k)
+    log(f"[time] resilience done at {time.time() - t_start:.1f} s")
 
     # launches of the main path's runs: the bf16 wire with LSH on for the
     # routing and LSH kernels, the int8 wire with LSH on for the kernels

@@ -208,6 +208,16 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return x if group_size(group) == 1 else raw_all_reduce_sum(x, group)
 
 
+def any_rank(flag: bool, group, device: torch.device) -> bool:
+    """True when ``flag`` is set on some rank of the group (an all-reduce
+    of one int on ``device``, which the backend must move: a CUDA device
+    for NCCL); the flag itself for a group of one rank."""
+    if group_size(group) == 1:
+        return bool(flag)
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=device)
+    return bool(raw_all_reduce_sum(t, group).item())
+
+
 BUCKET_BYTES = 256 << 20
 
 

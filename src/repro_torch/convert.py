@@ -16,9 +16,16 @@ the blocks in.
 partition spec of the expert weights (``P("model", "data", None)``;
 everything else is replicated: runtime/sharding.py), and
 ``gather_params`` puts the ranks' parts together again.
+
+``state_from_jax`` carries a whole JAX ``TrainState`` (params and the
+AdamW state, int8 moments included), and ``load_jax_checkpoint``
+restores a checkpoint directory the JAX package wrote (zlib shards, keys
+like ``params/blocks/#0/...`` stacked over super-blocks) into the port's
+``TrainState``, so a run moved off the TPU resumes here.
 """
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, List
 
 import numpy as np
@@ -30,14 +37,18 @@ from repro_torch.runtime import sharding
 
 
 def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
-    a = np.asarray(a)
+    if a is None:
+        return None
+    a = np.array(a, order="C")          # a copy; a 0-d array stays 0-d
     if a.dtype.name == "bfloat16":
-        t = torch.from_numpy(np.ascontiguousarray(a).view(np.uint16).copy())
-        return t.view(torch.bfloat16).to(device)
-    return torch.from_numpy(np.ascontiguousarray(a).copy()).to(device)
+        return torch.from_numpy(a.view(np.uint16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _map(tree: Any, fn) -> Any:
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: _map(v, fn) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -64,6 +75,58 @@ def params_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
     return _map(out, lambda a: tensor_from_numpy(a, dev))
 
 
+def state_from_jax(state: Any, *, device: DeviceLike = None):
+    """A JAX ``TrainState(params, OptState(step, m, v, grad_skips))`` with
+    numpy leaves -> the port's ``TrainState``: params and moments as
+    ``params_from_jax`` lays them out (an int8 moment stays a {"q",
+    "scale"} dict, the integer leaves' moments None), the step on the
+    host as the port keeps it, the skip count on ``device``."""
+    from repro_torch.optim.adam import OptState
+    from repro_torch.runtime.step import TrainState
+    dev = resolve_device(device)
+    params, opt = state
+    return TrainState(
+        params_from_jax(params, device=dev),
+        OptState(tensor_from_numpy(np.asarray(opt.step, np.int32),
+                                   torch.device("cpu")),
+                 params_from_jax(opt.m, device=dev),
+                 params_from_jax(opt.v, device=dev),
+                 tensor_from_numpy(np.asarray(opt.grad_skips, np.int32),
+                                   dev)))
+
+
+_BLOCK_KEY = re.compile(r"^(.*?)blocks/#(\d+)/(.*)$")
+
+
+def jax_checkpoint_layout(arrays: Dict) -> Dict:
+    """A JAX checkpoint's {key: (array, dtype)} in the port's keys: each
+    ``.../blocks/#i/rest`` entry, stacked [num_super_blocks, ...], becomes
+    ``.../layers/#(sb * len(layout) + i)/rest`` = its row sb (a view)."""
+    entries = {int(m.group(2)) for m in map(_BLOCK_KEY.match, arrays) if m}
+    n_layout = max(entries) + 1 if entries else 0
+    out = {}
+    for key, (arr, dtype) in arrays.items():
+        m = _BLOCK_KEY.match(key)
+        if m is None:
+            out[key] = (arr, dtype)
+            continue
+        pre, i, rest = m.group(1), int(m.group(2)), m.group(3)
+        for sb in range(arr.shape[0]):
+            out[f"{pre}layers/#{sb * n_layout + i}/{rest}"] = (arr[sb], dtype)
+    return out
+
+
+def load_jax_checkpoint(directory: str, template, *, step=None, mesh=None,
+                        sharded: bool = True):
+    """Restore the newest (or ``step``'s) committed checkpoint of a JAX
+    run into ``template``, a port ``TrainState`` of the same config ->
+    (state, step, extra); the same digests, quarantine and fallback as
+    the port's own (checkpoint/checkpoint.py)."""
+    from repro_torch.checkpoint.checkpoint import load_checkpoint
+    return load_checkpoint(directory, template, step=step, mesh=mesh,
+                           sharded=sharded, remap=jax_checkpoint_layout)
+
+
 def _leaves(tree: Any):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -71,7 +134,7 @@ def _leaves(tree: Any):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
-    else:
+    elif tree is not None:
         yield tree
 
 

@@ -7,7 +7,8 @@ shapes; with a mesh the experts pad to a multiple of the model axis and
 each rank keeps its shard of them (runtime/sharding.py).
 ``lsh_moe_apply`` routes to the expert-parallel path (train / prefill, LSH
 compression on unless ``use_lsh`` says otherwise) or the dense-dispatch
-decode path.
+decode path.  ``apply_placement_update`` moves the expert weights to a
+new placement (hot-expert rebalancing, runtime/fault.py).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.convert import shard_params
+from repro_torch.convert import gather_params, shard_params
 from repro_torch.core import moe as moe_lib
 from repro_torch.core.hashing import make_rotations
 from repro_torch.models.layers import expert_mlp_init, fanin_init
@@ -57,3 +58,24 @@ def lsh_moe_apply(params: Dict, x: torch.Tensor, cfg: MoEConfig, *,
         return moe_lib.moe_expert_parallel(x, params, cfg, mlp_act=mlp_act,
                                            use_lsh=use_lsh, mesh=mesh)
     raise ValueError(f"unknown mode {mode!r}")
+
+
+def apply_placement_update(params: Dict, new_placement: torch.Tensor,
+                           old_placement: torch.Tensor, mesh=None) -> Dict:
+    """A MoE layer's params with logical expert e moved from physical slot
+    old_placement[e] to new_placement[e] (padded slots past E keep their
+    rows).  The params only: the AdamW moments stay where they were, as
+    in the JAX function.  Over a mesh it is a collective: the expert
+    weights are gathered, permuted and cut again."""
+    out = dict(params if mesh is None else gather_params(params, mesh))
+    old = old_placement.to(torch.long)
+    new = new_placement.to(device=params["placement"].device,
+                           dtype=torch.int32)
+    for name in sharding.EXPERT_KEYS:
+        if name in out:
+            w = out[name]
+            moved = w.clone()
+            moved[new.long().to(w.device)] = w[old.to(w.device)]
+            out[name] = moved
+    out["placement"] = new
+    return out if mesh is None else shard_params(out, mesh)

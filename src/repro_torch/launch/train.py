@@ -1,19 +1,47 @@
-"""Training launcher (counterpart of ``repro/launch/train.py``, without
-its later features: checkpoints, chaos, metrics and profiles are not
-ported, and argparse rejects their flags and ``--mesh-pipe``).
+"""Training launcher with fault tolerance (counterpart of
+``repro/launch/train.py``).
 
   PYTHONPATH=src python -m repro_torch.launch.train \
-      --arch granite-moe-3b-a800m --steps 3 --batch 4 --seq 1024
+      --arch granite-moe-3b-a800m --steps 200 --batch 4 --seq 1024 \
+      --ckpt /data/run1 --ckpt-every 50
 
 Runs on the CUDA device unless ``--device cpu``.  The optimizer is the JAX
 launcher's: ``OptimizerConfig(lr=1e-3, warmup_steps=min(20, steps // 5),
 total_steps=steps)``; the data is ``SyntheticLMDataset`` (the JAX
-package's batches, bit for bit).  Prints one JSON ``step`` line per logged
-step (step, loss, ce, lr, dt, skips) and a final ``train_summary`` line:
-steps, mean step ms after the first, tokens/s over those steps, final
-loss, and the peak of ``torch.cuda.max_memory_allocated`` (null on the
-CPU).  ``dt`` is the host clock around a step, which ends in a
-synchronise (the loss is read back).
+package's batches, bit for bit, a pure function of the step).  Prints one
+JSON ``step`` line per logged step (step, loss, ce, lr, dt, skips) and a
+final ``train_summary`` line: steps run by this process, mean step ms
+after the first, tokens/s over those steps, final loss, and the peak of
+``torch.cuda.max_memory_allocated`` (null on the CPU); the other events
+print as one line each (``obs.events.render``).  ``dt`` is the host clock
+around a step, which ends in a synchronise (the loss is read back).
+
+Fault tolerance (resilience/, checkpoint/, runtime/fault.py):
+
+ * ``--ckpt DIR``: resume from the newest committed step (a damaged one
+   is quarantined and the one before it restored), save every
+   ``--ckpt-every`` steps (asynchronously: the host copy blocks, the write
+   does not) and at the end.  The resumed trajectory is bitwise the
+   uninterrupted one: the batches are a function of the step and the
+   restore gives back every byte of the state.
+ * SIGTERM: save, wait for it, exit 42.  Over a mesh the ranks agree on
+   it each step (a rank's SIGTERM stops every rank).
+ * ``--watchdog-s``: a step that outlives it exits 43.
+ * ``--straggler-factor``: a ``straggler`` event for a step slower than
+   that multiple of the EMA step time.
+ * the MoE layers' ``expert_load`` feeds ``ExpertRebalancer``, which
+   records it (no placement is applied, as in the JAX launcher).
+ * ``--chaos SPEC`` / ``$REPRO_CHAOS``: step-addressed faults
+   (resilience/faults.py); a bad spec exits 2.
+ * ``--auto-restart``: supervise this run as a child process, restarting
+   it by its exit class ($MAX_RESTARTS within $RESTART_WINDOW_S, backoff
+   from $RESTART_BACKOFF_S; preemptions free, usage errors never).  A
+   one-process run only: under torchrun it is a usage error.
+ * ``--metrics-dir DIR``: every event appended to ``DIR/events.jsonl``
+   (the supervisor's too).  The JAX launcher's ``trace.json``,
+   ``metrics.json``, anomaly monitor, ``--profile`` and
+   ``--anomaly-exit`` are ROADMAP Queue 1 item 8; ``--mesh-pipe`` and
+   ``--pipeline-microbatches`` item 6.  argparse rejects them.
 
 Expert parallelism: ``--mesh-data D --mesh-model M`` trains over a
 (data, model) mesh of D * M ranks, started by torchrun:
@@ -24,22 +52,29 @@ Expert parallelism: ``--mesh-data D --mesh-model M`` trains over a
 
 Each rank runs on ``cuda:$LOCAL_RANK`` (NCCL) unless ``--device cpu``
 (gloo); every rank reads the same batches and keeps its part.  Only
-rank 0 prints.  Tokens/s counts the whole mesh's tokens.
-``--node-size N`` says how many ranks a node holds along the model axis
-(the planner's 2-hop transport; 0: $REPRO_NODE_SIZE, else torchrun's
-LOCAL_WORLD_SIZE across hosts).  ``--autotune`` probes the mesh and fills
-the comm tuning cache before step 0 (tune/), and makes this run read it
-unless $REPRO_TUNE is set; ``CommConfig.tuning="probe"`` probes on a
-cache miss without the flag.
+rank 0 prints and writes files; a checkpoint holds the logical state
+and restores on another mesh of the same padded expert count.
+Tokens/s counts the whole mesh's tokens.  ``--node-size N`` says how
+many ranks a node holds along the model axis (the planner's 2-hop
+transport; 0: $REPRO_NODE_SIZE, else torchrun's LOCAL_WORLD_SIZE across
+hosts).  ``--autotune`` probes the mesh and fills the comm tuning cache
+before step 0 (tune/), and makes this run read it unless $REPRO_TUNE is
+set; ``CommConfig.tuning="probe"`` probes on a cache miss without the
+flag.
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
+import subprocess
+import sys
 import time
 
+_JSON_KINDS = ("step", "train_summary", "tune_calibrated")
 
-def main(argv=None) -> int:
+
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=100)
@@ -51,6 +86,25 @@ def main(argv=None) -> int:
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
+    ap.add_argument("--ckpt", default="",
+                    help="checkpoint directory: resume from its newest "
+                         "committed step, save every --ckpt-every steps")
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--watchdog-s", type=float, default=600.0,
+                    help="exit 43 when a step takes longer than this")
+    ap.add_argument("--straggler-factor", type=float, default=2.0,
+                    help="flag a step as a straggler when it exceeds this "
+                         "multiple of the EMA step time")
+    ap.add_argument("--auto-restart", action="store_true",
+                    help="supervise this (one-process) run and restart it "
+                         "by its exit class")
+    ap.add_argument("--chaos", default=os.environ.get("REPRO_CHAOS", ""),
+                    help="fault-injection spec, e.g. 'nan_grads@3,"
+                         "sigkill@5,hang@7:2.5,seed=1' (also $REPRO_CHAOS)")
+    ap.add_argument("--metrics-dir", default="",
+                    help="append every event to DIR/events.jsonl (the JAX "
+                         "launcher's trace.json, metrics.json and anomaly "
+                         "monitor are not ported: ROADMAP Queue 1 item 8)")
     ap.add_argument("--mesh-data", type=int, default=1)
     ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--node-size", type=int, default=0,
@@ -59,34 +113,124 @@ def main(argv=None) -> int:
     ap.add_argument("--autotune", action="store_true",
                     help="probe the mesh and fill the comm tuning cache "
                          "before step 0, and read it in this run")
+    return ap
+
+
+def supervise_cli(argv, metrics_dir: str) -> int:
+    """--auto-restart: run this launcher as a child until it finishes,
+    restarting it by the supervisor's policy; the restart events go to
+    the console and to the run's events.jsonl."""
+    from repro_torch.obs import events as obs_events
+    from repro_torch.resilience import supervisor as sup
+    log = obs_events.global_log()
+    sinks = [log.add_sink(obs_events.ConsoleSink())]
+    jsonl = None
+    if metrics_dir:
+        jsonl = obs_events.JsonlSink(os.path.join(metrics_dir,
+                                                  "events.jsonl"))
+        sinks.append(log.add_sink(jsonl))
+    child = [a for a in argv if a != "--auto-restart"]
+    try:
+        return sup.supervise(lambda: subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", *child]
+        ).returncode)
+    finally:
+        for s in sinks:
+            log.remove_sink(s)
+        if jsonl is not None:
+            jsonl.close()
+
+
+def main(argv=None) -> int:
+    ap = _parser()
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
 
-    import os
+    from repro_torch import resolve_device
+    dev = resolve_device(args.device)
+    if args.auto_restart:
+        if "RANK" in os.environ or args.mesh_data * args.mesh_model > 1:
+            ap.error("--auto-restart supervises a one-process run; under "
+                     "torchrun (or with a mesh) restart the job from its "
+                     "launcher instead")
+        return supervise_cli(argv, args.metrics_dir)
 
     import torch
     import torch.distributed as dist
 
-    from repro_torch import resolve_device
-    from repro_torch.configs.base import OptimizerConfig
-    from repro_torch.configs.registry import get_config, get_smoke_config
-    from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.launch.mesh import init_distributed, make_mesh
-    from repro_torch.launch.serve import event_writer
-    from repro_torch.runtime.step import (batch_to_device, init_train_state,
-                                          make_train_step)
-    from repro_torch.tune import runtime as tune_runtime
+    from repro_torch.obs import events as obs_events
 
-    dev = resolve_device(args.device)
-    mesh = None
-    if "RANK" in os.environ or args.mesh_data * args.mesh_model > 1:
+    mesh, own_group = None, False
+    if "RANK" in os.environ or args.mesh_data * args.mesh_model > 1 \
+            or dist.is_initialized():
         if dev.type == "cuda":
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        own_group = not dist.is_initialized()
         init_distributed(dev)
         mesh = make_mesh(args.mesh_data, args.mesh_model,
                          node_size=args.node_size)
+    log = obs_events.global_log()
+    sinks, jsonl = [], None
+    if mesh is None or mesh.rank == 0:
+        sinks.append(log.add_sink(lambda ev: print(
+            ev.to_json() if ev.kind in _JSON_KINDS
+            else obs_events.render(ev),
+            file=sys.stderr if ev.kind == "error" else sys.stdout,
+            flush=True)))
+        if args.metrics_dir:
+            jsonl = obs_events.JsonlSink(
+                os.path.join(args.metrics_dir, "events.jsonl"))
+            sinks.append(log.add_sink(jsonl))
+    try:
+        rc = _train(args, dev, mesh)
+    finally:
+        for s in sinks:
+            log.remove_sink(s)
+        if jsonl is not None:
+            jsonl.close()
+    if own_group:          # every rank returns here, with the same code
+        dist.barrier()
+        dist.destroy_process_group()
+    return rc
+
+
+def _train(args, dev, mesh) -> int:
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint.checkpoint import (CheckpointManager,
+                                                   load_checkpoint)
+    from repro_torch.comm.collectives import any_rank
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.data.pipeline import place
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.obs import events as obs_events
+    from repro_torch.runtime import sharding
+    from repro_torch.runtime.fault import (EXIT_PREEMPTED, ExpertRebalancer,
+                                           PreemptionHandler, StepWatchdog,
+                                           StragglerMonitor)
+    from repro_torch.runtime.step import init_train_state, make_train_step
+    from repro_torch.tune import runtime as tune_runtime
+
+    emit = obs_events.emit
     rank0 = mesh is None or mesh.rank == 0
-    emit = event_writer("") if rank0 else (lambda *a, **k: None)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    chaos = None
+    if args.chaos:
+        from repro_torch.resilience.faults import STATE_NAME, FaultPlan
+        try:
+            chaos = FaultPlan.parse(args.chaos)
+        except ValueError as exc:
+            emit("error", where="chaos", message=str(exc))
+            return 2
+        state_dir = args.ckpt or args.metrics_dir
+        if state_dir:
+            # the fired-markers must survive the kills the plan causes
+            os.makedirs(state_dir, exist_ok=True)
+            chaos.bind_state(os.path.join(state_dir, STATE_NAME))
+        emit("chaos_plan", spec=chaos.describe())
     comm = cfg.moe.comm if cfg.has_moe() else None
     if args.autotune:
         # a cache that nobody reads is of no use: this run reads it
@@ -102,41 +246,87 @@ def main(argv=None) -> int:
                           total_steps=args.steps)
     use_lsh = None if args.lsh is None else (args.lsh == "on")
     ds = SyntheticLMDataset(cfg.vocab_size, args.seq, args.batch)
+    preempt = PreemptionHandler()
+    watchdog = StepWatchdog(args.watchdog_s)
+    straggler = StragglerMonitor(threshold=args.straggler_factor)
+    sharded = not cfg.dp_only
+    mgr = CheckpointManager(args.ckpt, keep=3, mesh=mesh, sharded=sharded) \
+        if args.ckpt else None
+    rebalancer = placement = None
+    if cfg.has_moe():
+        rebalancer = ExpertRebalancer(cfg.moe.num_experts,
+                                      sharding.axis_size(mesh, "model"))
+        # expert_load comes in physical slot order; the identity until a
+        # placement is applied (core.lsh_moe.apply_placement_update)
+        placement = np.arange(cfg.moe.num_experts, dtype=np.int32)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
+    world = sharding.all_group(mesh)
     state = init_train_state(cfg, opt, seed=0, device=dev, mesh=mesh)
+    start = 0
+    if mgr and mgr.latest_step() is not None:
+        state, start, _ = load_checkpoint(args.ckpt, state, mesh=mesh,
+                                          sharded=sharded)
+        emit("resume", from_step=start)
     step_fn = make_train_step(cfg, opt, use_lsh=use_lsh, mesh=mesh)
-    dts, loss = [], float("nan")
-    for s in range(args.steps):
-        batch = batch_to_device(ds.batch_at(s), dev)
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        loss = float(metrics["loss"])       # waits for the step
-        dt = time.perf_counter() - t0
-        dts.append(dt)
-        if s % args.log_every == 0:
-            emit("step", step=s, loss=loss, ce=float(metrics["ce"]),
-                 lr=float(metrics["lr"]), dt=dt,
-                 skips=int(metrics["grad_skips"]))
+    dts, loss, metrics = [], float("nan"), {}
+    try:
+        for s in range(start, args.steps):
+            batch = ds.batch_at(s)
+            watchdog.arm()
+            if chaos is not None:
+                # after arm(): a hang must trip the watchdog
+                chaos.on_step_start(s)
+                batch = chaos.chaos_batch(batch, s)
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, place(batch, dev))
+            loss = float(metrics["loss"])       # waits for the step
+            dt = time.perf_counter() - t0
+            watchdog.disarm()
+            dts.append(dt)
+            if straggler.record(s, dt):
+                emit("straggler", step=s, dt=dt, ema=straggler.ema,
+                     factor=args.straggler_factor)
+            if rebalancer is not None:
+                rebalancer.record(metrics["expert_load"].cpu().numpy(),
+                                  placement)
+            if s % args.log_every == 0:
+                emit("step", step=s, loss=loss, ce=float(metrics["ce"]),
+                     lr=float(metrics["lr"]), dt=dt,
+                     skips=int(metrics["grad_skips"]))
+            if any_rank(preempt.requested.is_set(), world, dev):
+                if mgr:
+                    mgr.save_async(s + 1, state)
+                    mgr.wait()
+                emit("preempt", step=s)
+                return EXIT_PREEMPTED
+            if mgr and (s + 1) % args.ckpt_every == 0:
+                mgr.save_async(s + 1, state)
+            if chaos is not None:
+                chaos.on_step_end(s, manager=mgr, ckpt_dir=args.ckpt,
+                                  writer=rank0)
+        if mgr:
+            mgr.save_async(args.steps, state)
+            mgr.wait()
+    finally:
+        watchdog.stop()
     steady = dts[1:]
-    mean_ms = sum(steady) / len(steady) * 1e3 if steady else math.nan
     tokens = args.batch * args.seq
-    emit("train_summary", arch=args.arch, smoke=args.smoke, steps=args.steps,
-         batch=args.batch, seq=args.seq,
+    emit("train_summary", arch=args.arch, smoke=args.smoke, steps=len(dts),
+         first_step=start, batch=args.batch, seq=args.seq,
          lsh=cfg.moe.lsh.enabled if use_lsh is None else use_lsh,
-         mean_step_ms_after_first=mean_ms,
+         mean_step_ms_after_first=(sum(steady) / len(steady) * 1e3
+                                   if steady else math.nan),
          tokens_per_s=(tokens * len(steady) / sum(steady) if steady
                        else math.nan),
          first_step_ms=dts[0] * 1e3 if dts else math.nan,
-         final_loss=loss, skips=int(metrics["grad_skips"]) if dts else 0,
+         final_loss=loss,
+         skips=int(metrics["grad_skips"]) if metrics else 0,
          peak_memory_bytes=(torch.cuda.max_memory_allocated(dev)
                             if dev.type == "cuda" else None),
          device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                  else "cpu"),
          mesh=None if mesh is None else mesh.shape)
-    if mesh is not None:
-        dist.barrier()
-        dist.destroy_process_group()
     return 0
 
 

@@ -1,7 +1,8 @@
 """Model assembly (counterpart of ``repro/models/model.py``):
 ``init_params``, the training forward and loss (``forward``,
-``head_logits``, ``loss_from_logits``, ``loss_fn``), and decoding
-(``init_decode_state``, ``decode_step``).
+``head_logits``, ``loss_from_logits``, ``loss_fn``), inference prefill
+(``prefill``: the forward without gradients, the last position's
+logits) and decoding (``init_decode_state``, ``decode_step``).
 
 The JAX package stacks block params per layout entry, [num_super_blocks,
 ...], and scans over super-blocks with the layout unrolled inside.  The
@@ -113,7 +114,7 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 
 def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, ffn: str, *,
-           use_lsh: Optional[bool], mesh):
+           use_lsh: Optional[bool], mesh, moe_mode: str = "train"):
     """One (mixer, ffn) block of the training forward -> (x, aux, z,
     load); aux / z / load are None without a MoE FFN."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
@@ -130,7 +131,7 @@ def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, ffn: str, *,
         y, stats = lsh_moe_apply(p["ffn"], rmsnorm(p["norm2"], x,
                                                    cfg.norm_eps),
                                  cfg.moe, mlp_act=cfg.mlp_act,
-                                 mode="train", use_lsh=use_lsh, mesh=mesh)
+                                 mode=moe_mode, use_lsh=use_lsh, mesh=mesh)
         x = x + y
         aux, z, load = (stats["aux_loss"], stats["z_loss"],
                         stats["expert_load"])
@@ -147,8 +148,8 @@ def head_logits(params: Dict, cfg: ModelConfig,
 
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            use_lsh: Optional[bool] = None,
-            mesh=None) -> Tuple[torch.Tensor, Dict]:
+            use_lsh: Optional[bool] = None, mesh=None,
+            moe_mode: str = "train") -> Tuple[torch.Tensor, Dict]:
     """tokens [B, S] (with a mesh, this rank's [B / data, S / model]) ->
     (logits [B, S, V] f32, stats with "aux_loss", "z_loss" summed over
     the MoE layers and "expert_load" summed per expert, each over every
@@ -156,9 +157,10 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     (``torch.utils.checkpoint``, which runs its collectives again, in the
     same order on every rank) when ``remat_policy`` is "nothing" or
     "dots", and kept when it is "full": the JAX rule, at block
-    granularity."""
+    granularity (without gradients nothing is kept to recompute)."""
     check_supported(cfg)
-    remat = cfg.remat_policy in ("nothing", "dots")
+    remat = cfg.remat_policy in ("nothing", "dots") \
+        and torch.is_grad_enabled()
     x = embed(params["embed"], tokens)
     dev = x.device
     aux = torch.zeros((), dtype=torch.float32, device=dev)
@@ -166,7 +168,7 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     load = None
     for (_, ffn), p in zip(layer_kinds(cfg), params["layers"]):
         fn = partial(_block, p, cfg=cfg, ffn=ffn, use_lsh=use_lsh,
-                     mesh=mesh)
+                     mesh=mesh, moe_mode=moe_mode)
         if remat:
             x, a, zz, ld = checkpoint(fn, x, use_reentrant=False)
         else:
@@ -223,6 +225,29 @@ def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
     logits, stats = forward(params, cfg, batch["tokens"], use_lsh=use_lsh,
                             mesh=mesh)
     return loss_from_logits(cfg, logits, stats, batch["labels"], mesh)
+
+
+@torch.no_grad()
+def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
+            mesh=None) -> Tuple[torch.Tensor, Dict]:
+    """Inference prefill (the JAX ``prefill``): the forward over
+    batch["tokens"] [B, S] through the expert-parallel MoE path (LSH as
+    configured), without gradients -> (the last position's logits
+    [B, 1, V] f32, {"position": S}).  With a mesh the batch is the global
+    one and every rank returns the global logits (gathered over ``model``,
+    which holds the sequence, and ``data``).  The serve loop keeps its
+    teacher-forced prefill, as the JAX launcher does."""
+    tokens = batch["tokens"]
+    local = sharding.shard_batch({"tokens": tokens}, mesh)["tokens"]
+    logits, _ = forward(params, cfg, local, mesh=mesh, moe_mode="prefill")
+    last = logits[:, -1:, :]
+    if sharding.axis_size(mesh, "model") > 1:
+        last = collectives.raw_all_gather(
+            last, sharding.model_group(mesh), 1)[:, -1:, :]
+    if sharding.axis_size(mesh, "data") > 1:
+        last = collectives.raw_all_gather(last.contiguous(),
+                                          sharding.group(mesh, "data"), 0)
+    return last, {"position": int(tokens.shape[1])}
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,

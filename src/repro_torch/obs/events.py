@@ -3,8 +3,11 @@
 
 The planner emits ``comm_plan`` when a resolution changes; tune emits
 ``tune_probe``, ``tune_result``, ``tune_cache_reject`` and
-``tune_stale``.  Sinks subscribe to the log: ``ConsoleSink`` prints one
-line an event, ``JsonlSink`` appends one JSON object an event to a file,
+``tune_stale``; the trainer and its state emit ``resume``, ``preempt``,
+``watchdog``, ``straggler``, ``data_stall``, ``chaos``, ``restart`` and
+``checkpoint_*``, rendered as the JAX ``ConsoleSink`` prints them.
+Sinks subscribe to the log: ``ConsoleSink`` prints one line an event,
+``JsonlSink`` appends one JSON object an event to a file,
 ``MemorySink`` keeps them for tests.  With no sink attached ``emit`` is a
 no-op, so library code emits unconditionally.  The rest of ``obs/``
 (metrics, traces, reconciliation) is ROADMAP Queue 1 item 8.
@@ -86,7 +89,60 @@ def _fmt_tune_probe(e: Event) -> str:
             f"{extra}: {d.get('seconds', 0.0) * 1e6:.0f}us")
 
 
+def _fmt_straggler(e: Event) -> str:
+    d = e.data
+    return (f"[straggler] step {e.step} took {d.get('dt', 0.0):.2f}s "
+            f"(ema {d.get('ema', 0.0):.2f}s, "
+            f"threshold {d.get('factor', 0.0):.1f}x)")
+
+
+def _fmt_chaos(e: Event) -> str:
+    d = e.data
+    detail = " ".join(f"{k}={v}" for k, v in sorted(d.items())
+                      if k not in ("fault", "fault_step", "fault_id", "seed"))
+    s = (f"[chaos] inject {d.get('fault')}@{d.get('fault_step')} "
+         f"at step {e.step}")
+    return s + (f" ({detail})" if detail else "")
+
+
+def _fmt_restart(e: Event) -> str:
+    d = e.data
+    return (f"[supervisor] restart #{int(d.get('attempt', 0))}: child "
+            f"exit {d.get('exit_code')} ({d.get('classification')}), "
+            + (f"budget {d.get('budget_used')}/{d.get('budget')}, "
+               if d.get("budgeted") else "free (preemption), ")
+            + f"backoff {d.get('backoff_s', 0.0):.1f}s")
+
+
 _RENDERERS: Dict[str, Callable[[Event], str]] = {
+    "straggler": _fmt_straggler,
+    "resume": lambda e: f"[train] resumed from step {e.data.get('from_step')}",
+    "preempt": lambda e: "[train] preempted; checkpointed",
+    "checkpoint_save": lambda e: (f"[ckpt] saved step {e.step} -> "
+                                  f"{e.data.get('path')}"),
+    "checkpoint_restore": lambda e: (f"[ckpt] restored step {e.step} from "
+                                     f"{e.data.get('path')}"),
+    "checkpoint_corrupt": lambda e: (
+        f"[ckpt] CORRUPT step {e.step} at {e.data.get('path')}: "
+        f"{e.data.get('reason', '')} -> quarantined "
+        f"{e.data.get('quarantined')}"),
+    "checkpoint_error": lambda e: (
+        f"[ckpt] async save of step {e.step} FAILED: "
+        f"{e.data.get('error', '')}"),
+    "chaos": _fmt_chaos,
+    "chaos_plan": lambda e: f"[chaos] plan: {e.data.get('spec')}",
+    "watchdog": lambda e: (
+        f"[watchdog] step exceeded {e.data.get('timeout_s', 0.0):.1f}s "
+        f"(fire #{int(e.data.get('fired', 1))})"),
+    "data_stall": lambda e: (
+        f"[data] pipeline stalled {e.data.get('waited_s', 0.0):.1f}s "
+        f"(timeout {e.data.get('timeout_s', 0.0):.1f}s)"),
+    "restart": _fmt_restart,
+    "restart_budget_exhausted": lambda e: (
+        f"[supervisor] restart budget exhausted "
+        f"({e.data.get('budget')} budgeted restarts within "
+        f"{e.data.get('window_s', 0.0):.0f}s); giving up with child "
+        f"exit {e.data.get('exit_code')}"),
     "comm_plan": _fmt_comm_plan,
     "tune_probe": _fmt_tune_probe,
     "tune_cache_reject": lambda e: (

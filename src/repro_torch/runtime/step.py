@@ -18,19 +18,26 @@ gather's reduce-scatter summed them over ``data``; they are not summed
 again.  The clip norm is the logical gradient's (``adam.global_norm``).
 ``cfg.dp_only`` is the pure data-parallel profile: the batch over every
 rank, the whole model on each, the gradients averaged over all ranks.
-Microbatching is not ported, and neither are pipeline stages (ROADMAP
-Queue 1 items 5 and 6).
+
+``microbatch=k`` accumulates gradients over the global batch's rows
+[b * k, (b + 1) * k) in turn (cut over the mesh by ``shard_batch``), as
+the JAX ``lax.scan``: each microbatch's loss / n and gradient / n added
+in f32 in microbatch order, the metrics those of the last microbatch;
+the replicated params' gradients are then summed over the ranks once.
+``dp_only`` ignores it, as in JAX.  The fault-injection loss scale
+(``CHAOS_LOSS_SCALE_KEY``, resilience/faults.py) multiplies the loss the
+non-finite skip reads.  Pipeline stages are ROADMAP Queue 1 item 6.
 """
 from __future__ import annotations
 
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
-import numpy as np
 import torch
 
 from repro_torch import DeviceLike
 from repro_torch.comm import collectives
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
+from repro_torch.data.pipeline import place as batch_to_device  # noqa: F401
 from repro_torch.models import model as model_lib
 from repro_torch.optim.adam import (OptState, adamw_init, adamw_update,
                                     global_norm, leaves)
@@ -41,6 +48,32 @@ from repro_torch.runtime import sharding
 class TrainState(NamedTuple):
     params: Any
     opt: OptState
+
+
+# Fault injection (resilience/faults.py): a chaos run attaches this scalar
+# to the batch; the step multiplies the loss by it before the non-finite
+# skip, so an injected NaN takes the real skip path.  1.0 is an IEEE
+# identity, and without the key the step runs the ops it runs without
+# the hook (tests/test_torch_resilience.py pins both).
+CHAOS_LOSS_SCALE_KEY = "_chaos_loss_scale"
+
+
+def split_chaos_scale(batch: Dict) -> Tuple[Dict, Optional[Any]]:
+    """Pop the loss scale off the batch (None, and the same batch object,
+    when chaos is off)."""
+    if CHAOS_LOSS_SCALE_KEY not in batch:
+        return batch, None
+    batch = dict(batch)
+    return batch, batch.pop(CHAOS_LOSS_SCALE_KEY)
+
+
+def apply_chaos_scale(loss: torch.Tensor, scale) -> torch.Tensor:
+    """Scale the loss the skip reads; the gradients are left alone (the
+    only scales injected are 1.0 and NaN, which discards them)."""
+    if scale is None:
+        return loss
+    return loss * torch.as_tensor(scale, dtype=loss.dtype,
+                                  device=loss.device).reshape(loss.shape)
 
 
 def init_train_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
@@ -71,12 +104,6 @@ def apply_gradients(state: TrainState, opt_cfg: OptimizerConfig,
     return TrainState(state.params, new_opt), metrics
 
 
-def batch_to_device(batch: Dict[str, np.ndarray],
-                    device: torch.device) -> Dict[str, torch.Tensor]:
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
-
-
 def _grads(params, loss: torch.Tensor):
     """One gradient per leaf of ``params``: autograd's for a floating leaf
     (zeros where it has none: the detached hash rotations, as JAX gives
@@ -93,16 +120,64 @@ def _grads(params, loss: torch.Tensor):
     return grads
 
 
-def _loss_and_grads(state: TrainState, cfg: ModelConfig, batch: Dict,
+def _loss_and_grads(params, cfg: ModelConfig, batch: Dict,
                     use_lsh: Optional[bool], mesh):
-    for p in leaves(state.params):
+    for p in leaves(params):
         if p.is_floating_point():
             p.requires_grad_(True)
     with torch.enable_grad():
-        loss, metrics = model_lib.loss_fn(state.params, cfg, batch,
+        loss, metrics = model_lib.loss_fn(params, cfg, batch,
                                           use_lsh=use_lsh, mesh=mesh)
-        grads = _grads(state.params, loss)
+        grads = _grads(params, loss)
     return loss.detach(), {k: v.detach() for k, v in metrics.items()}, grads
+
+
+def make_accum_grad_fn(cfg: ModelConfig, *, use_lsh: Optional[bool] = None,
+                       microbatch: int = 0, mesh=None):
+    """accum_grads(params, batch) -> (loss, metrics, grads): the global
+    loss, the metrics, and one gradient per leaf of ``params`` (None for
+    an integer leaf), the replicated params' summed over the ranks.
+    ``microbatch`` k > 0 accumulates over the batch in rows of k (the
+    gradients then come in f32)."""
+    world = sharding.all_group(mesh)
+
+    def one(params, rows: Dict):
+        local = sharding.shard_batch(rows, mesh)
+        _, metrics, grads = _loss_and_grads(params, cfg, local, use_lsh,
+                                            mesh)
+        return metrics["loss"], metrics, grads
+
+    def accum_grads(params, batch: Dict):
+        if not microbatch:
+            loss, metrics, grads = one(params, batch)
+        else:
+            B = batch["tokens"].shape[0]
+            if B % microbatch:
+                raise ValueError(f"a batch of {B} rows does not split into "
+                                 f"microbatches of {microbatch}")
+            n = B // microbatch
+            loss = grads = None
+            for b in range(n):
+                rows = {k: v[b * microbatch:(b + 1) * microbatch]
+                        for k, v in batch.items()}
+                l, metrics, g = one(params, rows)
+                if grads is None:
+                    loss = torch.zeros((), dtype=torch.float32,
+                                       device=l.device)
+                    grads = [None if x is None else torch.zeros_like(
+                        x, dtype=torch.float32) for x in g]
+                loss = loss + l / n
+                for a, x in zip(grads, g):
+                    if x is not None:
+                        a.add_(x.to(torch.float32) / n)
+                del g         # free them before the next backward's
+        if collectives.group_size(world) > 1:
+            expert = sharding.expert_leaf_mask(params)
+            collectives.all_reduce_sum_(
+                [g for g, e in zip(grads, expert) if not e], world)
+        return loss, metrics, grads
+
+    return accum_grads
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
@@ -110,25 +185,19 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                     mesh=None):
     """Returns train_step(state, batch) -> (state, metrics); batch holds
     "tokens" and "labels" [B, S] integer tensors on the params' device,
-    the global batch (the same on every rank) when there is a mesh."""
-    if microbatch:
-        raise NotImplementedError(
-            "microbatched gradient accumulation is not ported (ROADMAP "
-            "Queue 1 item 5, the trainer)")
+    the global batch (the same on every rank) when there is a mesh, and
+    the chaos loss scale when a fault plan injects one."""
     if cfg.dp_only and sharding.num_ranks(mesh) > 1:
         return _make_dp_only_train_step(cfg, opt_cfg, mesh, use_lsh=use_lsh)
-    world = sharding.all_group(mesh)
+    accum_grads = make_accum_grad_fn(cfg, use_lsh=use_lsh,
+                                     microbatch=microbatch, mesh=mesh)
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
-        local = sharding.shard_batch(batch, mesh)
-        _, metrics, grads = _loss_and_grads(state, cfg, local, use_lsh,
-                                            mesh)
-        if collectives.group_size(world) > 1:
-            expert = sharding.expert_leaf_mask(state.params)
-            collectives.all_reduce_sum_(
-                [g for g, e in zip(grads, expert) if not e], world)
-        return apply_gradients(state, opt_cfg, metrics["loss"], metrics,
-                               grads, mesh=mesh)
+        batch, chaos_scale = split_chaos_scale(batch)
+        loss, metrics, grads = accum_grads(state.params, batch)
+        loss = apply_chaos_scale(loss, chaos_scale)
+        return apply_gradients(state, opt_cfg, loss, metrics, grads,
+                               mesh=mesh)
 
     return train_step
 
@@ -146,13 +215,27 @@ def _make_dp_only_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         return collectives.all_reduce_sum(t, world) / n
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
+        batch, chaos_scale = split_chaos_scale(batch)
         rows = sharding.dp_only_batch_slice(mesh, batch["tokens"].shape[0])
         local = {k: v[rows] for k, v in batch.items()}
-        loss, metrics, grads = _loss_and_grads(state, cfg, local, use_lsh,
-                                               None)
+        loss, metrics, grads = _loss_and_grads(state.params, cfg, local,
+                                               use_lsh, None)
         collectives.all_reduce_sum_(grads, world)
         grads = [None if g is None else g / n for g in grads]
         metrics = {k: mean(v) for k, v in metrics.items()}
-        return apply_gradients(state, opt_cfg, mean(loss), metrics, grads)
+        loss = apply_chaos_scale(mean(loss), chaos_scale)
+        return apply_gradients(state, opt_cfg, loss, metrics, grads)
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig, mesh=None):
+    def prefill_step(params, batch: Dict):
+        return model_lib.prefill(params, cfg, batch, mesh=mesh)
+    return prefill_step
+
+
+def make_decode_step(cfg: ModelConfig, mesh=None):
+    def decode_step(params, state: Dict, tokens: torch.Tensor):
+        return model_lib.decode_step(params, cfg, state, tokens, mesh=mesh)
+    return decode_step

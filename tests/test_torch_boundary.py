@@ -1,6 +1,7 @@
-"""The port's boundary: it imports neither JAX nor the JAX package, keeps
-the JAX package's config fields and defaults, and refuses to run on the
-CPU unless asked to."""
+"""The port's boundary: it imports neither JAX nor the JAX package, nor
+``msgpack`` or ``zstandard`` (the card's host has neither), keeps the JAX
+package's config fields and defaults, and refuses to run on the CPU
+unless asked to."""
 import ast
 import dataclasses
 import os
@@ -34,19 +35,20 @@ def _port_modules():
 
 def test_port_imports_no_jax():
     """Importing every port module (serve included) leaves neither jax nor
-    repro in sys.modules."""
+    repro, msgpack or zstandard in sys.modules."""
     mods = ["repro_torch"] + [m for m in _port_modules() if m != "repro_torch"]
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'repro'))\n"
+            "('jax', 'jaxlib', 'repro', 'msgpack', 'zstandard'))\n"
             "print('BAD', bad)\n"
             "sys.exit(1 if bad else 0)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
-    assert {"repro_torch.launch.serve", "repro_torch.launch.train"} <= set(mods)
+    assert {"repro_torch.launch.serve", "repro_torch.launch.train",
+            "repro_torch.checkpoint.checkpoint"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -63,7 +65,8 @@ def test_port_sources_import_no_jax(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), f"{path}: {name}"
+            assert top not in ("jax", "jaxlib", "repro", "msgpack",
+                               "zstandard"), f"{path}: {name}"
 
 
 def _fields(cls):

@@ -492,3 +492,37 @@ def test_cuda_fused_wire_ops_bitwise(h100, fmt, src_dtype, h, e, c):
         assert torch.equal(_bits(q), _bits(cq)) and torch.equal(s, cs)
         q2, s2 = fused_wire.dispatch_scatter_quantize(*dd, ne, nc, fmt)
         assert torch.equal(_bits(q2), _bits(q)) and torch.equal(s2, s)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_manager_round_trip_bitwise(h100, tmp_path):
+    """The smoke config's training state on the card, after one step (int8
+    moments), through CheckpointManager and back onto the card: every leaf
+    bit for bit, on the leaf's device (the step counter on the host)."""
+    from repro_torch.checkpoint.checkpoint import (CheckpointManager,
+                                                   _flatten, load_checkpoint)
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.runtime.step import (batch_to_device, init_train_state,
+                                          make_train_step)
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=4,
+                          moment_dtype="int8")
+    state = init_train_state(cfg, opt, seed=0, device=h100)
+    state, _ = make_train_step(cfg, opt)(state, batch_to_device(
+        SyntheticLMDataset(cfg.vocab_size, 32, 2).batch_at(0), h100))
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save_async(1, state)
+    mgr.wait()
+    fresh = init_train_state(cfg, opt, seed=1, device=h100)
+    got, step, _ = load_checkpoint(str(tmp_path), fresh)
+    assert step == 1
+    want = {k: v for k, v, _ in _flatten(state)}
+    for k, v, _ in _flatten(got):
+        w = want.pop(k)
+        assert v.device == w.device and v.dtype == w.dtype, k
+        if v.dtype == torch.bfloat16:
+            v, w = v.view(torch.int16), w.view(torch.int16)
+        assert torch.equal(v, w), k
+    assert not want

@@ -428,13 +428,17 @@ def test_train_cli_smoke_on_cpu(capsys):
     assert s["tokens_per_s"] > 0 and s["peak_memory_bytes"] is None
 
 
-def test_train_cli_rejects_flags_of_later_items():
-    # --mesh-data / --mesh-model are ported (test_torch_dist_train.py);
-    # a pipe axis is ROADMAP Queue 1 item 6
-    for flag in ("--ckpt", "--chaos", "--mesh-pipe", "--metrics-dir",
-                 "--profile"):
-        with pytest.raises(SystemExit):
-            train_cli.main(["--arch", ARCH, flag, "1"])
+@pytest.mark.parametrize("argv", [
+    ["--mesh-pipe", "2"], ["--pipeline-microbatches", "2"],
+    ["--profile", "1"], ["--anomaly-exit"]])
+def test_train_cli_rejects_flags_of_later_items(argv, capsys):
+    # --mesh-data / --mesh-model (test_torch_dist_train.py) and --ckpt,
+    # --chaos, --metrics-dir, --auto-restart (test_torch_trainer.py) are
+    # ported; a pipe axis is ROADMAP Queue 1 item 6, profiles and the
+    # anomaly monitor item 8
+    with pytest.raises(SystemExit):
+        train_cli.main(["--arch", ARCH, *argv])
+    assert f"unrecognized arguments: {argv[0]}" in capsys.readouterr().err
 
 
 def test_profile_summary_on_cpu():
