@@ -164,6 +164,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
               every kernel of the path launched; the full depth's prefill
               of 8 x 1024 tokens timed.  Checkpoints go to a directory of the
               checkout that is removed afterwards.
+ 12. obs    (a) launch/train.py in this process at the full config, LSH
+              on, 4 x 1024 tokens, 4 steps with --profile 2 --metrics-dir
+              (bf16 wire), then 3 steps with --profile 1 (int8 wire, the
+              config's wire_format replaced): each phase's measured device
+              ms, launches and share a step beside the modeled share;
+              every MoE phase measured above zero (with the bf16 wire on
+              one card the exchange is the identity, so its two phases
+              need only their ranges); the phases, other included, sum
+              to the trace's own kernel time within 0.5%; no launch of a
+              port kernel attributed to other.  (b) The full config, bf16
+              wire, obs off and on from one seed: 4 steps and one
+              profiled as phase train's profile is: losses and every
+              param bit-equal, obs off's kernels a step equal to the
+              training profile's (measured once more when they differ,
+              the differing events printed: a profile can miss some),
+              and obs on's surplus printed.  (c)
+              obs_compression_rate equal to the host's wire / raw bytes
+              (f32), and at 2 layers in f32 with the f32 wire the load
+              imbalance, drop fraction and slot occupancy of a step on the
+              card within 1e-6 of the CPU's.  (d) serve.py --bench-json
+              at the full config: a row validate_row accepts; its tokens/s
+              and p50 / p99 printed.  Files go to a directory of the
+              checkout that is removed afterwards.
 The line before the last is the kernels' JSON record (times at the
 training shape, int8 for the wire kernels; launches of the bf16-wire
 LSH-on training run for the routing and LSH kernels, of the int8 runs
@@ -187,9 +210,9 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 ARCH = "granite-moe-3b-a800m"
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
-FP32_OPS_PER_S = 67e12             # H100 SXM f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12            # H100 SXM bf16 tensor cores, dense
+# H100 SXM peak rates, read from repro_torch/hw.py by main(): device
+# memory, f32 outside the tensor cores, bf16 tensor cores (dense)
+HBM_BYTES_PER_S = FP32_OPS_PER_S = BF16_OPS_PER_S = None
 DUP_RTOL = 1e-6
 SUM_RTOL = 1e-6
 NEAR_TIE = 1e-5
@@ -315,9 +338,11 @@ def make_plan(torch, ref, T, k, E, C, H, *, skew, bad_frac, seed):
                 buf=buf, w=w, F=F, E=E, C=C, H=H)
 
 
-def _bound(bytes_moved, ops, ops_per_s=FP32_OPS_PER_S):
+def _bound(bytes_moved, ops, ops_per_s=None):
     """The least time for the work, in ms: the larger of the bytes over
-    the memory rate and the operations over the peak rate of their type."""
+    the memory rate and the operations over the peak rate of their type
+    (f32 unless ``ops_per_s`` says otherwise)."""
+    ops_per_s = ops_per_s or FP32_OPS_PER_S
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1513,6 +1538,7 @@ def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
     record["port_kernels_ms_per_step"] = _port_kernels(prof.key_averages(),
                                                        port_names)
     log("[train-profile] " + json.dumps(record, sort_keys=True))
+    record["kernel_names"] = _device_names(torch, prof)   # for phase obs
     del state
     return record, training_slot_sets(rec, cfg.num_layers)
 
@@ -2561,6 +2587,295 @@ def phase_resilience(torch, train, cfg, model_lib, step_lib, data_lib,
     return out
 
 
+# ---------------------------------------------------------------- 12. obs --
+
+OBS_STEPS, OBS_PROFILE = 4, 2
+MOE_PHASES = ("gate", "hash_compress", "dispatch_a2a", "expert_mlp",
+              "combine_a2a", "decompress")
+KERNEL_SUM_RTOL = 5e-3
+OBS_METRIC_ATOL = 1e-6
+
+
+def _port_kernel_name(event_name, names):
+    """The port's kernel a device event name is, or None."""
+    key = event_name.removeprefix("void ")
+    ns = "(anonymous namespace)::"
+    if not key.startswith(ns):
+        return None
+    name = re.split(r"[<(]", key[len(ns):])[0]
+    return name if name in names else None
+
+
+def obs_launcher(torch, train, registry, kernels, port_names, workdir,
+                 wire, steps, profiled):
+    """(a) launch/train.py with --profile in this process, LSH on, the
+    ``wire`` format: the measured phases of metrics.json, the MoE phases
+    non-zero (on one card the bf16 wire's exchange is the identity and
+    launches nothing, so its two all-to-all phases hold only their
+    ranges; the int8 wire's hold the codec), their sum against the
+    trace's own kernel time, no port kernel in ``other``.  Returns
+    metrics.json."""
+    from repro_torch.launch.profile_phases import wire_format
+    from repro_torch.obs import profile as obs_profile
+    d = workdir / f"train-{wire}"
+    argv = TRAIN_ARGV + ["--lsh", "on", "--steps", str(steps),
+                         "--profile", str(profiled), "--metrics-dir",
+                         str(d)]
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    with wire_format(registry, wire), contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    t_run = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"train.main --profile returned {rc}")
+    tag = f"[obs] {wire}"
+    for line in buf.getvalue().splitlines():
+        if line.startswith("[drift]") or line.startswith("error"):
+            log(f"{tag} {line}")
+    with open(d / "metrics.json") as f:
+        m = json.load(f)
+    t0 = time.perf_counter()
+    trace_file = d / "torch_trace" / "rank0.pt.trace.json"
+    with open(trace_file) as f:
+        trace = json.load(f)
+    t_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    parsed = obs_profile.parse_trace_events(trace, steps=profiled)
+    t_parse = time.perf_counter() - t0
+    evs = trace["traceEvents"]
+    kernel_s = sum(float(e["dur"]) for e in evs if e.get("ph") == "X"
+                   and e.get("cat") in obs_profile.DEVICE_CATS) \
+        * 1e-6 / profiled
+    ranges = {p: sum(1 for e in evs if e.get("cat") == "user_annotation"
+                     and e.get("name") == f"obs/{p}") / profiled
+              for p in MOE_PHASES}
+    del trace, evs
+    log(f"{tag} launcher: {steps} steps, {profiled} profiled, full depth; "
+        f"run {t_run:.1f} s (the trace's export included), trace "
+        f"{trace_file.stat().st_size / 1e6:.1f} MB, load {t_load:.1f} s, "
+        f"parse {t_parse:.1f} s; kernel launches "
+        f"{ {k.name: k.launches for k in kernels if k.launches} }; "
+        f"phase ranges a step {ranges}")
+    if not m.get("measured_on_device"):
+        raise AssertionError("metrics.json holds no measured device phases")
+    total = 0.0
+    for p in obs_profile.PHASE_ORDER:
+        sec = m.get(f"measured_{p}_s", 0.0)
+        total += sec
+        log(f"{tag} phase {p:15s} measured {sec * 1e3:10.3f} ms/step "
+            f"{m.get(f'measured_{p}_launches', 0.0):8.1f} launches/step  "
+            f"share {sec / m['measured_step_s']:.4f}  modeled share "
+            f"{m.get(f'weight_{p}', 0.0):.4f}")
+    log(f"{tag} measured step {m['measured_step_s'] * 1e3:.3f} ms of device "
+        f"time, trace kernel time {kernel_s * 1e3:.3f} ms/step; other share "
+        f"{m.get('measured_other_s', 0.0) / m['measured_step_s']:.4f}; "
+        f"comm share measured {m['measured_comm_share']:.6f} modeled "
+        f"{m['comm_share']:.6f}; drift score {m.get('model_drift_score')}, "
+        f"clock ratio {m.get('model_clock_ratio')}")
+    top_other = sorted(parsed.other_names.items(), key=lambda kv: -kv[1])
+    log(f"{tag} other's most frequent device events: {top_other[:6]}")
+    need = MOE_PHASES if wire != "bf16" else tuple(
+        p for p in MOE_PHASES if p not in ("dispatch_a2a", "combine_a2a"))
+    zero = [p for p in need if not m.get(f"measured_{p}_s", 0.0) > 0]
+    if zero or not all(ranges.values()):
+        raise AssertionError(f"MoE phases with no measured time {zero} or "
+                             f"no range {ranges}")
+    if abs(total - kernel_s) > KERNEL_SUM_RTOL * kernel_s:
+        raise AssertionError(f"phases sum to {total} s a step, the trace's "
+                             f"kernels to {kernel_s} s")
+    in_other = {}
+    for name, n in parsed.other_names.items():
+        k = _port_kernel_name(name, port_names)
+        if k is not None:
+            in_other[k] = in_other.get(k, 0) + n
+    if in_other:
+        raise AssertionError(f"port kernels attributed to other: {in_other}")
+    return m
+
+
+def _device_names(torch, prof):
+    """How many device events (kernels, copies, sets) of each name a
+    profile holds."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    return Counter(e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+
+
+def obs_on_off(torch, cfg, step_lib, data_lib, summarize, steps=4,
+               settings=(False, True)):
+    """(b) The full config, bf16 wire, LSH on, 4 x 1024 tokens, from the
+    same seed with obs off and on: ``steps`` steps, then one step under
+    torch.profiler as phase train's profile takes it (the batch's copy to
+    the card inside, the same optimizer).  Returns {obs: (losses,
+    params, kernels per step, the last step's scalar metrics, the device
+    events by name)}."""
+    import dataclasses
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.base import ObsConfig, OptimizerConfig
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=8)
+    ds = data_lib.SyntheticLMDataset(cfg.vocab_size, 1024, 4)
+    dev = torch.device("cuda")
+    out = {}
+    for on in settings:
+        c = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, obs=ObsConfig(enabled=on)))
+        state = step_lib.init_train_state(c, opt, seed=0, device=dev)
+        step_fn = step_lib.make_train_step(c, opt)
+        losses = []
+        for s in range(steps):
+            state, m = step_fn(state, step_lib.batch_to_device(
+                ds.batch_at(s), dev))
+            losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, m = step_fn(state, step_lib.batch_to_device(
+                ds.batch_at(steps), dev))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+        rec, _ = summarize(prof, 1, 1.0, top=1)
+        params = [p.detach().clone() for p in step_lib.leaves(state.params)]
+        out[on] = (losses, params, rec["device_kernels_per_step"],
+                   {k: float(v) for k, v in m.items() if v.ndim == 0},
+                   _device_names(torch, prof))
+        del state, step_fn, prof
+        torch.cuda.empty_cache()
+    return out
+
+
+def obs_parity_metrics(torch, cfg_full, model_lib, step_lib):
+    """(c) 2 layers at full width, f32, the f32 wire, obs on: one train
+    step on the card and on the CPU from the same params and batch; the
+    in-graph metrics within OBS_METRIC_ATOL."""
+    import dataclasses
+
+    from repro_torch.configs.base import ObsConfig, OptimizerConfig
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    cfg = with_wire(cfg_full.replace(num_super_blocks=2, dtype="float32"),
+                    wire_dtype="float32", wire_format="bf16")
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe,
+                                              obs=ObsConfig(enabled=True)))
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=10, total_steps=100)
+    batch = SyntheticLMDataset(cfg.vocab_size, 64, 2).batch_at(0)
+    cpu = torch.device("cpu")
+    params_cpu = model_lib.init_params(cfg, seed=5, device=cpu)
+    got = {}
+    for dev in (torch.device("cuda"), cpu):
+        params = tree_to(params_cpu, dev) if dev.type == "cuda" \
+            else params_cpu
+        state = step_lib.TrainState(params, step_lib.adamw_init(params, opt))
+        _, m = step_lib.make_train_step(cfg, opt)(
+            state, step_lib.batch_to_device(batch, dev))
+        got[dev.type] = {k: float(v) for k, v in m.items()
+                         if k.startswith("obs_")}
+    return got
+
+
+def phase_obs(torch, train, serve, registry, cfg, model_lib, step_lib,
+              data_lib, clustering, moe_lib, summarize, kernels, port_names,
+              train_profile):
+    """Phase obs: (a) the launcher's --profile, (b) obs off against on,
+    (c) the in-graph metrics, (d) serve --bench-json."""
+    import shutil
+
+    from repro_torch.obs import benchrow
+    workdir = ROOT / f".obs-{os.getpid()}"
+    workdir.mkdir()
+    try:
+        m = obs_launcher(torch, train, registry, kernels, port_names,
+                         workdir, "bf16", OBS_STEPS, OBS_PROFILE)
+        torch.cuda.empty_cache()
+        obs_launcher(torch, train, registry, kernels, port_names, workdir,
+                     "int8", 3, 1)
+        torch.cuda.empty_cache()
+
+        runs = obs_on_off(torch, cfg, step_lib, data_lib, summarize)
+        (l_off, p_off, k_off, _, n_off), (l_on, p_on, k_on, m_on, _) = \
+            runs[False], runs[True]
+        same = [_same_bits(torch, a, b) for a, b in zip(p_off, p_on)]
+        want = train_profile["device_kernels_per_step"]
+        log(f"[obs] obs off {l_off} obs on {l_on}; params bit-equal "
+            f"{sum(same)}/{len(same)}; kernels per step off {k_off} on "
+            f"{k_on} (obs adds {k_on - k_off}); the training profile's "
+            f"{want}")
+        if l_off != l_on or not all(same):
+            raise AssertionError("obs on changed the losses or the params")
+        del p_off, p_on, runs
+        if k_off != want:
+            # a profile of 30 thousand device events can lose some; the
+            # obs-off step is measured once more, as before
+            names = train_profile["kernel_names"]
+            diff = {n: n_off[n] - names[n] for n in set(n_off) | set(names)
+                    if n_off[n] != names[n]}
+            _, _, k_off, _, _ = obs_on_off(torch, cfg, step_lib, data_lib,
+                                           summarize, settings=(False,))[
+                                               False]
+            log(f"[obs] kernels differing by name {diff}; obs off again: "
+                f"{k_off} kernels a step")
+        if k_off != want:
+            raise AssertionError(f"obs off runs {k_off} kernels a step, the "
+                                 f"training profile {want}")
+        torch.cuda.empty_cache()
+
+        # (c) the Eq. 5 rate from the host's byte counts, in f32 as the
+        # in-graph counters add them
+        moe = cfg.moe
+        n_moe = cfg.num_layers
+        cap = moe_lib.expert_capacity(4 * 1024, moe.num_experts, moe.top_k,
+                                      moe.capacity_factor)
+        slots = moe_lib.num_lsh_slots(cap, moe.lsh.compression_rate)
+        wire = clustering.wire_bytes(moe.num_experts, slots, cfg.d_model,
+                                     moe.lsh.wire_format,
+                                     wire_dtype=torch.bfloat16)
+        raw = moe.num_experts * cap * cfg.d_model * 2
+        want = float(torch.tensor(2.0 * wire * n_moe, dtype=torch.float32)
+                     / torch.tensor(2.0 * raw * n_moe, dtype=torch.float32))
+        log(f"[obs] obs_compression_rate {m['obs_compression_rate']} "
+            f"(the launcher), {m_on['obs_compression_rate']} (full depth), "
+            f"host wire / raw bytes {want} ({wire} / {raw} a leg); "
+            f"load imbalance {m['obs_load_imbalance']}, drop fraction "
+            f"{m['obs_drop_fraction']}, slot occupancy "
+            f"{m['obs_slot_occupancy']}")
+        if m["obs_compression_rate"] != want \
+                or m_on["obs_compression_rate"] != want:
+            raise AssertionError("obs_compression_rate is not the host's "
+                                 "wire / raw bytes")
+        got = obs_parity_metrics(torch, cfg, model_lib, step_lib)
+        log(f"[obs] 2 layers f32, f32 wire: cuda {got['cuda']} cpu "
+            f"{got['cpu']}")
+        bad = {k: (got["cuda"][k], got["cpu"][k]) for k in (
+            "obs_load_imbalance", "obs_drop_fraction", "obs_slot_occupancy")
+            if abs(got["cuda"][k] - got["cpu"][k]) > OBS_METRIC_ATOL}
+        if bad:
+            raise AssertionError(f"in-graph metrics, card against CPU: {bad}")
+
+        # (d) serve --bench-json at the full config
+        d = workdir / "bench"
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(["--arch", ARCH, "--bench-json", str(d),
+                             "--bench-name", "serve_h100"])
+        if rc != 0:
+            raise AssertionError(f"serve.main --bench-json returned {rc}")
+        rows = benchrow.load_rows(str(benchrow.bench_file(str(d),
+                                                          "serve_h100")))
+        if len(rows) != 1:
+            raise AssertionError(f"bench file holds {len(rows)} valid rows")
+        benchrow.validate_row(rows[0], name="serve_h100")
+        r = rows[0]["metrics"]
+        log(f"[obs] serve bench row: tokens/s {r['tokens_per_s']}, p50 "
+            f"{r['latency_p50_s']} s, p99 {r['latency_p99_s']} s; context "
+            f"{rows[0]['context']}")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 # -------------------------------------------------------------- main --
 
 def main() -> int:
@@ -2574,7 +2889,12 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     import torch.distributed
+    from repro_torch import hw
+    global HBM_BYTES_PER_S, FP32_OPS_PER_S, BF16_OPS_PER_S
+    HBM_BYTES_PER_S, FP32_OPS_PER_S, BF16_OPS_PER_S = (
+        hw.HBM_BYTES_PER_S, hw.FP32_FLOPS, hw.DEVICE_FLOPS)
     from repro_torch.comm import collectives
+    from repro_torch.configs import registry
     from repro_torch.configs.registry import get_config
     from repro_torch.core import clustering, hashing
     from repro_torch.core import moe as moe_lib
@@ -2617,7 +2937,7 @@ def main() -> int:
                           dispatch.WIRE_KERNELS)
     torch.cuda.empty_cache()
     port_names = port_kernel_names(build)
-    _, slot_sets = phase_train_profile(
+    train_profile, slot_sets = phase_train_profile(
         torch, cfg, step_lib, synthetic, summarize, port_names,
         lambda: spy_centroid_slots(dispatch, segment_centroid))
     torch.cuda.empty_cache()
@@ -2647,6 +2967,11 @@ def main() -> int:
     phase_resilience(torch, train, cfg, model_lib, step_lib, synthetic,
                      clustering, lsh_hash, kernels, routing_k + lsh_k)
     log(f"[time] resilience done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    phase_obs(torch, train, serve, registry, cfg, model_lib, step_lib,
+              synthetic, clustering, moe_lib, summarize, kernels,
+              port_names, train_profile)
+    log(f"[time] obs done at {time.time() - t_start:.1f} s")
 
     # launches of the main path's runs: the bf16 wire with LSH on for the
     # routing and LSH kernels, the int8 wire with LSH on for the kernels

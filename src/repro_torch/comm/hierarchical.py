@@ -25,9 +25,10 @@ from __future__ import annotations
 from typing import Callable, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.comm import collectives
+from repro_torch.obs import tracing as obs_tracing
+from repro_torch.obs.tracing import phase_scope
 
 
 def intra_groups(r: int, intra: int):
@@ -88,10 +89,10 @@ def hierarchical_all_to_all(x: torch.Tensor, groups: Tuple) -> torch.Tensor:
 def hierarchical_moe_exchange(send: torch.Tensor, compute_fn: Callable,
                               groups: Tuple) -> torch.Tensor:
     """dispatch -> compute_fn -> combine, both legs over the 2-hop, under
-    the profiler ranges "dispatch" and "combine"; send [R, e_local, c,
-    H], compute_fn keeps that shape."""
-    with record_function("dispatch"):
+    the dispatch_a2a and combine_a2a phase ranges (obs/tracing.py); send
+    [R, e_local, c, H], compute_fn keeps that shape."""
+    with phase_scope(obs_tracing.PH_DISPATCH):
         recv = hierarchical_all_to_all(send, groups)
     out = compute_fn(recv)
-    with record_function("combine"):
+    with phase_scope(obs_tracing.PH_COMBINE):
         return hierarchical_all_to_all(out, groups)

@@ -31,9 +31,10 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.comm import wire as wire_lib
+from repro_torch.obs import tracing as obs_tracing
+from repro_torch.obs.tracing import phase_scope
 
 
 def _check_divides(chunks: int, extent: int) -> None:
@@ -75,27 +76,28 @@ def pipelined_moe_exchange(send: torch.Tensor, compute_fn: Callable, group,
     """dispatch -> compute_fn -> combine of send [R, e_local, c, H],
     pipelined over ``chunks`` slot chunks; compute_fn maps a received
     chunk [R, e_local, c / K, H] to the same shape.  ``transfer`` is the
-    leg (default: the flat all-to-all of the tensor as it is)."""
+    leg (default: the flat all-to-all of the tensor as it is).  Each
+    chunk's issue and wait (its decode, with a codec) run under the
+    dispatch_a2a or combine_a2a phase range (obs/tracing.py)."""
     leg = transfer if transfer is not None else wire_lib.RawLeg(group)
     if chunks <= 1:
-        with record_function("dispatch"):
+        with phase_scope(obs_tracing.PH_DISPATCH):
             recv = leg(send)
         out = compute_fn(recv)
-        with record_function("combine"):
+        with phase_scope(obs_tracing.PH_COMBINE):
             return leg(out)
-    parts = _split(send, chunks, chunk_axis)
-    with record_function("dispatch"):
+    with phase_scope(obs_tracing.PH_DISPATCH):
+        parts = _split(send, chunks, chunk_axis)
         inflight = leg.start(parts[0])
     combines = []
     for k in range(1, chunks + 1):
-        nxt = None
-        if k < chunks:
-            with record_function("dispatch"):
-                nxt = leg.start(parts[k])      # chunk k in flight ...
-        recv = inflight.wait()                 # ... while k - 1 computes
+        with phase_scope(obs_tracing.PH_DISPATCH):
+            # chunk k in flight while chunk k - 1 computes
+            nxt = leg.start(parts[k]) if k < chunks else None
+            recv = inflight.wait()
         out = compute_fn(recv)
-        with record_function("combine"):
+        with phase_scope(obs_tracing.PH_COMBINE):
             combines.append(leg.start(out))
         inflight = nxt
-    with record_function("combine"):
+    with phase_scope(obs_tracing.PH_COMBINE):
         return torch.cat([h.wait() for h in combines], dim=chunk_axis)

@@ -36,7 +36,6 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.comm import collectives
 from repro_torch.comm import topology as topo_lib
@@ -48,6 +47,8 @@ from repro_torch.comm.pipeline import (pipelined_all_to_all,
 from repro_torch.comm.topology import Topology, build_topology
 from repro_torch.configs.base import CommConfig
 from repro_torch.obs import events as obs_events
+from repro_torch.obs import tracing as obs_tracing
+from repro_torch.obs.tracing import phase_scope
 from repro_torch.runtime import sharding
 
 FLAT = "flat"
@@ -177,7 +178,8 @@ class CommPlan:
         tensor (or slot chunk, pipelined) to the same shape.  With a
         codec each leg encodes in transit (comm/wire.py), each chunk on
         its own when pipelined; without one the tensor moves as is.  The
-        legs run under the profiler ranges "dispatch" and "combine"."""
+        legs run under the dispatch_a2a and combine_a2a phase ranges
+        (obs/tracing.py), in every transport."""
         if self.transport == PIPELINED:
             return pipelined_moe_exchange(
                 send, compute_fn, self.group, self.chunks,
@@ -194,10 +196,10 @@ class CommPlan:
         else:
             def leg(v):
                 return collectives.all_to_all(v, self.group)
-        with record_function("dispatch"):
+        with phase_scope(obs_tracing.PH_DISPATCH):
             recv = leg(send)
         out = compute_fn(recv)
-        with record_function("combine"):
+        with phase_scope(obs_tracing.PH_COMBINE):
             return leg(out)
 
     # -- diagnostics -------------------------------------------------------

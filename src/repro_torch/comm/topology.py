@@ -29,10 +29,11 @@ import os
 from dataclasses import dataclass, field
 from typing import Tuple
 
+from repro_torch import hw
+
 # Link constants (bytes/s, s).  Priors; the calibrated model replaces them.
-# NVLink 4 of the H100 SXM: 900 GB/s per GPU in both directions together
-# (NVIDIA H100 Tensor Core GPU datasheet), so 450 GB/s each way.
-DEFAULT_INTRA_BW = 4.5e11
+# NVLink 4 of the H100 SXM, 450 GB/s each way (hw.py).
+DEFAULT_INTRA_BW = hw.NVLINK_BYTES_PER_S
 # One NDR InfiniBand port a GPU (NVIDIA ConnectX-7 datasheet: 400 Gb/s),
 # 50 GB/s each way.
 DEFAULT_INTER_BW = 5.0e10

@@ -5,9 +5,10 @@ The port keeps its own copy because importing ``repro`` pulls in JAX
 names and defaults against the JAX package's.
 
 Fields that select JAX-side machinery (``MoEConfig.kernel_backend``,
-``kernel_backend_overrides``, ``kernel_tiles``, ``comm``, ``obs``, remat and
-chunking knobs) are carried for parity and are not read by the port: its
-kernels are chosen by the device a tensor lives on (kernels/dispatch.py).
+``kernel_backend_overrides``, ``kernel_tiles``) are carried for parity and
+are not read by the port: its kernels are chosen by the device a tensor
+lives on (kernels/dispatch.py).  ``ObsConfig`` turns on the in-graph
+metrics and the phase ranges of the MoE layer (obs/).
 """
 from __future__ import annotations
 
@@ -50,6 +51,10 @@ class CommConfig:
 
 @dataclass(frozen=True)
 class ObsConfig:
+    """Observability of the MoE layer (obs/): off by default, and then the
+    step runs no op and no collective of it.  ``metrics``: the in-graph
+    ``MetricBag`` (obs_* step metrics); ``phases``: the
+    ``record_function`` ranges of the paper's phases (obs/tracing.py)."""
     enabled: bool = False
     metrics: bool = True
     phases: bool = True
@@ -196,6 +201,19 @@ def param_count(cfg: ModelConfig) -> int:
                                       + (n_q * dh) * h + h)
         total += enc + dec_cross
     return total
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active params per token (a MoE layer counts only top_k experts)."""
+    if not cfg.has_moe():
+        return param_count(cfg)
+    n_mat = 3 if cfg.mlp_act == "swiglu" else 2
+    per_expert = n_mat * cfg.d_model * cfg.moe.expert_ffn_dim
+    n_moe_layers = sum(1 for _, f in cfg.layout if f == MOE) \
+        * cfg.num_super_blocks
+    inactive = n_moe_layers * (cfg.moe.num_experts - cfg.moe.top_k) \
+        * per_expert
+    return param_count(cfg) - inactive
 
 
 @dataclass(frozen=True)

@@ -33,7 +33,6 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch.profiler import record_function
 
 from repro_torch.comm import collectives
 from repro_torch.comm import planner as comm_planner
@@ -43,6 +42,9 @@ from repro_torch.core import clustering, routing
 from repro_torch.core.gating import gating_losses, top_k_gating
 from repro_torch.kernels.wire_quant import QUANT_FORMATS
 from repro_torch.models.layers import activation
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import tracing as obs_tracing
+from repro_torch.obs.tracing import phase_scope
 from repro_torch.runtime import sharding
 
 
@@ -91,11 +93,12 @@ def _experts_fn(weights, mlp_act: str, dtype: torch.dtype,
     wg, wu, wd = weights
 
     def expert_chunk(recv: torch.Tensor) -> torch.Tensor:
-        r, el, c, h = recv.shape
-        tok = recv.transpose(0, 1).reshape(el, r * c, h)
-        out = _expert_mlp(tok.to(dtype), wg, wu, wd, mlp_act)
-        out = out.reshape(el, r, c, h).transpose(0, 1)
-        return out if out_dtype is None else out.to(out_dtype)
+        with phase_scope(obs_tracing.PH_EXPERT):
+            r, el, c, h = recv.shape
+            tok = recv.transpose(0, 1).reshape(el, r * c, h)
+            out = _expert_mlp(tok.to(dtype), wg, wu, wd, mlp_act)
+            out = out.reshape(el, r, c, h).transpose(0, 1)
+            return out if out_dtype is None else out.to(out_dtype)
     return expert_chunk
 
 
@@ -186,20 +189,22 @@ def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
                mlp_act: str, e_pad: int, capacity: int, use_lsh: bool,
                lsh_slots: int, wire_dtype: torch.dtype,
                codec: Optional[wire_lib.WireCodec],
-               cplan: comm_planner.CommPlan, mesh
-               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
-                          torch.Tensor]:
-    """The JAX ``_local_moe``, in its order of casts.  x: [B_loc, S_loc,
-    H] -> (y, aux, z, load), the stats reduced over every rank."""
+               cplan: comm_planner.CommPlan, mesh, with_obs: bool = False
+               ) -> Tuple[torch.Tensor, ...]:
+    """The JAX ``_local_moe``, in its order of casts and phases.  x:
+    [B_loc, S_loc, H] -> (y, aux, z, load), the stats reduced over every
+    rank; ``with_obs`` adds the slot occupancy and the drop fraction,
+    averaged over every rank (the MetricBag's inputs, obs/metrics.py)."""
     R = sharding.axis_size(mesh, "model")
     e_local = e_pad // R
     B, S, H = x.shape
     T = B * S
     xf = x.reshape(T, H)
-    gate = top_k_gating(xf, params["router_w"], cfg.top_k,
-                        params["placement"])
-    plan = routing.build_dispatch_plan(gate.expert_ids, gate.weights, e_pad,
-                                       capacity)
+    with phase_scope(obs_tracing.PH_GATE):
+        gate = top_k_gating(xf, params["router_w"], cfg.top_k,
+                            params["placement"])
+        plan = routing.build_dispatch_plan(gate.expert_ids, gate.weights,
+                                           e_pad, capacity)
     # Fused codec path: a quantized wire whose leaves move whole, the codec
     # inside the routing kernels (kernels/fused_wire.py).  The pipelined
     # transport keeps the per-chunk coded path (it slices the float tensor
@@ -210,12 +215,14 @@ def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
              and wire_lib.fused_wire_enabled())
 
     if use_lsh:
-        disp = routing.dispatch_tokens(plan, xf).to(x.dtype)
-        comp = clustering.compress(disp, plan.occupancy, params["lsh_rot"],
-                                   lsh_slots, cfg.lsh.hash_type,
-                                   cfg.lsh.error_compensation,
-                                   wire_format=cfg.lsh.wire_format,
-                                   wire_dtype=wire_dtype)
+        with phase_scope(obs_tracing.PH_COMPRESS):
+            disp = routing.dispatch_tokens(plan, xf).to(x.dtype)
+            comp = clustering.compress(disp, plan.occupancy,
+                                       params["lsh_rot"], lsh_slots,
+                                       cfg.lsh.hash_type,
+                                       cfg.lsh.error_compensation,
+                                       wire_format=cfg.lsh.wire_format,
+                                       wire_dtype=wire_dtype)
         wire, c_wire = comp.centroids, lsh_slots
     elif codec is not None:
         # the coded baseline (int8 / fp8 with LSH off): the f32 dispatch
@@ -236,7 +243,7 @@ def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
     if fused and use_lsh:
         # dispatch leg: the payload compress() encoded; combine leg: the
         # decode fused with decompress on the received payload
-        with record_function("dispatch"):
+        with phase_scope(obs_tracing.PH_DISPATCH):
             recv = wire_lib.precoded_transfer(
                 wire.reshape(R, e_local, c_wire, H),
                 comp.payload.reshape(R, e_local, c_wire, H),
@@ -244,21 +251,22 @@ def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
                 bwd_leaf)
         eo = expert_chunk(recv)
         slots, base, residual = clustering.fused_decompress_operands(comp)
-        with record_function("combine"):
+        with phase_scope(obs_tracing.PH_COMBINE):
             out_tok = wire_lib.fused_decode_residual_transfer(
                 eo, slots, base, residual, codec, fwd_leaf, bwd_leaf)
-        y = routing.combine_tokens(plan, out_tok)
+        with phase_scope(obs_tracing.PH_DECOMPRESS):
+            y = routing.combine_tokens(plan, out_tok)
     elif fused:
         # both legs inside the routing kernels: scatter + quantize out,
         # dequantize + gather back
         src = torch.repeat_interleave(xf, cfg.top_k, dim=0)
-        with record_function("dispatch"):
+        with phase_scope(obs_tracing.PH_DISPATCH):
             recv = wire_lib.fused_dispatch_transfer(
                 plan.flat_ids, plan.positions, src, codec, fwd_leaf,
                 bwd_leaf, R, e_pad, capacity)
         eo = expert_chunk(recv)
         w_flat = plan.weights.reshape(T * cfg.top_k).to(torch.float32)
-        with record_function("combine"):
+        with phase_scope(obs_tracing.PH_COMBINE):
             y_f = wire_lib.fused_combine_transfer(
                 eo, plan.flat_ids, plan.positions, w_flat, codec, fwd_leaf,
                 bwd_leaf, R)
@@ -269,15 +277,24 @@ def _local_moe(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
         ret = cplan.moe_exchange(wire.reshape(R, e_local, c_wire, H),
                                  expert_chunk, codec=codec)
         out_tok = ret.reshape(e_pad, c_wire, H).to(torch.float32)
-        if use_lsh:
-            out_tok = clustering.decompress(out_tok, comp)
-        y = routing.combine_tokens(plan, out_tok)
+        with phase_scope(obs_tracing.PH_DECOMPRESS):
+            if use_lsh:
+                out_tok = clustering.decompress(out_tok, comp)
+            y = routing.combine_tokens(plan, out_tok)
     losses = gating_losses(gate, params["placement"])
     world = sharding.all_group(mesh)
-    return (y.reshape(x.shape).to(x.dtype),
-            collectives.all_reduce_mean(losses.aux_loss, world),
-            collectives.all_reduce_mean(losses.z_loss, world),
-            collectives.all_reduce_sum(plan.load(), world))
+    out = (y.reshape(x.shape).to(x.dtype),
+           collectives.all_reduce_mean(losses.aux_loss, world),
+           collectives.all_reduce_mean(losses.z_loss, world),
+           collectives.all_reduce_sum(plan.load(), world))
+    if not with_obs:
+        return out
+    with torch.no_grad():
+        occ = (comp.counts > 0).to(torch.float32).mean() if use_lsh \
+            else torch.zeros((), dtype=torch.float32, device=x.device)
+        return out + (collectives.all_reduce_mean(occ, world),
+                      collectives.all_reduce_mean(plan.drop_fraction(),
+                                                  world))
 
 
 def moe_expert_parallel(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
@@ -312,14 +329,52 @@ def moe_expert_parallel(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
         wire_fmt, wire_dtype=wire_dtype, compute_dtype=x.dtype)
     # one resolution a layer call; the message size is the true wire
     # bytes, scales sidecar included
+    wire_per_leg = clustering.wire_bytes(e_pad, c_wire, H, wire_fmt,
+                                         wire_dtype=wire_dtype)
     cplan = comm_planner.plan_collectives(
-        mesh, cfg.comm, axis_name="model",
-        msg_bytes=clustering.wire_bytes(e_pad, c_wire, H, wire_fmt,
-                                        wire_dtype=wire_dtype),
+        mesh, cfg.comm, axis_name="model", msg_bytes=wire_per_leg,
         chunk_extent=c_wire) if mesh is not None \
         else comm_planner.flat_plan()
-    y, aux, z, load = _local_moe(
-        x, params, cfg, mlp_act=mlp_act, e_pad=e_pad, capacity=capacity,
-        use_lsh=use_lsh, lsh_slots=c_wire if use_lsh else 0,
-        wire_dtype=wire_dtype, codec=codec, cplan=cplan, mesh=mesh)
-    return y, {"aux_loss": aux, "z_loss": z, "expert_load": load}
+    obs_on = cfg.obs.in_graph_metrics
+    with obs_tracing.activate(cfg.obs.phase_tracing):
+        out = _local_moe(
+            x, params, cfg, mlp_act=mlp_act, e_pad=e_pad,
+            capacity=capacity, use_lsh=use_lsh,
+            lsh_slots=c_wire if use_lsh else 0, wire_dtype=wire_dtype,
+            codec=codec, cplan=cplan, mesh=mesh, with_obs=obs_on)
+    y, aux, z, load = out[:4]
+    stats = {"aux_loss": aux, "z_loss": z, "expert_load": load}
+    if obs_on:
+        stats["comm"] = _metric_bag(out[4], out[5], load, cfg, cplan,
+                                    wire_fmt, wire_per_leg,
+                                    e_pad * capacity * H * x.element_size())
+    return y, stats
+
+
+def _metric_bag(occ: torch.Tensor, dropf: torch.Tensor, load: torch.Tensor,
+                cfg: MoEConfig, cplan: comm_planner.CommPlan,
+                wire_fmt: Optional[str], wire_per_leg: int,
+                raw_per_leg: int) -> obs_metrics.MetricBag:
+    """The layer's MetricBag (JAX ``moe_expert_parallel``): both legs'
+    wire bytes (scales sidecar included) against the uncompressed
+    dispatch buffer's, the load imbalance over the real experts, the drop
+    fraction, the slot occupancy and the resolved plan.  The host-known
+    values go to the device in one copy."""
+    with torch.no_grad():
+        real = load[:cfg.num_experts].to(torch.float32)
+        known = torch.tensor(
+            [2.0 * wire_per_leg, 2.0 * raw_per_leg,
+             comm_planner.ALGORITHMS.index(cplan.algorithm),
+             int(cplan.degraded), int(cplan.calibrated),
+             comm_planner.WIRE_FORMAT_IDS.get(wire_fmt, -1)],
+            dtype=torch.float32).to(load.device)
+        values = dict(zip(("wire_bytes", "raw_bytes", "comm_algorithm",
+                           "comm_degraded", "comm_calibrated",
+                           "comm_wire_format"), known.unbind()))
+        values.update(
+            load_imbalance=torch.max(real)
+            / torch.clamp(torch.mean(real), min=1e-9),
+            drop_fraction=dropf, slot_occupancy=occ)
+        return obs_metrics.MetricBag(
+            obs_metrics.MOE_SCHEMA,
+            [values[name] for name, _ in obs_metrics.MOE_SCHEMA])

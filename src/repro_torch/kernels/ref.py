@@ -80,9 +80,14 @@ def lsh_hash_ref(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
     """x: [T, H]; rotations: [L, H, Dr] -> [T, L] int32 cross-polytope
     vertex ids 2 * argmax|v| + (v[argmax] < 0), v = x . R_l in f32.  Ties
     go to the first index (``torch.argmax`` and ``jnp.argmax`` agree), the
-    sign is that element's; an all-zero row gives vertex 0."""
-    v = torch.einsum("th,lhd->tld", x.to(torch.float32),
-                     rotations.to(torch.float32))
+    sign is that element's; an all-zero row gives vertex 0.  On the CPU
+    the products are summed in f64 and rounded to f32: MKL sums the
+    columns of one product in different orders once it runs 3 or more
+    threads, which breaks exact ties between equal or negated columns of
+    R; the f64 sums of such columns round to the same f32."""
+    acc = torch.float64 if x.device.type == "cpu" else torch.float32
+    v = torch.einsum("th,lhd->tld", x.to(acc),
+                     rotations.to(acc)).to(torch.float32)
     idx = torch.argmax(torch.abs(v), dim=-1)
     sign = torch.gather(v, -1, idx[..., None])[..., 0] < 0
     return (2 * idx + sign.to(idx.dtype)).to(torch.int32)

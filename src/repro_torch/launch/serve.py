@@ -7,18 +7,24 @@ batches of ``--batch-slots`` requests.
 
 Runs on the CUDA device unless ``--device cpu``.  Latency is per request,
 arrival -> completion, with every request arriving at t0 (so it includes
-queueing behind earlier batches), as the JAX launcher defines it.  Prints
-one JSON line per request (``serve_request``) and a final ``serve_summary``
-line with requests, tokens, tokens/s and p50/p99 latency; ``--metrics-dir
-DIR`` appends the same lines to ``DIR/events.jsonl``.
+queueing behind earlier batches), as the JAX launcher defines it.  The
+events go through obs/events.py: one JSON line per request
+(``serve_request``) and a final ``serve_summary`` line with requests,
+tokens, tokens/s and p50/p99 latency, printed; ``--metrics-dir DIR``
+appends them to ``DIR/events.jsonl``.  ``--bench-json DIR`` appends a
+``serve`` row (p50 / p99 latency, tokens/s per device) to
+``DIR/BENCH_<--bench-name>.json`` (obs/benchrow.py), which the JAX
+package's ``load_rows`` reads too.
 """
 from __future__ import annotations
 
 import argparse
-import json
 import os
+import sys
 import time
-from typing import Callable, List
+from typing import List
+
+_JSON_KINDS = ("serve_request", "serve_summary")
 
 
 def _percentile(sorted_vals: List[float], q: float) -> float:
@@ -28,17 +34,6 @@ def _percentile(sorted_vals: List[float], q: float) -> float:
     i = min(len(sorted_vals) - 1,
             max(0, int(round(q / 100.0 * (len(sorted_vals) - 1)))))
     return sorted_vals[i]
-
-
-def event_writer(metrics_dir: str) -> Callable[..., None]:
-    def emit(kind: str, **data) -> None:
-        line = json.dumps({"kind": kind, "ts": time.time(), **data},
-                          sort_keys=True)
-        print(line, flush=True)
-        if metrics_dir:
-            with open(os.path.join(metrics_dir, "events.jsonl"), "a") as f:
-                f.write(line + "\n")
-    return emit
 
 
 def main(argv=None) -> int:
@@ -53,24 +48,46 @@ def main(argv=None) -> int:
                     help="also append the events (JSON lines) to "
                          "DIR/events.jsonl")
     ap.add_argument("--bench-json", default="",
-                    help="not ported yet (the obs/ bench rows)")
+                    help="append a serve bench row (p50/p99 latency, "
+                         "tokens/s per device) to BENCH_<name>.json in "
+                         "this directory (obs/benchrow.py)")
+    ap.add_argument("--bench-name", default="serve_smoke",
+                    help="trajectory name for --bench-json")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
-    if args.bench_json:
-        raise NotImplementedError(
-            "--bench-json needs the obs/ port (ROADMAP Queue 1 item 8)")
-
-    import torch
 
     from repro_torch import resolve_device
-    from repro_torch.configs.registry import get_config, get_smoke_config
-    from repro_torch.models import model as model_lib
+    from repro_torch.obs import events as obs_events
+    from repro_torch.obs import export as obs_export
 
     dev = resolve_device(args.device)
+    log = obs_events.global_log()
+    sinks = [log.add_sink(lambda ev: print(
+        ev.to_json() if ev.kind in _JSON_KINDS else obs_events.render(ev),
+        file=sys.stderr if ev.kind == "error" else sys.stdout,
+        flush=True))]
+    jsonl = None
     if args.metrics_dir:
-        os.makedirs(args.metrics_dir, exist_ok=True)
-    emit = event_writer(args.metrics_dir)
+        jsonl = obs_events.JsonlSink(
+            os.path.join(args.metrics_dir, obs_export.EVENTS_NAME))
+        sinks.append(log.add_sink(jsonl))
+    try:
+        return _serve(args, dev)
+    finally:
+        for s in sinks:
+            log.remove_sink(s)
+        if jsonl is not None:
+            jsonl.close()
+
+
+def _serve(args, dev) -> int:
+    import torch
+
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.models import model as model_lib
+    from repro_torch.obs import benchrow
+    from repro_torch.obs.events import emit
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     B = args.batch_slots
@@ -107,14 +124,29 @@ def main(argv=None) -> int:
         done += n
     dt = max(1e-9, time.time() - t0)
     latencies.sort()
+    p50, p99 = _percentile(latencies, 50), _percentile(latencies, 99)
+    device = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
+        else "cpu"
     emit("serve_summary", requests=args.requests, tokens=tokens_out, dt=dt,
          tokens_per_s=tokens_out / dt,
          tokens_per_s_device=tokens_out / dt / n_dev,
-         latency_p50_s=_percentile(latencies, 50),
-         latency_p99_s=_percentile(latencies, 99),
-         device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
-                 else "cpu"),
+         latency_p50_s=p50, latency_p99_s=p99, device=device,
          arch=args.arch, smoke=args.smoke)
+    if args.bench_json:
+        row = benchrow.bench_row(
+            name=args.bench_name, kind="serve",
+            metrics={"latency_p50_s": p50, "latency_p99_s": p99,
+                     "tokens_per_s": tokens_out / dt,
+                     "tokens_per_s_device": tokens_out / dt / n_dev,
+                     "requests": float(args.requests),
+                     "tokens": float(tokens_out)},
+            context={"arch": args.arch, "smoke": args.smoke,
+                     "gen": args.gen, "prompt_len": args.prompt_len,
+                     "batch_slots": args.batch_slots, "devices": n_dev,
+                     "device": device})
+        path = benchrow.append_row(args.bench_json, row)
+        emit("bench_row", name=args.bench_name, row_kind="serve",
+             path=path)
     return 0
 
 

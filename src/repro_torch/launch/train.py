@@ -37,11 +37,29 @@ Fault tolerance (resilience/, checkpoint/, runtime/fault.py):
    it by its exit class ($MAX_RESTARTS within $RESTART_WINDOW_S, backoff
    from $RESTART_BACKOFF_S; preemptions free, usage errors never).  A
    one-process run only: under torchrun it is a usage error.
- * ``--metrics-dir DIR``: every event appended to ``DIR/events.jsonl``
-   (the supervisor's too).  The JAX launcher's ``trace.json``,
-   ``metrics.json``, anomaly monitor, ``--profile`` and
-   ``--anomaly-exit`` are ROADMAP Queue 1 item 8; ``--mesh-pipe`` and
-   ``--pipeline-microbatches`` item 6.  argparse rejects them.
+ * ``--mesh-pipe`` and ``--pipeline-microbatches`` are ROADMAP Queue 1
+   item 6; argparse rejects them.
+
+Observability (obs/), as in the JAX launcher: ``--metrics-dir DIR`` turns
+on the in-graph metrics and the phase ranges (``ObsConfig``), appends
+every event to ``DIR/events.jsonl`` (the supervisor's too), and at exit
+writes ``DIR/trace.json`` (the step timeline as Chrome trace events) and
+``DIR/metrics.json``: the comm share of the modeled phase split
+(obs/timeline.py, set after the first step), the final step's scalar
+metrics (``obs_compression_rate``, the live Eq. 5 rate, among them) and
+the anomaly counts.  ``--profile N`` runs ``torch.profiler`` (CPU and,
+on the card, CUDA activities) over N steps from the first steady one,
+writes each rank's Chrome trace under ``DIR/torch_trace/``, parses it
+into the measured device seconds of each phase (obs/profile.py; over a
+mesh the ranks' sums are averaged), and reconciles them with the modeled
+split: ``measured_*`` and ``model_*`` keys in metrics.json,
+``model_drift`` events, and the drift recorded in the tune cache when a
+calibration is in play.  The anomaly detectors (obs/anomaly.py) watch
+step time, loss, comm share, stragglers and load imbalance whenever
+``--metrics-dir`` is on; ``--anomaly-exit`` escalates a persistent
+slowdown to a checkpoint and exit 43 (``resilience.supervisor.
+AnomalyEscalator``).  A step's time runs from before the chaos hook, so
+an injected stall or hang counts in it.
 
 Expert parallelism: ``--mesh-data D --mesh-model M`` trains over a
 (data, model) mesh of D * M ranks, started by torchrun:
@@ -69,7 +87,6 @@ import math
 import os
 import subprocess
 import sys
-import time
 
 _JSON_KINDS = ("step", "train_summary", "tune_calibrated")
 
@@ -102,9 +119,19 @@ def _parser() -> argparse.ArgumentParser:
                     help="fault-injection spec, e.g. 'nan_grads@3,"
                          "sigkill@5,hang@7:2.5,seed=1' (also $REPRO_CHAOS)")
     ap.add_argument("--metrics-dir", default="",
-                    help="append every event to DIR/events.jsonl (the JAX "
-                         "launcher's trace.json, metrics.json and anomaly "
-                         "monitor are not ported: ROADMAP Queue 1 item 8)")
+                    help="write events.jsonl, trace.json (Perfetto) and "
+                         "metrics.json here and turn on the in-graph "
+                         "metrics and phase ranges (ObsConfig)")
+    ap.add_argument("--profile", type=int, default=0,
+                    help="run torch.profiler over N steady steps (the "
+                         "first step is skipped) into <metrics-dir>/"
+                         "torch_trace, parse it into the measured per-"
+                         "phase device time and reconcile it with the "
+                         "modeled split (requires --metrics-dir)")
+    ap.add_argument("--anomaly-exit", action="store_true",
+                    help="checkpoint and exit 43 when the anomaly "
+                         "detectors see persistent degradation, for "
+                         "--auto-restart's budgeted supervisor")
     ap.add_argument("--mesh-data", type=int, default=1)
     ap.add_argument("--mesh-model", type=int, default=1)
     ap.add_argument("--node-size", type=int, default=0,
@@ -145,6 +172,10 @@ def main(argv=None) -> int:
     ap = _parser()
     argv = list(sys.argv[1:] if argv is None else argv)
     args = ap.parse_args(argv)
+    if args.profile and not args.metrics_dir:
+        ap.error("--profile requires --metrics-dir: the device trace and "
+                 "its measured-timeline artifacts land under "
+                 "<metrics-dir> (torch_trace/, metrics.json)")
 
     from repro_torch import resolve_device
     dev = resolve_device(args.device)
@@ -160,6 +191,7 @@ def main(argv=None) -> int:
 
     from repro_torch.launch.mesh import init_distributed, make_mesh
     from repro_torch.obs import events as obs_events
+    from repro_torch.obs import export as obs_export
 
     mesh, own_group = None, False
     if "RANK" in os.environ or args.mesh_data * args.mesh_model > 1 \
@@ -171,7 +203,7 @@ def main(argv=None) -> int:
         mesh = make_mesh(args.mesh_data, args.mesh_model,
                          node_size=args.node_size)
     log = obs_events.global_log()
-    sinks, jsonl = [], None
+    sinks, jsonl, mem = [], None, None
     if mesh is None or mesh.rank == 0:
         sinks.append(log.add_sink(lambda ev: print(
             ev.to_json() if ev.kind in _JSON_KINDS
@@ -180,10 +212,11 @@ def main(argv=None) -> int:
             flush=True)))
         if args.metrics_dir:
             jsonl = obs_events.JsonlSink(
-                os.path.join(args.metrics_dir, "events.jsonl"))
-            sinks.append(log.add_sink(jsonl))
+                os.path.join(args.metrics_dir, obs_export.EVENTS_NAME))
+            mem = obs_events.MemorySink()   # the events for trace.json
+            sinks += [log.add_sink(jsonl), log.add_sink(mem)]
     try:
-        rc = _train(args, dev, mesh)
+        rc = _train(args, dev, mesh, mem)
     finally:
         for s in sinks:
             log.remove_sink(s)
@@ -195,20 +228,26 @@ def main(argv=None) -> int:
     return rc
 
 
-def _train(args, dev, mesh) -> int:
+def _train(args, dev, mesh, mem) -> int:
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch.checkpoint.checkpoint import (CheckpointManager,
                                                    load_checkpoint)
+    from repro_torch.comm import planner as comm_planner
     from repro_torch.comm.collectives import any_rank
     from repro_torch.configs.base import OptimizerConfig
     from repro_torch.configs.registry import get_config, get_smoke_config
     from repro_torch.data.pipeline import place
     from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.obs import events as obs_events
+    from repro_torch.obs import export as obs_export
+    from repro_torch.obs import timeline as timeline_lib
     from repro_torch.runtime import sharding
-    from repro_torch.runtime.fault import (EXIT_PREEMPTED, ExpertRebalancer,
+    from repro_torch.runtime.fault import (EXIT_PREEMPTED, EXIT_WATCHDOG,
+                                           ExpertRebalancer,
                                            PreemptionHandler, StepWatchdog,
                                            StragglerMonitor)
     from repro_torch.runtime.step import init_train_state, make_train_step
@@ -217,6 +256,9 @@ def _train(args, dev, mesh) -> int:
     emit = obs_events.emit
     rank0 = mesh is None or mesh.rank == 0
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.metrics_dir:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, obs=dataclasses.replace(cfg.moe.obs, enabled=True)))
     chaos = None
     if args.chaos:
         from repro_torch.resilience.faults import STATE_NAME, FaultPlan
@@ -249,9 +291,18 @@ def _train(args, dev, mesh) -> int:
     preempt = PreemptionHandler()
     watchdog = StepWatchdog(args.watchdog_s)
     straggler = StragglerMonitor(threshold=args.straggler_factor)
+    timeline = timeline_lib.StepTimeline()
     sharded = not cfg.dp_only
     mgr = CheckpointManager(args.ckpt, keep=3, mesh=mesh, sharded=sharded) \
         if args.ckpt else None
+    monitor = escalator = None
+    if args.metrics_dir:
+        from repro_torch.obs import anomaly as anomaly_lib
+        monitor = anomaly_lib.AnomalyMonitor()
+        if args.anomaly_exit:
+            from repro_torch.resilience.supervisor import AnomalyEscalator
+            escalator = AnomalyEscalator()
+            monitor.add_consumer(escalator.consume)
     rebalancer = placement = None
     if cfg.has_moe():
         rebalancer = ExpertRebalancer(cfg.moe.num_experts,
@@ -262,6 +313,7 @@ def _train(args, dev, mesh) -> int:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     world = sharding.all_group(mesh)
+    prof = _Profile(args, dev, mesh, world, cfg, comm)
     state = init_train_state(cfg, opt, seed=0, device=dev, mesh=mesh)
     start = 0
     if mgr and mgr.latest_step() is not None:
@@ -269,36 +321,98 @@ def _train(args, dev, mesh) -> int:
                                           sharded=sharded)
         emit("resume", from_step=start)
     step_fn = make_train_step(cfg, opt, use_lsh=use_lsh, mesh=mesh)
+
+    def export_artifacts(final_metrics) -> None:
+        """metrics.json and trace.json under --metrics-dir (rank 0), after
+        the profile's analysis (a collective over the mesh)."""
+        prof.stop()
+        if not args.metrics_dir:
+            return
+        profile_extra = prof.analyze()
+        if not rank0:
+            return
+        obs_export.write_chrome_trace(
+            os.path.join(args.metrics_dir, obs_export.TRACE_NAME),
+            timeline, mem.events if mem is not None else ())
+        extra = {k: float(v) for k, v in (final_metrics or {}).items()
+                 if v.ndim == 0}
+        extra.update(profile_extra)
+        if monitor is not None:
+            for det, n in monitor.counts().items():
+                extra[f"anomaly_{det}"] = float(n)
+        obs_export.write_metrics_json(
+            os.path.join(args.metrics_dir, obs_export.METRICS_NAME),
+            timeline, extra=extra)
+
     dts, loss, metrics = [], float("nan"), {}
     try:
         for s in range(start, args.steps):
+            if args.profile and (s == start + 1 or args.steps - start == 1):
+                prof.start()
             batch = ds.batch_at(s)
             watchdog.arm()
+            timeline.start(s)
             if chaos is not None:
                 # after arm(): a hang must trip the watchdog
                 chaos.on_step_start(s)
                 batch = chaos.chaos_batch(batch, s)
-            t0 = time.perf_counter()
             state, metrics = step_fn(state, place(batch, dev))
             loss = float(metrics["loss"])       # waits for the step
-            dt = time.perf_counter() - t0
+            rec = timeline.stop(s)
+            dt = rec.duration
             watchdog.disarm()
             dts.append(dt)
-            if straggler.record(s, dt):
+            if s == start:
+                # the first step resolved the comm plan: the modeled split
+                prof.modeled = timeline_lib.model_phase_seconds(
+                    _effective(cfg, use_lsh), mesh, batch=args.batch,
+                    seq=args.seq)
+                timeline.set_phase_seconds(prof.modeled)
+            prof.step_done(args.profile)
+            is_straggler = straggler.record(s, dt)
+            if is_straggler:
                 emit("straggler", step=s, dt=dt, ema=straggler.ema,
-                     factor=args.straggler_factor)
+                     factor=args.straggler_factor,
+                     phases=rec.phase_seconds())
             if rebalancer is not None:
                 rebalancer.record(metrics["expert_load"].cpu().numpy(),
                                   placement)
             if s % args.log_every == 0:
+                extra = {}
+                if "comm_algorithm" in metrics:
+                    extra = dict(
+                        comm=comm_planner.describe_comm_metrics(
+                            int(metrics["comm_algorithm"]),
+                            int(metrics["comm_degraded"]),
+                            int(metrics["comm_calibrated"]),
+                            int(metrics["comm_wire_format"])),
+                        comm_share=timeline.comm_share())
                 emit("step", step=s, loss=loss, ce=float(metrics["ce"]),
                      lr=float(metrics["lr"]), dt=dt,
-                     skips=int(metrics["grad_skips"]))
+                     skips=int(metrics["grad_skips"]), **extra)
+            if monitor is not None:
+                signals = {"step_time": dt, "loss": loss,
+                           "comm_share": timeline.comm_share(),
+                           "straggler": 1.0 if is_straggler else 0.0}
+                if "obs_load_imbalance" in metrics:
+                    signals["load_imbalance"] = float(
+                        metrics["obs_load_imbalance"])
+                monitor.observe(s, signals)
+            if escalator is not None and any_rank(escalator.should_exit,
+                                                  world, dev):
+                # persistent degradation: make the run durable and hand
+                # the restart decision to the supervisor
+                if mgr:
+                    mgr.save_async(s + 1, state)
+                    mgr.wait()
+                export_artifacts(metrics)
+                return EXIT_WATCHDOG
             if any_rank(preempt.requested.is_set(), world, dev):
                 if mgr:
                     mgr.save_async(s + 1, state)
                     mgr.wait()
                 emit("preempt", step=s)
+                export_artifacts(metrics)
                 return EXIT_PREEMPTED
             if mgr and (s + 1) % args.ckpt_every == 0:
                 mgr.save_async(s + 1, state)
@@ -310,6 +424,8 @@ def _train(args, dev, mesh) -> int:
             mgr.wait()
     finally:
         watchdog.stop()
+        prof.stop()
+    export_artifacts(metrics)
     steady = dts[1:]
     tokens = args.batch * args.seq
     emit("train_summary", arch=args.arch, smoke=args.smoke, steps=len(dts),
@@ -326,8 +442,112 @@ def _train(args, dev, mesh) -> int:
                             if dev.type == "cuda" else None),
          device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                  else "cpu"),
-         mesh=None if mesh is None else mesh.shape)
+         mesh=None if mesh is None else mesh.shape,
+         comm_share=timeline.comm_share())
     return 0
+
+
+def _effective(cfg, use_lsh):
+    """``cfg`` with ``--lsh`` applied, for the modeled phase split."""
+    import dataclasses
+    if use_lsh is None or not cfg.has_moe():
+        return cfg
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, lsh=dataclasses.replace(cfg.moe.lsh, enabled=use_lsh)))
+
+
+class _Profile:
+    """``--profile``: torch.profiler over the steady steps, each rank's
+    Chrome trace under ``<metrics-dir>/torch_trace/``, and its analysis
+    (the measured phases against ``modeled``, the split set after the
+    first step)."""
+
+    def __init__(self, args, dev, mesh, world, cfg, comm):
+        self.args, self.dev, self.mesh, self.world = args, dev, mesh, world
+        self.cfg, self.comm = cfg, comm
+        self.modeled = None
+        self.prof = None
+        self.steps = 0
+        self.path = None
+
+    def start(self) -> None:
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+        if self.prof is not None or self.steps:
+            return
+        acts = [ProfilerActivity.CPU]
+        if self.dev.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+            torch.cuda.synchronize(self.dev)
+        self.prof = profile(activities=acts)
+        self.prof.start()
+
+    def step_done(self, wanted: int) -> None:
+        if self.prof is not None:
+            self.steps += 1
+            if self.steps >= wanted:
+                self.stop()
+
+    def stop(self) -> None:
+        """Stop the profiler (once its last step's kernels have finished)
+        and export this rank's trace."""
+        if self.prof is None:
+            return
+        import torch
+        prof, self.prof = self.prof, None
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        prof.stop()
+        rank = 0 if self.mesh is None else self.mesh.rank
+        d = os.path.join(self.args.metrics_dir, "torch_trace")
+        os.makedirs(d, exist_ok=True)
+        self.path = os.path.join(d, f"rank{rank}.pt.trace.json")
+        prof.export_chrome_trace(self.path)
+
+    def analyze(self) -> dict:
+        """The measured timeline (averaged over the ranks), reconciled
+        with the modeled split: model_drift events, the drift recorded
+        in the tune cache; returns the keys for metrics.json.  A failure
+        is an ``error`` event, as in the JAX launcher."""
+        from repro_torch.comm.collectives import any_rank
+        from repro_torch.obs import events as obs_events
+        from repro_torch.obs import profile as obs_profile
+        from repro_torch.obs import reconcile as obs_reconcile
+        from repro_torch.tune import runtime as tune_runtime
+        if not self.steps or self.path is None:
+            return {}
+        local = None
+        try:
+            local = obs_profile.parse_torch_trace(self.path,
+                                                  steps=self.steps)
+        except Exception as exc:
+            obs_events.emit("error", where="profile", message=str(exc))
+        # every rank joins the reduction, or none does
+        if any_rank(local is None, self.world, self.dev):
+            return {}
+        measured = obs_profile.reduce_over_ranks(local, self.world,
+                                                 self.dev)
+        out = measured.summary()
+        if not self.modeled:
+            return out
+        report = obs_reconcile.reconcile(self.modeled,
+                                         measured.phase_seconds)
+        if self.mesh is None or self.mesh.rank == 0:
+            obs_reconcile.emit_drift_events(report)
+        out.update(report.to_metrics())
+        if self.cfg.has_moe() \
+                and tune_runtime.tuning_mode(self.comm) != "off":
+            try:
+                entry = obs_reconcile.record_stale_calibration(
+                    self.mesh, self.comm, report)
+                if entry is not None and report.stale:
+                    obs_events.emit("tune_stale", path=entry,
+                                    comm_drift=report.comm_drift,
+                                    drift_score=report.drift_score)
+            except Exception as exc:
+                obs_events.emit("error", where="reconcile",
+                                message=str(exc))
+        return out
 
 
 if __name__ == "__main__":

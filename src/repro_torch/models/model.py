@@ -39,6 +39,7 @@ from repro_torch.models import attention as attn_lib
 from repro_torch.models.layers import (embed, embedding_init, fanin_init,
                                        mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init, unembed)
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.runtime import sharding
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -116,14 +117,15 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, ffn: str, *,
            use_lsh: Optional[bool], mesh, moe_mode: str = "train"):
     """One (mixer, ffn) block of the training forward -> (x, aux, z,
-    load); aux / z / load are None without a MoE FFN."""
+    load, comm); aux / z / load are None without a MoE FFN, comm the MoE
+    layer's MetricBag (None unless ``ObsConfig.in_graph_metrics``)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
     x = x + attn_lib.attention_apply(
         p["mixer"], h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
         rope_theta=cfg.rope_theta, causal=True, kv_chunk=cfg.kv_chunk,
         use_rope=(cfg.pos_emb == "rope"), mesh=mesh)
-    aux = z = load = None
+    aux = z = load = comm = None
     if ffn == DENSE:
         x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps),
                           cfg.mlp_act)
@@ -135,7 +137,8 @@ def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, ffn: str, *,
         x = x + y
         aux, z, load = (stats["aux_loss"], stats["z_loss"],
                         stats["expert_load"])
-    return x, aux, z, load
+        comm = stats.get("comm")
+    return x, aux, z, load, comm
 
 
 def head_logits(params: Dict, cfg: ModelConfig,
@@ -153,7 +156,8 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     """tokens [B, S] (with a mesh, this rank's [B / data, S / model]) ->
     (logits [B, S, V] f32, stats with "aux_loss", "z_loss" summed over
     the MoE layers and "expert_load" summed per expert, each over every
-    rank).  Each block is recomputed in the backward pass
+    rank, and with in-graph metrics on, "comm": the MetricBag merged over
+    the layers, obs/metrics.py).  Each block is recomputed in the backward pass
     (``torch.utils.checkpoint``, which runs its collectives again, in the
     same order on every rank) when ``remat_policy`` is "nothing" or
     "dots", and kept when it is "full": the JAX rule, at block
@@ -165,21 +169,24 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     dev = x.device
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     z = torch.zeros((), dtype=torch.float32, device=dev)
-    load = None
+    load = comm = None
     for (_, ffn), p in zip(layer_kinds(cfg), params["layers"]):
         fn = partial(_block, p, cfg=cfg, ffn=ffn, use_lsh=use_lsh,
                      mesh=mesh, moe_mode=moe_mode)
         if remat:
-            x, a, zz, ld = checkpoint(fn, x, use_reentrant=False)
+            x, a, zz, ld, cm = checkpoint(fn, x, use_reentrant=False)
         else:
-            x, a, zz, ld = fn(x)
+            x, a, zz, ld, cm = fn(x)
         if ld is not None:
             aux, z = aux + a, z + zz
             load = ld if load is None else load + ld
+            comm = obs_metrics.merge_stat(comm, cm)
     if load is None:
         load = torch.zeros((1,), dtype=torch.float32, device=dev)
-    return head_logits(params, cfg, x), {"aux_loss": aux, "z_loss": z,
-                                         "expert_load": load}
+    stats = {"aux_loss": aux, "z_loss": z, "expert_load": load}
+    if comm is not None:
+        stats["comm"] = comm
+    return head_logits(params, cfg, x), stats
 
 
 def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,
@@ -213,6 +220,19 @@ def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,
                for k, v in metrics.items()}
     metrics.update(moe_aux=stats["aux_loss"],
                    expert_load=stats["expert_load"])
+    comm = stats.get("comm")
+    if obs_metrics.is_bag(comm):
+        # the in-graph metrics (already global): the obs_* scalars, the
+        # live Eq. 5 compression rate and the comm_* names of the plan
+        metrics.update(comm.as_metrics())
+        metrics["obs_compression_rate"] = (
+            comm.get("wire_bytes")
+            / torch.clamp(comm.get("raw_bytes"), min=1.0))
+        metrics.update(
+            comm_algorithm=comm.get("comm_algorithm"),
+            comm_degraded=comm.get("comm_degraded"),
+            comm_calibrated=comm.get("comm_calibrated"),
+            comm_wire_format=comm.get("comm_wire_format"))
     return total, metrics
 
 

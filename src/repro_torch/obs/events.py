@@ -1,16 +1,17 @@
 """Structured events: typed records, a process-local log and its sinks
-(counterpart of part of ``repro/obs/events.py``).
+(counterpart of ``repro/obs/events.py``).
 
 The planner emits ``comm_plan`` when a resolution changes; tune emits
 ``tune_probe``, ``tune_result``, ``tune_cache_reject`` and
 ``tune_stale``; the trainer and its state emit ``resume``, ``preempt``,
 ``watchdog``, ``straggler``, ``data_stall``, ``chaos``, ``restart`` and
-``checkpoint_*``, rendered as the JAX ``ConsoleSink`` prints them.
+``checkpoint_*``; obs/ emits ``model_drift`` and ``anomaly``, the
+escalator ``anomaly_escalation`` and the serve launcher ``bench_row``;
+each is rendered as the JAX ``ConsoleSink`` prints it.
 Sinks subscribe to the log: ``ConsoleSink`` prints one line an event,
 ``JsonlSink`` appends one JSON object an event to a file,
 ``MemorySink`` keeps them for tests.  With no sink attached ``emit`` is a
-no-op, so library code emits unconditionally.  The rest of ``obs/``
-(metrics, traces, reconciliation) is ROADMAP Queue 1 item 8.
+no-op, so library code emits unconditionally.
 """
 from __future__ import annotations
 
@@ -39,6 +40,14 @@ class Event:
             rec["step"] = self.step
         rec.update(self.data)
         return json.dumps(rec, default=str, sort_keys=True)
+
+    @classmethod
+    def from_json(cls, line: str) -> "Event":
+        rec = json.loads(line)
+        kind = rec.pop("kind")
+        ts = rec.pop("ts")
+        step = rec.pop("step", None)
+        return cls(kind=kind, ts=ts, step=step, data=rec)
 
 
 # ------------------------------------------------------------------ sinks --
@@ -72,6 +81,28 @@ class JsonlSink:
     def close(self) -> None:
         with self._lock:
             self._f.close()
+
+
+def read_jsonl(path: str) -> List[Event]:
+    """The events of a ``JsonlSink`` file (blank lines skipped)."""
+    with open(path) as f:
+        return [Event.from_json(line) for line in f if line.strip()]
+
+
+def _fmt_model_drift(e: Event) -> str:
+    d = e.data
+    if d.get("phase") == "*":
+        return (f"[drift] modeled vs measured: score "
+                f"{d.get('drift_score', 0.0):.2f}, comm drift "
+                f"{d.get('comm_drift', 0.0):.2f} "
+                f"(share {d.get('comm_share_modeled', 0.0):.2f} modeled / "
+                f"{d.get('comm_share_measured', 0.0):.2f} measured), "
+                f"clock x{d.get('clock_ratio', 0.0):.2g}"
+                + (", STALE calibration" if d.get("stale") else ""))
+    return (f"[drift] phase {d.get('phase')}: share "
+            f"{d.get('modeled_share', 0.0):.2f} modeled vs "
+            f"{d.get('measured_share', 0.0):.2f} measured "
+            f"(err {d.get('share_err', 0.0):.0%})")
 
 
 def _fmt_comm_plan(e: Event) -> str:
@@ -151,6 +182,18 @@ _RENDERERS: Dict[str, Callable[[Event], str]] = {
         f"[tune] calibration STALE (comm drift "
         f"{e.data.get('comm_drift', 0.0):.0%}): re-run the probe "
         f"({e.data.get('path', '')})"),
+    "model_drift": _fmt_model_drift,
+    "anomaly": lambda e: (
+        f"[anomaly] {e.data.get('detector')} at step {e.step}: "
+        f"{e.data.get('message', '')}"),
+    "anomaly_escalation": lambda e: (
+        f"[anomaly] ESCALATED: {int(e.data.get('count', 0))} "
+        f"{e.data.get('detector')} anomalies within "
+        f"{e.data.get('window_s', 0.0):.0f}s: exiting "
+        f"{e.data.get('exit_code')} for the supervisor"),
+    "bench_row": lambda e: (
+        f"[bench] {e.data.get('row_kind')} row "
+        f"{e.data.get('name')!r} -> {e.data.get('path', '')}"),
     "error": lambda e: "error: " + str(e.data.get("message", "")),
 }
 

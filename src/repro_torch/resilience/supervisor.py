@@ -13,8 +13,9 @@
    (``$RESTART_BACKOFF_S`` base) before a budgeted restart.
 
 Each decision is a ``restart`` or ``restart_budget_exhausted`` event.
-``AnomalyEscalator`` (anomalies to exit 43) needs ``obs/anomaly.py``,
-ROADMAP Queue 1 item 8.
+``AnomalyEscalator`` turns a persistent pattern of anomalies
+(obs/anomaly.py) into exit 43, which the supervisor restarts as a
+budgeted watchdog exit.
 """
 from __future__ import annotations
 
@@ -34,6 +35,50 @@ EXIT_USAGE = 2
 ENV_MAX_RESTARTS = "MAX_RESTARTS"
 ENV_WINDOW_S = "RESTART_WINDOW_S"
 ENV_BACKOFF_S = "RESTART_BACKOFF_S"
+
+
+class AnomalyEscalator:
+    """From soft anomalies to the restart machinery.  As an
+    ``AnomalyMonitor`` consumer it counts the escalating detectors'
+    anomalies within a rolling window; at ``limit`` it emits
+    ``anomaly_escalation`` (once) and sets ``should_exit``: the train
+    loop then checkpoints and exits ``EXIT_WATCHDOG``.  One loss spike or
+    one slow step never escalates; a persistent pattern does."""
+
+    ESCALATING = ("step_time_regression", "persistent_straggler")
+
+    def __init__(self, *, limit: int = 3, window_s: float = 600.0,
+                 detectors=ESCALATING, on_escalate=None,
+                 clock: Callable[[], float] = time.monotonic):
+        self.limit = int(limit)
+        self.window_s = float(window_s)
+        self.detectors = tuple(detectors)
+        self.on_escalate = on_escalate
+        self._clock = clock
+        self._marks: list = []
+        self.escalated = False
+
+    @property
+    def should_exit(self) -> bool:
+        return self.escalated
+
+    def consume(self, anomaly) -> bool:
+        """The AnomalyMonitor consumer; returns ``should_exit``."""
+        if anomaly.detector not in self.detectors:
+            return self.escalated
+        now = self._clock()
+        self._marks = [t for t in self._marks if now - t < self.window_s]
+        self._marks.append(now)
+        if not self.escalated and len(self._marks) >= self.limit:
+            self.escalated = True
+            obs_events.emit(
+                "anomaly_escalation", step=anomaly.step,
+                detector=anomaly.detector, count=len(self._marks),
+                limit=self.limit, window_s=self.window_s,
+                exit_code=EXIT_WATCHDOG)
+            if self.on_escalate is not None:
+                self.on_escalate(anomaly)
+        return self.escalated
 
 
 @dataclass(frozen=True)

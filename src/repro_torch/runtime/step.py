@@ -24,7 +24,9 @@ rank, the whole model on each, the gradients averaged over all ranks.
 the JAX ``lax.scan``: each microbatch's loss / n and gradient / n added
 in f32 in microbatch order, the metrics those of the last microbatch;
 the replicated params' gradients are then summed over the ranks once.
-``dp_only`` ignores it, as in JAX.  The fault-injection loss scale
+``dp_only`` ignores it, as in JAX.  With ``ObsConfig`` on, the metrics
+carry the in-graph ``obs_*`` scalars (models/model.py), the last
+microbatch's under accumulation.  The fault-injection loss scale
 (``CHAOS_LOSS_SCALE_KEY``, resilience/faults.py) multiplies the loss the
 non-finite skip reads.  Pipeline stages are ROADMAP Queue 1 item 6.
 """

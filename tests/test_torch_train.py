@@ -429,13 +429,12 @@ def test_train_cli_smoke_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["--mesh-pipe", "2"], ["--pipeline-microbatches", "2"],
-    ["--profile", "1"], ["--anomaly-exit"]])
+    ["--mesh-pipe", "2"], ["--pipeline-microbatches", "2"]])
 def test_train_cli_rejects_flags_of_later_items(argv, capsys):
-    # --mesh-data / --mesh-model (test_torch_dist_train.py) and --ckpt,
-    # --chaos, --metrics-dir, --auto-restart (test_torch_trainer.py) are
-    # ported; a pipe axis is ROADMAP Queue 1 item 6, profiles and the
-    # anomaly monitor item 8
+    # --mesh-data / --mesh-model (test_torch_dist_train.py), --ckpt,
+    # --chaos, --metrics-dir, --auto-restart (test_torch_trainer.py) and
+    # --profile, --anomaly-exit (test_torch_profile.py) are ported; a pipe
+    # axis is ROADMAP Queue 1 item 6
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", ARCH, *argv])
     assert f"unrecognized arguments: {argv[0]}" in capsys.readouterr().err
