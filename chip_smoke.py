@@ -187,6 +187,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
               at the full config: a row validate_row accepts; its tokens/s
               and p50 / p99 printed.  Files go to a directory of the
               checkout that is removed afterwards.
+ 13. pipeline  qwen3-moe-30b-a3b at full width (d_model 2048, 32 heads of
+              128 with 4 KV heads, 128 experts top-8 of ffn 768, vocab
+              151936, bf16), depth cut to 4 of its 48 super-blocks for
+              memory.  The path's kernels at its shapes (one microbatch
+              of 2 x 512 tokens: F = 8192 entries, E = 128, H = 2048, the
+              LSH kernels at its slots, the backwards, the int8 wire
+              kernels) against their plain versions as phase kernels
+              holds them; then the 1F1B step with 4 stages
+              (runtime/pipeline_schedule.py, one card: the stages are
+              replicated over pipe) against the accumulation over 4
+              microbatches (make_train_step(microbatch=2)), batch 8 x 512,
+              2 steps each from one seed, LSH on, bf16 then int8 wire:
+              losses, clip norms and every param after the last step
+              bit-equal, each run launching every kernel of its path the
+              same number of times; the schedule, step ms, peak memory
+              and launches a step printed, and a kernels line of all
+              eleven at this shape.
 The line before the last is the kernels' JSON record (times at the
 training shape, int8 for the wire kernels; launches of the bf16-wire
 LSH-on training run for the routing and LSH kernels, of the int8 runs
@@ -222,6 +239,11 @@ GRAD_RTOL = 1e-4
 PARAM_RTOL = 1e-5
 BF16_WIRE_LOSS_RTOL = 1e-3
 REPS = 30
+# seconds a profile waits before the step it counts: in four runs of
+# phase obs the obs-off profile, started just before its step, missed that
+# step's first 26-34 device events (the batch's copies, the embedding,
+# the first norm and projections), one each
+PROFILE_SETTLE_S = 0.5
 SLEEP_CYCLES = 4_000_000           # ~2 ms at the H100's clocks
 LAUNCH_FLOOR_SOURCE = "launch_floor.cu"   # an empty kernel (csrc/)
 POSITIONS_TILE = 256               # entries a block of token_position.cu
@@ -1531,6 +1553,7 @@ def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
     wall_ms = (time.perf_counter() - t0) * 1e3 / 2
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_SETTLE_S)
         run(4, 1)
     record, lines = summarize(prof, 1, wall_ms, top=15)
     for line in lines:
@@ -2735,6 +2758,7 @@ def obs_on_off(torch, cfg, step_lib, data_lib, summarize, steps=4,
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(PROFILE_SETTLE_S)
             state, m = step_fn(state, step_lib.batch_to_device(
                 ds.batch_at(steps), dev))
             losses.append(float(m["loss"]))
@@ -2876,6 +2900,168 @@ def phase_obs(torch, train, serve, registry, cfg, model_lib, step_lib,
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ----------------------------------------------------------- 13. pipeline --
+
+PIPE_ARCH = "qwen3-moe-30b-a3b"
+# 4 of its 48 super-blocks: 3.1 G params, about 50 GB with AdamW's f32
+# moments and the f32 gradient accumulators; all 48 (30.5 G params) do not
+# train on one card
+PIPE_SUPER_BLOCKS = 4
+PIPE_STAGES = PIPE_MICROBATCHES = 4
+PIPE_BATCH, PIPE_SEQ, PIPE_STEPS = 8, 512, 2
+
+
+def pipeline_kernels(torch, mods, ref, moe_lib, hashing, cfg):
+    """The path's kernels at this config's own shapes, one microbatch
+    through a MoE layer (2 x 512 tokens, top-8 of E = 128, H = 2048): the
+    routing and LSH kernels, their backwards and the int8 wire kernels,
+    against their plain versions as phase kernels holds them."""
+    moe = cfg.moe
+    T = PIPE_BATCH // PIPE_MICROBATCHES * PIPE_SEQ
+    C = moe_lib.expert_capacity(T, moe.num_experts, moe.top_k,
+                                moe.capacity_factor)
+    p = make_plan(torch, ref, T=T, k=moe.top_k, E=moe.num_experts, C=C,
+                  H=cfg.d_model, skew=True, bad_frac=0.01, seed=31)
+    res = check_kernels(torch, mods["token_position"],
+                        mods["scatter_gather"], ref, p, "pipeline")
+    S = moe_lib.num_lsh_slots(C, moe.lsh.compression_rate)
+    q = lsh_inputs(torch, ref, hashing, p, S, L=moe.lsh.num_hashes,
+                   Dr=moe.lsh.rotation_dim, seed=32)
+    res.update(check_lsh_kernels(torch, mods["lsh_hash"],
+                                 mods["segment_centroid"],
+                                 mods["residual_apply"], ref, q, "pipeline"))
+    check_backwards(torch, mods["dispatch"], ref, p, q)
+    res.update(check_wire_kernels(torch, mods, ref, p, q, "pipeline",
+                                  "int8"))
+    return res
+
+
+def pipeline_run(torch, cfg, step_lib, pipe_lib, data_lib, kernels, tag):
+    """PIPE_STEPS steps of the 1F1B step ("1f1b", PIPE_STAGES stages) or
+    of the accumulation ("accumulation", microbatches of the same rows)
+    from seed 0 -> (losses, clip norms, step ms, peak bytes, launches a
+    step, the params after the last step, copied to the host so that the
+    next run's peak is its own)."""
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.optim.adam import leaves
+    dev = torch.device("cuda")
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=8)
+    ds = data_lib.SyntheticLMDataset(cfg.vocab_size, PIPE_SEQ, PIPE_BATCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    state = step_lib.init_train_state(cfg, opt, seed=0, device=dev)
+    if tag == "1f1b":
+        step_fn = pipe_lib.make_pipeline_train_step(cfg, opt, use_lsh=True,
+                                                    stages=PIPE_STAGES)
+    else:
+        step_fn = step_lib.make_train_step(
+            cfg, opt, use_lsh=True,
+            microbatch=PIPE_BATCH // PIPE_MICROBATCHES)
+    for k in kernels:
+        k.launches = 0
+    losses, norms, dts = [], [], []
+    for s in range(PIPE_STEPS):
+        batch = step_lib.batch_to_device(ds.batch_at(s), dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, met = step_fn(state, batch)
+        losses.append(met["loss"].item())
+        norms.append(met["grad_norm"].item())
+        torch.cuda.synchronize()
+        dts.append((time.perf_counter() - t0) * 1e3)
+    launches = {k.name: k.launches / PIPE_STEPS for k in kernels}
+    peak = torch.cuda.max_memory_allocated(dev)
+    params = [p.detach().cpu() for p in leaves(state.params)]
+    del state, step_fn
+    return losses, norms, dts, peak, launches, params
+
+
+def phase_pipeline(torch, mods, ref, moe_lib, hashing, step_lib, data_lib,
+                   kernels, path_kernels):
+    """Phase pipeline: the path's kernels at qwen3-moe-30b-a3b's shapes,
+    then the config at full width and PIPE_SUPER_BLOCKS super-blocks,
+    bf16, LSH on, PIPE_BATCH x PIPE_SEQ tokens: the 1F1B step with
+    PIPE_STAGES stages against the accumulation over PIPE_MICROBATCHES
+    microbatches, from one seed, with the bf16 and the int8 wires; the
+    losses, the clip norms and every param after the last step must be
+    bit-equal, and each run must launch every kernel of its path, the
+    same number of times.  Returns the records."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import stage_bounds
+    from repro_torch.runtime import pipeline_schedule as pipe_lib
+    full = get_config(PIPE_ARCH)
+    cfg = full.replace(num_super_blocks=PIPE_SUPER_BLOCKS,
+                       pipeline_microbatches=PIPE_MICROBATCHES)
+    log(f"[pipeline] {PIPE_ARCH} at full width (d_model {cfg.d_model}, "
+        f"{cfg.num_heads} heads of {cfg.resolved_head_dim} with "
+        f"{cfg.num_kv_heads} KV heads, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k} of ffn {cfg.moe.expert_ffn_dim}, vocab "
+        f"{cfg.vocab_size}, {cfg.dtype}), depth cut from "
+        f"{full.num_super_blocks} to {PIPE_SUPER_BLOCKS} super-blocks for "
+        "memory (AdamW's f32 moments and the f32 accumulators)")
+    res = pipeline_kernels(torch, mods, ref, moe_lib, hashing, cfg)
+    sched = pipe_lib.build_1f1b(PIPE_STAGES, PIPE_MICROBATCHES)
+    log(f"[pipeline] schedule: {PIPE_STAGES} stages x {PIPE_MICROBATCHES} "
+        f"microbatches, {sched.ticks} ticks, bubble fraction "
+        f"{sched.bubble_fraction()}; stage bounds "
+        f"{stage_bounds(PIPE_SUPER_BLOCKS, PIPE_STAGES)}")
+    for s in range(PIPE_STAGES):
+        log(f"[pipeline] stage {s}: " + " ".join(
+            "--" if u is None else f"{u[0]}{u[1]}" for u in sched.grid[s]))
+    out = {}
+    for fmt in ("bf16", "int8"):
+        c = with_wire(cfg, wire_format=fmt)
+        runs = {}
+        for tag in ("1f1b", "accumulation"):
+            t_run = time.time()
+            losses, norms, dts, peak, launches, params = pipeline_run(
+                torch, c, step_lib, pipe_lib, data_lib, kernels, tag)
+            rec = dict(losses=losses, grad_norms=norms, step_ms=dts,
+                       peak_memory_gb=peak / 1e9,
+                       launches_per_step=launches)
+            log(f"[pipeline] {fmt} wire, {tag} ({time.time() - t_run:.1f} "
+                "s): " + json.dumps(rec, sort_keys=True))
+            never = [k.name for k in path_kernels[fmt]
+                     if launches[k.name] == 0]
+            if never:
+                raise AssertionError(f"pipeline {fmt} {tag}: kernels never "
+                                     f"launched {never}")
+            if not all(math.isfinite(v) for v in losses + norms):
+                raise AssertionError(f"pipeline {fmt} {tag}: not finite "
+                                     f"{losses} {norms}")
+            runs[tag] = (rec, params)
+            del params
+        (a, pa), (b, pb) = runs["1f1b"], runs["accumulation"]
+        n_same = sum(x.dtype == y.dtype and bool(torch.equal(x, y))
+                     for x, y in zip(pa, pb))
+        same = (a["losses"] == b["losses"] and a["grad_norms"]
+                == b["grad_norms"] and n_same == len(pa) == len(pb))
+        log(f"[pipeline] {fmt} wire: 1F1B against the accumulation after "
+            f"{PIPE_STEPS} steps: losses, clip norms and {n_same} of "
+            f"{len(pa)} param leaves bit-equal; launches a step "
+            f"{'equal' if a['launches_per_step'] == b['launches_per_step'] else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"{fmt} wire: the 1F1B step is not "
+                                 "bit-equal to the accumulation")
+        if a["launches_per_step"] != b["launches_per_step"]:
+            raise AssertionError(f"{fmt} wire: the 1F1B step launches the "
+                                 "kernels other times than the accumulation")
+        out[fmt] = a
+        del runs, pa, pb
+        torch.cuda.empty_cache()
+    record = {"kernels": [
+        {"name": k.name,
+         "launches": {f: out[f]["launches_per_step"][k.name]
+                      for f in out},
+         **({key: res[k.name][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")} if k.name in res else {})}
+        for k in kernels]}
+    log("[pipeline] kernels at this config's shapes, launches a 1F1B step "
+        "by wire: " + json.dumps(record))
+    return out
+
+
 # -------------------------------------------------------------- main --
 
 def main() -> int:
@@ -2972,6 +3158,10 @@ def main() -> int:
               synthetic, clustering, moe_lib, summarize, kernels,
               port_names, train_profile)
     log(f"[time] obs done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    phase_pipeline(torch, mods, ref, moe_lib, hashing, step_lib, synthetic,
+                   kernels, path_k)
+    log(f"[time] pipeline done at {time.time() - t_start:.1f} s")
 
     # launches of the main path's runs: the bf16 wire with LSH on for the
     # routing and LSH kernels, the int8 wire with LSH on for the kernels

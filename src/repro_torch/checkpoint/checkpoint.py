@@ -366,7 +366,7 @@ def _is_rank0(mesh) -> bool:
 
 def _agree(failed: bool, mesh, device: torch.device) -> bool:
     """True when some rank failed; the all-reduce is the ranks' barrier."""
-    return collectives.any_rank(failed, sharding.all_group(mesh), device)
+    return collectives.any_rank(failed, sharding.world_group(mesh), device)
 
 
 def _gather_expert(t: torch.Tensor, mesh) -> torch.Tensor:

@@ -19,6 +19,9 @@ and returns a ``Pending`` (the result, the backend's ``Work`` and the
 buffers it uses), waited just before the result is read: the pipelined
 transport's chunks (comm/pipeline.py).  The hierarchical transport's two
 hops are ``raw_all_to_all`` over a rank's subgroups (comm/hierarchical.py).
+``raw_ring_shift`` is the 1F1B stage leg as the reference probes it (a
+``ppermute`` ring over ``pipe``): point-to-point sends and receives over
+the group (tune/probe.py).
 
 A group of one rank (``None``, or a group of size 1) is the identity
 with no call, as XLA drops a collective over one device.  The
@@ -128,6 +131,25 @@ def raw_all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     out = x.detach().clone()
     dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     return out
+
+
+def raw_ring_shift(x: torch.Tensor, group) -> torch.Tensor:
+    """Each rank's ``x`` to the next rank of the group (i -> i + 1 mod n);
+    the result is the previous rank's.  One send and one receive a rank,
+    issued together; over a group of one rank, x."""
+    n = group_size(group)
+    if n == 1:
+        return x
+    me = dist.get_rank(group)
+    b = _bits(x)
+    out = torch.empty_like(b)
+    ops = [dist.P2POp(dist.isend, b, dist.get_global_rank(group, (me + 1) % n),
+                      group=group),
+           dist.P2POp(dist.irecv, out,
+                      dist.get_global_rank(group, (me - 1) % n), group=group)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return _unbits(out, x.dtype)
 
 
 class AllToAll(torch.autograd.Function):

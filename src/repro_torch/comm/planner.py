@@ -13,9 +13,16 @@ a layer call, in the reference's order:
      ``overlap_chunks`` > 1 divides the slot axis; else hierarchical when
      the model axis factors into nodes and the message clears
      ``min_hierarchical_bytes``; else flat.
-Inside a 1F1B pipeline (``pipeline``) the auto rule picks the bubble
-variant, which rides the 1F1B schedule of ROADMAP Queue 1 item 6 and so
-raises here.  What the mesh cannot run then degrades to flat (an axis of
+Inside a 1F1B pipeline step (``pipeline_context``, pushed by
+runtime/pipeline_schedule.py while it runs the stages) the auto rule
+picks the bubble variant: microbatch k's exchange is scheduled into the
+1F1B tick before its forward, a bubble or another microbatch's unit, and
+moves its bytes over a base transport picked by the same flat /
+hierarchical ranking (``CommPlan.transport``).  In eager PyTorch on one
+stream the exchange runs where the grid puts it; no concurrency is
+claimed.  ``plan_stage_transfers`` records the stage hand-offs over
+``pipe`` (``last_plan("pipe")``).  What the mesh cannot run then degrades
+to flat (an axis of
 one rank, a bubble without a pipeline, an axis that does not factor, a
 slot axis the chunks do not divide); ``CommPlan.reason`` says why, a
 ``comm_plan`` event (obs/events.py) reports each change, and
@@ -29,6 +36,7 @@ identity.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import logging
 import os
@@ -58,7 +66,6 @@ BUBBLE = "bubble"
 AUTO = "auto"
 ALGORITHMS = (FLAT, HIERARCHICAL, PIPELINED, BUBBLE)
 ENV_VAR = "REPRO_COMM_IMPL"
-LATER = "ROADMAP Queue 1 item 6"
 
 # Codes of the per-step comm metrics, as the reference's.
 WIRE_FORMAT_IDS = {None: -1, "bf16": 0, "int8": 1, "fp8": 2}
@@ -81,6 +88,27 @@ class PipelineContext:
     stages: int
     microbatches: int
     bubble_fraction: float
+
+
+_PIPELINE_CTX: list = []                # a stack; [-1] is the active one
+
+
+def current_pipeline_context() -> Optional[PipelineContext]:
+    return _PIPELINE_CTX[-1] if _PIPELINE_CTX else None
+
+
+@contextlib.contextmanager
+def pipeline_context(stages: int, microbatches: int,
+                     bubble_fraction: float):
+    """Plan the bubble variant while a 1F1B step runs its stages; plans
+    made outside any context are untouched, so a one-stage step plans as
+    before."""
+    _PIPELINE_CTX.append(PipelineContext(int(stages), int(microbatches),
+                                         float(bubble_fraction)))
+    try:
+        yield
+    finally:
+        _PIPELINE_CTX.pop()
 
 
 def algorithm_name(i: int) -> str:
@@ -287,17 +315,16 @@ def _auto_calibrated(calib, topo, axis_name, msg_bytes, cfg_chunks,
 def plan_collectives(mesh=None, comm: Optional[CommConfig] = None, *,
                      axis_name: str = "model", msg_bytes: int = 0,
                      chunk_extent: int = 0,
-                     pipeline: Optional[PipelineContext] = None,
                      topology: Optional[Topology] = None,
                      calibration=None) -> CommPlan:
     """Resolve the transport of this step's exchange over ``axis_name``
     (module docstring).  ``msg_bytes`` is one rank's wire buffer (the
     scales sidecar included), ``chunk_extent`` the slot axis a pipelined
-    exchange would chunk, ``pipeline`` the 1F1B step being built, if
-    any.  ``topology`` replaces the mesh's (its node size still yields
-    to ``comm.node_size``) and ``calibration`` (a
-    ``tune.model.CalibratedCostModel``) the cache lookup.  Raises
-    NotImplementedError where the bubble variant would run."""
+    exchange would chunk; inside a ``pipeline_context`` the 1F1B step
+    being run picks the bubble variant.  ``topology`` replaces the
+    mesh's (its node size still yields to ``comm.node_size``) and
+    ``calibration`` (a ``tune.model.CalibratedCostModel``) the cache
+    lookup."""
     comm = comm or CommConfig()
     topo = topology if topology is not None else build_topology(
         mesh, axis_name=axis_name, node_size=comm.node_size)
@@ -309,8 +336,22 @@ def plan_collectives(mesh=None, comm: Optional[CommConfig] = None, *,
         # the same topology with measured link constants: every cost
         # downstream prices calibrated
         topo = calib.apply(topo)
+    pipeline = current_pipeline_context()
     pipelining = pipeline is not None and pipeline.stages > 1 \
         and pipeline.microbatches > 1
+
+    def _bubble_base() -> tuple:
+        """The transport a bubble plan rides: the calibrated flat /
+        hierarchical ranking where the probe matched, else the static
+        hierarchy rule."""
+        if calib is not None:
+            name, why, _ = _auto_calibrated(calib, topo, axis_name,
+                                            msg_bytes, 1, 0)
+            return name, why
+        if topo.can_factor(axis_name) \
+                and msg_bytes >= comm.min_hierarchical_bytes:
+            return HIERARCHICAL, f"axis factors {topo.factor(axis_name)}"
+        return FLAT, "no hierarchy to exploit"
 
     requested = _validate(comm.a2a_impl or AUTO)
     reason = f"config a2a_impl={requested!r}"
@@ -318,12 +359,17 @@ def plan_collectives(mesh=None, comm: Optional[CommConfig] = None, *,
         requested = _validate(os.environ.get(ENV_VAR, AUTO) or AUTO)
         reason = f"${ENV_VAR}={requested!r}"
     chunks = max(1, int(comm.overlap_chunks))
+    base = ""
     if requested == AUTO:
         if pipelining and topo.axis_size(axis_name) > 1:
-            requested, reason = BUBBLE, (
+            base, base_why = _bubble_base()
+            requested = BUBBLE
+            reason = (
                 f"auto: a2a of microbatch k issues in the 1F1B bubble of "
                 f"k-1 (stages={pipeline.stages}, "
-                f"microbatches={pipeline.microbatches})")
+                f"microbatches={pipeline.microbatches},"
+                f" bubble={pipeline.bubble_fraction:.0%}); base={base}"
+                f" ({base_why})")
         elif calib is not None:
             requested, reason, chunks = _auto_calibrated(
                 calib, topo, axis_name, msg_bytes, chunks, chunk_extent)
@@ -338,6 +384,9 @@ def plan_collectives(mesh=None, comm: Optional[CommConfig] = None, *,
                 f"msg {msg_bytes}B >= {comm.min_hierarchical_bytes}B")
         else:
             requested, reason = FLAT, "auto: no hierarchy/overlap to exploit"
+    elif requested == BUBBLE and pipelining:
+        base, base_why = _bubble_base()
+        reason += f"; base={base} ({base_why})"
     elif requested == PIPELINED and calib is not None:
         tuned = _tuned_chunks(calib, topo, axis_name, msg_bytes,
                               chunk_extent, chunks)
@@ -364,10 +413,6 @@ def plan_collectives(mesh=None, comm: Optional[CommConfig] = None, *,
         requested, reason = FLAT, (
             f"degraded: overlap_chunks={chunks} cannot chunk slot axis "
             f"of {chunk_extent}")
-    if requested == BUBBLE:
-        raise NotImplementedError(
-            f"the bubble-overlapped all-to-all ({reason}) rides the 1F1B "
-            f"schedule, {LATER}")
     if reason.startswith("degraded"):
         # comm/pipeline.py raises on chunkings that do not divide, so the
         # plan is where a mis-sized request is rescued: say so
@@ -375,9 +420,37 @@ def plan_collectives(mesh=None, comm: Optional[CommConfig] = None, *,
     plan = CommPlan(algorithm=requested, axis_name=axis_name, intra=intra,
                     chunks=chunks if requested == PIPELINED else 1,
                     reason=reason, topology=topo,
-                    calibrated=calib is not None, mesh=mesh)
+                    calibrated=calib is not None,
+                    base=base if requested == BUBBLE else "", mesh=mesh)
     _emit_plan_event(axis_name, plan, msg_bytes)
     _LAST_PLANS[axis_name] = plan
+    return plan
+
+
+def plan_stage_transfers(mesh=None, comm: Optional[CommConfig] = None, *,
+                         msg_bytes: int = 0,
+                         topology: Optional[Topology] = None) -> CommPlan:
+    """Record the stage hand-offs of a 1F1B step on the ``pipe`` axis (a
+    send to the next stage, not an all-to-all), priced by
+    ``topology.stage_transfer_cost``, in ``last_plan("pipe")``.  The
+    stages are replicated over ``pipe``, so the hand-off itself moves
+    nothing (``pipeline_schedule.stage_transfer``)."""
+    comm = comm or CommConfig()
+    topo = topology if topology is not None else build_topology(
+        mesh, axis_name="pipe", node_size=comm.node_size)
+    r = topo.axis_size("pipe")
+    inter, intra = topo.factor("pipe")
+    if r > 1:
+        cost = topo_lib.estimate_seconds(topo_lib.stage_transfer_cost(
+            topo, msg_bytes))
+        reason = (f"pipeline: {r - 1} stage hand-offs of {msg_bytes}B per "
+                  f"microbatch (~{cost * 1e6:.0f}us each)")
+    else:
+        reason = "degraded: axis 'pipe' has size 1 — no stage hand-offs"
+    plan = CommPlan(FLAT, "pipe", intra=intra, chunks=1, reason=reason,
+                    topology=topo, mesh=mesh)
+    _emit_plan_event("pipe", plan, msg_bytes)
+    _LAST_PLANS["pipe"] = plan
     return plan
 
 

@@ -1,22 +1,30 @@
-"""A (data, model) mesh of ``torch.distributed`` process groups
-(counterpart of ``repro/launch/mesh.py``).
+"""A (data, model) or (data, pipe, model) mesh of ``torch.distributed``
+process groups (counterpart of ``repro/launch/mesh.py``).
 
 Axes, as in the JAX package:
   data   data parallelism and FSDP of the expert weights;
+  pipe   the 1F1B pipeline's stage axis (runtime/pipeline_schedule.py),
+         left out when it has one rank, so that such a mesh is the
+         (data, model) mesh it was before, groups and rank numbers alike;
   model  expert parallelism: the MoE all-to-all runs over it, and the
          residual stream between blocks is sharded over it by sequence.
 
 Ranks are laid out row-major over the mesh shape, as the JAX package's
-``devs.reshape(shape)`` lays out devices: rank = d * model + m.  A group
-is made for every slice of every axis of more than one rank, on every
-rank in the same order (``dist.new_group`` is collective), and one for
-the whole mesh; an axis of one rank has no group, and the collectives
-treat a missing group as the identity (comm/collectives.py).
+``devs.reshape(shape)`` lays out devices: rank = (d * pipe + p) * model
++ m.  A group is made for every slice of every axis of more than one
+rank, on every rank in the same order (``dist.new_group`` is
+collective), one for the (data, model) slice of each pipe index, and one
+for the whole mesh; an axis of one rank has no group, and the
+collectives treat a missing group as the identity (comm/collectives.py).
+The pipe axis partitions the schedule, not the placement: the ranks of
+one pipe column hold the same params and the same rows and compute the
+same thing, so a step's reductions run over its (data, model) slice
+(``runtime.sharding.all_group``), never over ``pipe``.
 
 Where the node size factors the model axis (1 < intra < model, intra
 divides it), ``make_mesh`` also builds the 2-hop's subgroups
-(comm/hierarchical.py), for each data index: the intra-node groups, then
-the inter-node groups of ranks with one local index
+(comm/hierarchical.py), for each (data, pipe) index: the intra-node
+groups, then the inter-node groups of ranks with one local index
 (``comm.hierarchical.intra_groups`` / ``inter_groups``).  ``Mesh.hop_groups``
 returns this rank's pair, and builds those of another node size (a
 ``CommConfig.node_size`` or ``$REPRO_NODE_SIZE`` that differs from the
@@ -48,6 +56,16 @@ from repro_torch.comm.hierarchical import inter_groups, intra_groups
 from repro_torch.comm.topology import factor
 
 AXES = ("data", "model")
+PIPE_AXES = ("data", "pipe", "model")
+
+
+def mesh_dims(data: int, pipe: int, model: int):
+    """(shape, axes) with the pipe axis left out at pipe == 1 (the JAX
+    ``_mesh_dims``)."""
+    pipe = max(1, int(pipe))
+    if pipe > 1:
+        return (int(data), pipe, int(model)), PIPE_AXES
+    return (int(data), int(model)), AXES
 
 
 def backend_for(device: torch.device) -> str:
@@ -90,26 +108,25 @@ def init_distributed(device: torch.device, *, store=None,
 
 
 class Mesh:
-    """A (data, model) mesh: its shape, this rank's coordinates and the
-    process groups of this rank's slices.
+    """A (data, model) or (data, pipe, model) mesh: its shape, this rank's
+    coordinates and the process groups of this rank's slices.
 
     ``Mesh(shape)`` alone describes a mesh without groups (what the
-    planner and the shape checks read); ``make_mesh`` builds the groups
-    of a started default group."""
+    planner and the shape checks read); a shape of three sizes has a pipe
+    axis.  ``make_mesh`` builds the groups of a started default group."""
 
-    axis_names: Tuple[str, ...] = AXES
-
-    def __init__(self, shape: Tuple[int, int], *, rank: int = 0,
+    def __init__(self, shape: Tuple[int, ...], *, rank: int = 0,
                  groups: Optional[Dict[Tuple[str, ...], object]] = None,
                  node_size: int = 0):
-        self.shape = dict(zip(self.axis_names, (int(s) for s in shape)))
+        shape = tuple(int(s) for s in shape)
+        self.axis_names: Tuple[str, ...] = \
+            PIPE_AXES if len(shape) == 3 else AXES
+        self.shape = dict(zip(self.axis_names, shape))
         self.size = math.prod(self.shape.values())
         if not 0 <= rank < self.size:
             raise ValueError(f"rank {rank} outside a mesh of {self.size}")
         self.rank = rank
-        self.coords = dict(zip(self.axis_names,
-                               (rank // self.shape["model"],
-                                rank % self.shape["model"])))
+        self.coords = _coords(self.shape, rank)
         self._groups = dict(groups or {})
         self._hops: Dict[int, Tuple[object, object]] = {}
         self.node_size = int(node_size)
@@ -146,6 +163,21 @@ class Mesh:
         return f"Mesh({self.shape}, rank={self.rank})"
 
 
+def _coords(shape: Dict[str, int], rank: int) -> Dict[str, int]:
+    """A rank's coordinates in the row-major layout of ``shape``."""
+    out = {}
+    for a in reversed(list(shape)):
+        rank, out[a] = divmod(rank, shape[a])
+    return {a: out[a] for a in shape}
+
+
+def _rank(shape: Dict[str, int], coords: Dict[str, int]) -> int:
+    r = 0
+    for a in shape:
+        r = r * shape[a] + coords[a]
+    return r
+
+
 def _slices(shape: Dict[str, int], axes: Tuple[str, ...]):
     """The rank lists of every slice over ``axes``, in a fixed order."""
     names = list(shape)
@@ -155,8 +187,7 @@ def _slices(shape: Dict[str, int], axes: Tuple[str, ...]):
         pin = dict(zip(fixed, fixed_idx))
         ranks = []
         for free_idx in _product([range(shape[a]) for a in axes]):
-            c = {**pin, **dict(zip(axes, free_idx))}
-            ranks.append(c["data"] * shape["model"] + c["model"])
+            ranks.append(_rank(shape, {**pin, **dict(zip(axes, free_idx))}))
         out.append(ranks)
     return out
 
@@ -179,11 +210,11 @@ def _new_hop_groups(shape: Dict[str, int], rank: int, intra: int
         raise ValueError(f"{intra} ranks a node do not factor a model "
                          f"axis of {m}")
     mine = [None, None]
-    for d in range(shape["data"]):
+    for column in _slices(shape, ("model",)):   # one a (data, pipe) index
         for hop, lists in enumerate((intra_groups(m, intra),
                                      inter_groups(m, intra))):
             for local in lists:
-                ranks = [d * m + r for r in local]
+                ranks = [column[r] for r in local]
                 g = dist.new_group(ranks)
                 if rank in ranks:
                     mine[hop] = g
@@ -192,27 +223,27 @@ def _new_hop_groups(shape: Dict[str, int], rank: int, intra: int
 
 def make_mesh(data: int = 1, model: int = 1, pipe: int = 1, *,
               node_size: int = 0) -> Mesh:
-    """The (data, model) mesh over the started default group, whose size
-    must be data * model.  ``node_size`` is the ranks a node holds (0:
-    torchrun's LOCAL_WORLD_SIZE when the mesh spans several hosts), for
-    the planner; where it factors the model axis, the 2-hop's subgroups
-    are built too.  ``pipe`` > 1 raises: pipeline stages are ROADMAP Queue 1
-    item 6."""
-    if int(pipe) > 1:
-        raise NotImplementedError(
-            "a pipe axis (pipeline parallelism) is not ported (ROADMAP "
-            "Queue 1 item 6)")
-    shape = {"data": int(data), "model": int(model)}
+    """The mesh over the started default group, whose size must be
+    data * pipe * model: (data, model), or (data, pipe, model) when
+    ``pipe`` > 1.  ``node_size`` is the ranks a node holds (0: torchrun's
+    LOCAL_WORLD_SIZE when the mesh spans several hosts), for the planner;
+    where it factors the model axis, the 2-hop's subgroups are built
+    too."""
+    dims, names = mesh_dims(data, pipe, model)
+    shape = dict(zip(names, dims))
     world = dist.get_world_size() if dist.is_initialized() else 1
-    if math.prod(shape.values()) != world:
-        raise ValueError(f"mesh {shape} needs {math.prod(shape.values())} "
-                         f"ranks; the default group has {world}")
+    if math.prod(dims) != world:
+        raise ValueError(f"mesh {shape} needs {math.prod(dims)} ranks; the "
+                         f"default group has {world}")
     rank = dist.get_rank() if dist.is_initialized() else 0
     groups: Dict[Tuple[str, ...], object] = {}
-    for axes in (("data",), ("model",), AXES):
+    axis_sets = [(a,) for a in names]
+    if "pipe" in names:
+        axis_sets.append(("data", "model"))
+    for axes in axis_sets + [names]:
         if math.prod(shape[a] for a in axes) == 1:
             continue
-        if axes == AXES:
+        if axes == names:
             groups[axes] = dist.group.WORLD
             continue
         for ranks in _slices(shape, axes):
@@ -223,8 +254,7 @@ def make_mesh(data: int = 1, model: int = 1, pipe: int = 1, *,
         # ranks a host holds, when the mesh spans several hosts
         local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
         node_size = local if 0 < local < world else 0
-    mesh = Mesh((shape["data"], shape["model"]), rank=rank, groups=groups,
-                node_size=node_size)
+    mesh = Mesh(dims, rank=rank, groups=groups, node_size=node_size)
     if factor(shape["model"], node_size)[0] > 1:
         mesh.hop_groups(node_size)
     return mesh

@@ -12,7 +12,8 @@ package's batches, bit for bit, a pure function of the step).  Prints one
 JSON ``step`` line per logged step (step, loss, ce, lr, dt, skips) and a
 final ``train_summary`` line: steps run by this process, mean step ms
 after the first, tokens/s over those steps, final loss, and the peak of
-``torch.cuda.max_memory_allocated`` (null on the CPU); the other events
+``torch.cuda.max_memory_allocated`` (null on the CPU), and on a pipe
+mesh whether every pipe column's losses were bit-equal; the other events
 print as one line each (``obs.events.render``).  ``dt`` is the host clock
 around a step, which ends in a synchronise (the loss is read back).
 
@@ -37,8 +38,6 @@ Fault tolerance (resilience/, checkpoint/, runtime/fault.py):
    it by its exit class ($MAX_RESTARTS within $RESTART_WINDOW_S, backoff
    from $RESTART_BACKOFF_S; preemptions free, usage errors never).  A
    one-process run only: under torchrun it is a usage error.
- * ``--mesh-pipe`` and ``--pipeline-microbatches`` are ROADMAP Queue 1
-   item 6; argparse rejects them.
 
 Observability (obs/), as in the JAX launcher: ``--metrics-dir DIR`` turns
 on the in-graph metrics and the phase ranges (``ObsConfig``), appends
@@ -58,8 +57,10 @@ calibration is in play.  The anomaly detectors (obs/anomaly.py) watch
 step time, loss, comm share, stragglers and load imbalance whenever
 ``--metrics-dir`` is on; ``--anomaly-exit`` escalates a persistent
 slowdown to a checkpoint and exit 43 (``resilience.supervisor.
-AnomalyEscalator``).  A step's time runs from before the chaos hook, so
-an injected stall or hang counts in it.
+AnomalyEscalator``).  As in the JAX launcher, a step's time starts after
+the chaos hook (an injected stall or hang is not the step's), while the
+watchdog is armed before it (a hang must trip it) and disarmed before
+the timeline stops.
 
 Expert parallelism: ``--mesh-data D --mesh-model M`` trains over a
 (data, model) mesh of D * M ranks, started by torchrun:
@@ -79,6 +80,20 @@ hosts).  ``--autotune`` probes the mesh and fills the comm tuning cache
 before step 0 (tune/), and makes this run read it unless $REPRO_TUNE is
 set; ``CommConfig.tuning="probe"`` probes on a cache miss without the
 flag.
+
+Pipeline parallelism: ``--mesh-pipe P`` adds a pipe axis, a (data, pipe,
+model) mesh of D * P * M ranks, and trains with the 1F1B step
+(runtime/pipeline_schedule.py) over ``--pipeline-microbatches`` (0: P)
+microbatches; the pipe indices hold the same params and rows.  The comm
+plans print as ``[comm] plan: bubble ...`` (the model axis) and the
+stage hand-offs on ``pipe``, and ``--metrics-dir``'s trace.json gains one
+row per stage of the 1F1B grid with its ``a2a`` marks.  A mesh of more
+ranks than the job has exits 2:
+
+  PYTHONPATH=src torchrun --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.train --arch qwen3-moe-30b-a3b --smoke \
+      --device cpu --mesh-pipe 2 --mesh-model 2 \
+      --pipeline-microbatches 4 --steps 2 --batch 8 --seq 32
 """
 from __future__ import annotations
 
@@ -133,7 +148,12 @@ def _parser() -> argparse.ArgumentParser:
                          "detectors see persistent degradation, for "
                          "--auto-restart's budgeted supervisor")
     ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-pipe", type=int, default=1,
+                    help="pipeline stages: a (data, pipe, model) mesh "
+                         "trained with the 1F1B schedule")
     ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--pipeline-microbatches", type=int, default=0,
+                    help="1F1B microbatches (0 = --mesh-pipe)")
     ap.add_argument("--node-size", type=int, default=0,
                     help="ranks a node along the model axis (0 = "
                          "$REPRO_NODE_SIZE, else LOCAL_WORLD_SIZE)")
@@ -179,8 +199,9 @@ def main(argv=None) -> int:
 
     from repro_torch import resolve_device
     dev = resolve_device(args.device)
+    n_mesh = args.mesh_data * args.mesh_pipe * args.mesh_model
     if args.auto_restart:
-        if "RANK" in os.environ or args.mesh_data * args.mesh_model > 1:
+        if "RANK" in os.environ or n_mesh > 1:
             ap.error("--auto-restart supervises a one-process run; under "
                      "torchrun (or with a mesh) restart the job from its "
                      "launcher instead")
@@ -194,13 +215,25 @@ def main(argv=None) -> int:
     from repro_torch.obs import export as obs_export
 
     mesh, own_group = None, False
-    if "RANK" in os.environ or args.mesh_data * args.mesh_model > 1 \
-            or dist.is_initialized():
+    world = dist.get_world_size() if dist.is_initialized() else \
+        int(os.environ.get("WORLD_SIZE", "1") or 1)
+    if n_mesh > world:
+        sink = obs_events.global_log().add_sink(obs_events.ConsoleSink())
+        try:
+            obs_events.emit(
+                "error", where="train",
+                message=(f"mesh {args.mesh_data}x{args.mesh_pipe}x"
+                         f"{args.mesh_model} needs {n_mesh} devices, have "
+                         f"{world} (start that many ranks with torchrun)"))
+        finally:
+            obs_events.global_log().remove_sink(sink)
+        return 2
+    if "RANK" in os.environ or n_mesh > 1 or dist.is_initialized():
         if dev.type == "cuda":
             dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
         own_group = not dist.is_initialized()
         init_distributed(dev)
-        mesh = make_mesh(args.mesh_data, args.mesh_model,
+        mesh = make_mesh(args.mesh_data, args.mesh_model, args.mesh_pipe,
                          node_size=args.node_size)
     log = obs_events.global_log()
     sinks, jsonl, mem = [], None, None
@@ -236,6 +269,7 @@ def _train(args, dev, mesh, mem) -> int:
 
     from repro_torch.checkpoint.checkpoint import (CheckpointManager,
                                                    load_checkpoint)
+    from repro_torch.comm import collectives
     from repro_torch.comm import planner as comm_planner
     from repro_torch.comm.collectives import any_rank
     from repro_torch.configs.base import OptimizerConfig
@@ -250,12 +284,19 @@ def _train(args, dev, mesh, mem) -> int:
                                            ExpertRebalancer,
                                            PreemptionHandler, StepWatchdog,
                                            StragglerMonitor)
+    from repro_torch.models.model import torch_dtype
     from repro_torch.runtime.step import init_train_state, make_train_step
     from repro_torch.tune import runtime as tune_runtime
+    # torch.utils.checkpoint imports torch._dynamo (and sympy) on its first
+    # call, seconds on a loaded host: import it here, before the first
+    # step arms the watchdog
+    import torch._dynamo  # noqa: F401
 
     emit = obs_events.emit
     rank0 = mesh is None or mesh.rank == 0
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.mesh_pipe > 1:
+        cfg = cfg.replace(pipeline_microbatches=args.pipeline_microbatches)
     if args.metrics_dir:
         cfg = cfg.replace(moe=dataclasses.replace(
             cfg.moe, obs=dataclasses.replace(cfg.moe.obs, enabled=True)))
@@ -310,9 +351,16 @@ def _train(args, dev, mesh, mem) -> int:
         # expert_load comes in physical slot order; the identity until a
         # placement is applied (core.lsh_moe.apply_placement_update)
         placement = np.arange(cfg.moe.num_experts, dtype=np.int32)
+    n_mb = (cfg.pipeline_microbatches or args.mesh_pipe) \
+        if args.mesh_pipe > 1 else 1
+    stage_msg_bytes = 0
+    if args.mesh_pipe > 1:
+        stage_msg_bytes = (args.batch // max(1, n_mb)) * args.seq \
+            * cfg.d_model * torch.empty(
+                (), dtype=torch_dtype(cfg.dtype)).element_size()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
-    world = sharding.all_group(mesh)
+    world = sharding.world_group(mesh)
     prof = _Profile(args, dev, mesh, world, cfg, comm)
     state = init_train_state(cfg, opt, seed=0, device=dev, mesh=mesh)
     start = 0
@@ -331,9 +379,14 @@ def _train(args, dev, mesh, mem) -> int:
         profile_extra = prof.analyze()
         if not rank0:
             return
+        sched = None
+        if args.mesh_pipe > 1:
+            from repro_torch.runtime.pipeline_schedule import build_1f1b
+            sched = build_1f1b(args.mesh_pipe, n_mb)
         obs_export.write_chrome_trace(
             os.path.join(args.metrics_dir, obs_export.TRACE_NAME),
-            timeline, mem.events if mem is not None else ())
+            timeline, mem.events if mem is not None else (),
+            schedule=sched)
         extra = {k: float(v) for k, v in (final_metrics or {}).items()
                  if v.ndim == 0}
         extra.update(profile_extra)
@@ -344,29 +397,31 @@ def _train(args, dev, mesh, mem) -> int:
             os.path.join(args.metrics_dir, obs_export.METRICS_NAME),
             timeline, extra=extra)
 
-    dts, loss, metrics = [], float("nan"), {}
+    dts, losses, loss, metrics = [], [], float("nan"), {}
     try:
         for s in range(start, args.steps):
             if args.profile and (s == start + 1 or args.steps - start == 1):
                 prof.start()
             batch = ds.batch_at(s)
             watchdog.arm()
-            timeline.start(s)
             if chaos is not None:
-                # after arm(): a hang must trip the watchdog
+                # after arm(): a hang must trip the watchdog; before the
+                # timeline: an injected stall is not the step's time
                 chaos.on_step_start(s)
                 batch = chaos.chaos_batch(batch, s)
+            timeline.start(s)
             state, metrics = step_fn(state, place(batch, dev))
             loss = float(metrics["loss"])       # waits for the step
+            watchdog.disarm()
             rec = timeline.stop(s)
             dt = rec.duration
-            watchdog.disarm()
             dts.append(dt)
+            losses.append(loss)
             if s == start:
                 # the first step resolved the comm plan: the modeled split
                 prof.modeled = timeline_lib.model_phase_seconds(
                     _effective(cfg, use_lsh), mesh, batch=args.batch,
-                    seq=args.seq)
+                    seq=args.seq, stage_msg_bytes=stage_msg_bytes)
                 timeline.set_phase_seconds(prof.modeled)
             prof.step_done(args.profile)
             is_straggler = straggler.record(s, dt)
@@ -426,6 +481,14 @@ def _train(args, dev, mesh, mem) -> int:
         watchdog.stop()
         prof.stop()
     export_artifacts(metrics)
+    extra = {}
+    if sharding.axis_size(mesh, "pipe") > 1:
+        # the pipe columns compute the same thing: say whether they did
+        col = collectives.raw_all_gather(
+            torch.tensor(losses, dtype=torch.float64, device=dev),
+            sharding.pipe_group(mesh), 0).reshape(args.mesh_pipe, -1)
+        extra["pipe_columns_bit_equal"] = all(
+            torch.equal(col[0], c) for c in col[1:])
     steady = dts[1:]
     tokens = args.batch * args.seq
     emit("train_summary", arch=args.arch, smoke=args.smoke, steps=len(dts),
@@ -443,7 +506,7 @@ def _train(args, dev, mesh, mem) -> int:
          device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                  else "cpu"),
          mesh=None if mesh is None else mesh.shape,
-         comm_share=timeline.comm_share())
+         comm_share=timeline.comm_share(), **extra)
     return 0
 
 

@@ -1,6 +1,9 @@
 """Model assembly (counterpart of ``repro/models/model.py``):
 ``init_params``, the training forward and loss (``forward``,
-``head_logits``, ``loss_from_logits``, ``loss_fn``), inference prefill
+``head_logits``, ``loss_from_logits``, ``loss_fn``), the pieces a
+pipeline stage runs (``stage_bounds``, ``stage_blocks``,
+``_embed_inputs``, ``_stack_forward`` with a stats carry,
+runtime/pipeline_schedule.py), inference prefill
 (``prefill``: the forward without gradients, the last position's
 logits) and decoding (``init_decode_state``, ``decode_step``).
 
@@ -143,34 +146,75 @@ def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, ffn: str, *,
 
 def head_logits(params: Dict, cfg: ModelConfig,
                 x: torch.Tensor) -> torch.Tensor:
-    """Final norm + (tied) unembedding -> f32 logits."""
+    """Final norm + (tied) unembedding -> f32 logits.  ``params`` needs
+    "final_norm" and "embed" / "head" only: the last pipeline stage
+    passes its own slice."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
     return (x @ params["head"]["w"]).to(torch.float32)
 
 
-def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
-            use_lsh: Optional[bool] = None, mesh=None,
-            moe_mode: str = "train") -> Tuple[torch.Tensor, Dict]:
-    """tokens [B, S] (with a mesh, this rank's [B / data, S / model]) ->
-    (logits [B, S, V] f32, stats with "aux_loss", "z_loss" summed over
-    the MoE layers and "expert_load" summed per expert, each over every
-    rank, and with in-graph metrics on, "comm": the MetricBag merged over
-    the layers, obs/metrics.py).  Each block is recomputed in the backward pass
+def stage_bounds(num_super_blocks: int,
+                 stages: int) -> Tuple[Tuple[int, int], ...]:
+    """Even partition of the super-blocks into pipeline stages, as
+    [start, stop) super-block ranges.  Cut at super-block granularity, so
+    every stage keeps a whole layout repeat and with it its MoE blocks;
+    the earlier stages take the remainder, so the last stage (which also
+    holds the head) is never the widest."""
+    if stages < 1:
+        raise ValueError(f"stages={stages} must be >= 1")
+    if stages > num_super_blocks:
+        raise ValueError(
+            f"stages={stages} > num_super_blocks={num_super_blocks}: every "
+            f"stage needs >= 1 super-block (one full layout repeat)")
+    base, rem = divmod(num_super_blocks, stages)
+    bounds, start = [], 0
+    for s in range(stages):
+        width = base + (1 if s < rem else 0)
+        bounds.append((start, start + width))
+        start += width
+    return tuple(bounds)
+
+
+def stage_blocks(layers: List[Dict], start: int, stop: int,
+                 layout_len: int) -> List[Dict]:
+    """The layers of super-blocks [start, stop): a slice of
+    ``params["layers"]``, whose ``layout_len`` layers a super-block are
+    stored super-block major.  The same param dicts, not copies."""
+    return layers[start * layout_len:stop * layout_len]
+
+
+def _embed_inputs(params: Dict, cfg: ModelConfig,
+                  tokens: torch.Tensor) -> torch.Tensor:
+    return embed(params["embed"], tokens)
+
+
+def _stack_forward(layers: List[Dict], x: torch.Tensor, cfg: ModelConfig, *,
+                   use_lsh: Optional[bool], mesh, moe_mode: str = "train",
+                   init_stats: Optional[Tuple] = None
+                   ) -> Tuple[torch.Tensor, Dict]:
+    """The blocks of ``layers`` (whole super-blocks, in params["layers"]
+    order) over x -> (x, stats).  ``init_stats`` is the (aux, z, load,
+    comm) carry of the stack before (``stats_carry``) when the stack is
+    cut into pipeline stages; None starts it as the whole stack does
+    (aux and z zero, load and comm empty until the first MoE layer).
+    Each block is recomputed in the backward pass
     (``torch.utils.checkpoint``, which runs its collectives again, in the
     same order on every rank) when ``remat_policy`` is "nothing" or
     "dots", and kept when it is "full": the JAX rule, at block
     granularity (without gradients nothing is kept to recompute)."""
-    check_supported(cfg)
     remat = cfg.remat_policy in ("nothing", "dots") \
         and torch.is_grad_enabled()
-    x = embed(params["embed"], tokens)
     dev = x.device
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    z = torch.zeros((), dtype=torch.float32, device=dev)
-    load = comm = None
-    for (_, ffn), p in zip(layer_kinds(cfg), params["layers"]):
+    if init_stats is None:
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        z = torch.zeros((), dtype=torch.float32, device=dev)
+        load, comm = None, initial_comm_stat(cfg)
+    else:
+        aux, z, load, comm = init_stats
+    kinds = list(cfg.layout) * (len(layers) // max(1, len(cfg.layout)))
+    for (_, ffn), p in zip(kinds, layers):
         fn = partial(_block, p, cfg=cfg, ffn=ffn, use_lsh=use_lsh,
                      mesh=mesh, moe_mode=moe_mode)
         if remat:
@@ -181,12 +225,51 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             aux, z = aux + a, z + zz
             load = ld if load is None else load + ld
             comm = obs_metrics.merge_stat(comm, cm)
-    if load is None:
-        load = torch.zeros((1,), dtype=torch.float32, device=dev)
-    stats = {"aux_loss": aux, "z_loss": z, "expert_load": load}
-    if comm is not None:
-        stats["comm"] = comm
-    return head_logits(params, cfg, x), stats
+    return x, {"aux_loss": aux, "z_loss": z, "expert_load": load,
+               "comm": comm}
+
+
+def stats_carry(stats: Dict) -> Tuple:
+    """stats -> the (aux, z, load, comm) carry that threads a stack cut
+    into pipeline stages across their boundaries."""
+    return (stats["aux_loss"], stats["z_loss"], stats["expert_load"],
+            stats["comm"])
+
+
+def initial_comm_stat(cfg: ModelConfig):
+    """The comm slot of the first stage's carry: empty.  The first MoE
+    layer's MetricBag (or nothing, with in-graph metrics off) takes its
+    place, as in the whole stack, so a staged forward adds no op."""
+    return None
+
+
+def _final_stats(stats: Dict, device) -> Dict:
+    """The stack's stats as ``forward`` returns them: a load of zeros
+    [1] without a MoE layer, no comm entry without in-graph metrics."""
+    out = {"aux_loss": stats["aux_loss"], "z_loss": stats["z_loss"],
+           "expert_load": stats["expert_load"]}
+    if out["expert_load"] is None:
+        out["expert_load"] = torch.zeros((1,), dtype=torch.float32,
+                                         device=device)
+    if stats["comm"] is not None:
+        out["comm"] = stats["comm"]
+    return out
+
+
+def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            use_lsh: Optional[bool] = None, mesh=None,
+            moe_mode: str = "train") -> Tuple[torch.Tensor, Dict]:
+    """tokens [B, S] (with a mesh, this rank's [B / data, S / model]) ->
+    (logits [B, S, V] f32, stats with "aux_loss", "z_loss" summed over
+    the MoE layers and "expert_load" summed per expert, each over every
+    rank, and with in-graph metrics on, "comm": the MetricBag merged over
+    the layers, obs/metrics.py): ``_embed_inputs``, ``_stack_forward``
+    over every layer, ``head_logits``."""
+    check_supported(cfg)
+    x = _embed_inputs(params, cfg, tokens)
+    x, stats = _stack_forward(params["layers"], x, cfg, use_lsh=use_lsh,
+                              mesh=mesh, moe_mode=moe_mode)
+    return head_logits(params, cfg, x), _final_stats(stats, x.device)
 
 
 def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,

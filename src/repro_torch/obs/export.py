@@ -4,12 +4,12 @@ metrics summary (counterpart of ``repro/obs/export.py``).
 The Chrome trace-event format (the ``{"traceEvents": [...]}`` JSON that
 ``chrome://tracing`` and https://ui.perfetto.dev load) holds the step
 timeline: each step and its phase spans from ``obs/timeline.py`` become
-complete ("ph": "X") events and the structured events instant ("ph":
-"i") markers.  Timestamps are microseconds (the format's unit) from the
-first span.  This is the host-side attribution; the measured device
-trace of ``--profile`` is ``torch.profiler``'s own, under
-``<metrics-dir>/torch_trace/``.  The JAX exporter's 1F1B rows wait for
-the pipeline schedule (ROADMAP Queue 1 item 6).
+complete ("ph": "X") events, the 1F1B grid of a pipelined step one row
+a stage (tid 100 + stage) with its ``a2a`` marks, and the structured
+events instant ("ph": "i") markers.  Timestamps are microseconds (the
+format's unit) from the first span.  This is the host-side attribution;
+the measured device trace of ``--profile`` is ``torch.profiler``'s own,
+under ``<metrics-dir>/torch_trace/``.
 
 ``write_metrics_json`` writes the scalar summary (live comm share, mean
 step seconds, phase weights, the final step metrics, and with
@@ -31,6 +31,7 @@ METRICS_NAME = "metrics.json"
 _PID = 0
 TID_PHASES = 0
 TID_EVENTS = 1
+TID_STAGE0 = 100                        # the pipeline stages' rows
 
 
 def _us(seconds: float, origin: float) -> float:
@@ -38,8 +39,11 @@ def _us(seconds: float, origin: float) -> float:
 
 
 def chrome_trace(tl: Optional[timeline_lib.StepTimeline] = None,
-                 events: Iterable[events_lib.Event] = ()) -> Dict:
-    """The trace-event JSON dict of the timeline's steps and ``events``."""
+                 events: Iterable[events_lib.Event] = (),
+                 schedule=None) -> Dict:
+    """The trace-event JSON dict of the timeline's steps and ``events``;
+    ``schedule`` (a 1F1B ``runtime/pipeline_schedule.Schedule``) adds
+    the reconstructed grid of every step and its exchange marks."""
     evs: List[Dict] = []
     records = tl.records if tl is not None else []
     origin = records[0].start if records else \
@@ -62,6 +66,8 @@ def chrome_trace(tl: Optional[timeline_lib.StepTimeline] = None,
                         "tid": TID_PHASES, "ts": _us(sp.start, origin),
                         "dur": sp.duration * 1e6,
                         "args": {"step": rec.step}})
+    if schedule is not None and records:
+        evs += _pipeline_rows(schedule, records, origin, meta)
     emitted = list(events)
     if emitted:
         evs.append(meta(TID_EVENTS, "events"))
@@ -75,12 +81,41 @@ def chrome_trace(tl: Optional[timeline_lib.StepTimeline] = None,
     return {"traceEvents": evs, "displayTimeUnit": "ms"}
 
 
+def _pipeline_rows(schedule, records, origin: float, meta) -> List[Dict]:
+    """One row a stage: each step's F / B units and an ``a2a`` mark a
+    forward unit, with its slot's status."""
+    evs = [meta(TID_STAGE0 + s, f"pipe stage {s}")
+           for s in range(schedule.stages)]
+    slots = timeline_lib.classify_a2a(schedule)
+    for rec in records:
+        tick_s = rec.duration / max(1, schedule.ticks)
+        for u in timeline_lib.reconstruct_grid(schedule, rec.start,
+                                               rec.duration):
+            evs.append({"ph": "X", "name": f"{u.phase}{u.microbatch}",
+                        "pid": _PID, "tid": TID_STAGE0 + u.stage,
+                        "ts": _us(u.start, origin), "dur": u.duration * 1e6,
+                        "args": {"step": rec.step, "phase": u.phase,
+                                 "microbatch": u.microbatch}})
+        for a in slots:
+            ts = rec.start + max(0, a.tick) * tick_s
+            evs.append({"ph": "i", "s": "t",
+                        "name": f"a2a mb{a.microbatch} [{a.status}]",
+                        "pid": _PID, "tid": TID_STAGE0 + a.stage,
+                        "ts": _us(ts, origin),
+                        "args": {"step": rec.step, "stage": a.stage,
+                                 "microbatch": a.microbatch,
+                                 "tick": a.tick, "status": a.status,
+                                 "hidden": a.hidden}})
+    return evs
+
+
 def write_chrome_trace(path: str,
                        tl: Optional[timeline_lib.StepTimeline] = None,
-                       events: Iterable[events_lib.Event] = ()) -> str:
+                       events: Iterable[events_lib.Event] = (),
+                       schedule=None) -> str:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "w") as f:
-        json.dump(chrome_trace(tl, events), f, default=str)
+        json.dump(chrome_trace(tl, events, schedule), f, default=str)
     return path
 
 

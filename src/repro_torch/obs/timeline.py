@@ -10,9 +10,14 @@ The spans tile the step, so their proportions are the model's; the
 measured counterpart comes from a device trace (obs/profile.py), and
 obs/reconcile.py diffs the two.
 
-The 1F1B grid reconstruction of the JAX module (``classify_a2a``,
-``reconstruct_grid``) needs the pipeline schedule, ROADMAP Queue 1 item
-6, and waits for it.
+On a mesh with a pipe axis ``reconstruct_grid`` lays the 1F1B timetable
+(``runtime/pipeline_schedule.build_1f1b``) over the measured step: one
+span a (stage, microbatch) F or B unit, and ``classify_a2a`` one mark a
+forward unit at ``Schedule.a2a_slot``: ``bubble`` (the slot is an idle
+tick: the exchange hides in a bubble), ``overlap`` (the slot computes
+another microbatch) or ``cold_start`` (the pipeline's first unit, with
+nothing to hide behind).  Pure schedule arithmetic, as the reference's
+(obs/export.py draws them).
 """
 from __future__ import annotations
 
@@ -51,15 +56,18 @@ class StepRecord:
 
 
 def model_phase_seconds(cfg, mesh, *, batch: int, seq: int,
-                        device_flops: float = DEVICE_FLOPS
-                        ) -> Dict[str, float]:
+                        device_flops: float = DEVICE_FLOPS,
+                        stage_msg_bytes: int = 0) -> Dict[str, float]:
     """Modeled seconds per phase of one training step of ``cfg`` on
     ``mesh`` (None: one card), the JAX function's terms: the step is
     6 x active params x tokens FLOPs over the mesh's peak; the
     all-to-all legs price the true wire bytes (scales sidecar included)
     through the planner's cost model (``CommPlan.wire_cost``); gate, hash,
-    expert MLP and decompress their analytic FLOPs.  Call it after the
-    first step, so that ``comm.planner.last_plan()`` is the step's."""
+    expert MLP and decompress their analytic FLOPs; on a pipe axis of P
+    ranks, P - 1 stage hand-offs of ``stage_msg_bytes`` through
+    ``topology.stage_transfer_cost`` (the ``pipe`` plan's topology).
+    Call it after the first step, so that ``comm.planner.last_plan()``
+    is the step's."""
     from repro_torch.comm import planner as comm_planner
     from repro_torch.comm import topology as topo_lib
     from repro_torch.configs.base import MOE, active_param_count
@@ -113,6 +121,15 @@ def model_phase_seconds(cfg, mesh, *, batch: int, seq: int,
         out["expert_mlp"] = (2.0 * tokens * moe.top_k
                              * n_mat * h * moe.expert_ffn_dim
                              * n_moe / flops)
+
+    pipe_r = sharding.axis_size(mesh, "pipe")
+    if pipe_r > 1 and stage_msg_bytes:
+        plan = comm_planner.last_plan("pipe")
+        topo = plan.topology if plan is not None else \
+            topo_lib.build_topology(mesh, axis_name="pipe")
+        hop = topo_lib.estimate_seconds(
+            topo_lib.stage_transfer_cost(topo, stage_msg_bytes))
+        out["stage_transfer"] = hop * (pipe_r - 1)
 
     spent = sum(v for k, v in out.items()
                 if k not in COMM_PHASES and k != "other")
@@ -209,3 +226,70 @@ class StepTimeline:
             for name, w in sorted(self._weights.items()):
                 out[f"weight_{name}"] = w
         return out
+
+
+# ------------------------------------------------- 1F1B reconstruction ----
+
+A2A_BUBBLE = "bubble"                   # the slot is an idle tick
+A2A_OVERLAP = "overlap"                 # the slot computes another microbatch
+A2A_COLD_START = "cold_start"           # the first unit: nothing to hide it
+
+
+@dataclass(frozen=True)
+class A2ASlot:
+    stage: int
+    microbatch: int
+    tick: int                           # Schedule.a2a_slot(stage, mb)
+    status: str                         # A2A_BUBBLE | A2A_OVERLAP | ...
+
+    @property
+    def hidden(self) -> bool:
+        return self.status in (A2A_BUBBLE, A2A_OVERLAP)
+
+
+def classify_a2a(sched) -> List[A2ASlot]:
+    """One record a (stage, microbatch) forward unit: the tick
+    ``Schedule.a2a_slot`` gives its MoE exchange and what that tick holds.
+    By the schedule's contract it is never the unit's own tick."""
+    out = []
+    for s in range(sched.stages):
+        for mb in range(sched.microbatches):
+            t = sched.a2a_slot(s, mb)
+            if t < 0:
+                status = A2A_COLD_START
+            elif sched.grid[s][t] is None:
+                status = A2A_BUBBLE
+            else:
+                status = A2A_OVERLAP
+            out.append(A2ASlot(s, mb, t, status))
+    return out
+
+
+@dataclass(frozen=True)
+class PipelineUnit:
+    stage: int
+    tick: int
+    phase: str                          # "F" | "B"
+    microbatch: int
+    start: float
+    duration: float
+
+
+def reconstruct_grid(sched, start: float, duration: float
+                     ) -> List[PipelineUnit]:
+    """Lay the 1F1B timetable over a measured step: every occupied
+    (stage, tick) becomes a span one tick wide.  The ticks are uniform:
+    the schedule's shape (bubbles, warm-up and cool-down) at the step's
+    scale, not per-tick times, which the host does not see."""
+    tick_s = duration / max(1, sched.ticks)
+    units = []
+    for s in range(sched.stages):
+        for t, unit in enumerate(sched.grid[s]):
+            if unit is None:
+                continue
+            ph, mb = unit
+            units.append(PipelineUnit(stage=s, tick=t, phase=ph,
+                                      microbatch=mb,
+                                      start=start + t * tick_s,
+                                      duration=tick_s))
+    return units

@@ -10,7 +10,15 @@ place every tensor.  The port places them itself, in one layout:
   expert weights w_gate / w_up / w_down [E_pad, X, Y] split E_pad over
                  ``model`` and X over ``data`` (the JAX package's
                  ``P("model", "data", None)``): [E_pad / model, X / data, Y];
-  everything else replicated on every rank.
+  everything else replicated on every rank, over ``pipe`` too.
+
+A pipe axis (the 1F1B schedule, runtime/pipeline_schedule.py) partitions
+the schedule, not the placement: every pipe index holds the same params
+and the same rows (the batch shards over the dp axes only), so its ranks
+compute the same thing.  A step's reductions (the gradient sum, the loss
+and metrics, the MoE stats, the clip norm) therefore run over the
+(data, model) slice of the rank's pipe index, ``all_group``; without a
+pipe axis that is the whole mesh.
 
 ``mesh`` None is one card: every size is 1 and every group None.
 """
@@ -56,7 +64,20 @@ def dp_group(mesh):
 
 
 def all_group(mesh):
+    """Every rank that shares this rank's work: the (data, model) slice
+    of its pipe index (the whole mesh when there is no pipe axis)."""
+    return group(mesh, () if mesh is None else tuple(
+        a for a in mesh.axis_names if a != "pipe"))
+
+
+def world_group(mesh):
+    """Every rank of the mesh, pipe indices included: for the agreements
+    (stop, save) that every rank must make together."""
     return group(mesh, () if mesh is None else mesh.axis_names)
+
+
+def pipe_group(mesh):
+    return group(mesh, "pipe")
 
 
 # ---------------------------------------------------------- the layout --

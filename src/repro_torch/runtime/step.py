@@ -11,7 +11,10 @@ tensors.
 Over a (data, model) mesh (launch/mesh.py) every rank is handed the same
 global batch and keeps its [B / data, S / model] part.  Its loss is its
 share of the global loss, so after autograd the gradients of the
-replicated params are summed over every rank (one all-reduce a bucket).
+replicated params are summed over every rank (one all-reduce a bucket);
+on a (data, pipe, model) mesh, over the (data, model) slice of the
+rank's pipe index (``sharding.all_group``), since the pipe indices
+compute the same thing.
 The expert weights' gradients are complete already: the all-to-all's
 backward brought them the other model ranks' tokens, and the FSDP
 gather's reduce-scatter summed them over ``data``; they are not summed
@@ -28,7 +31,12 @@ the replicated params' gradients are then summed over the ranks once.
 carry the in-graph ``obs_*`` scalars (models/model.py), the last
 microbatch's under accumulation.  The fault-injection loss scale
 (``CHAOS_LOSS_SCALE_KEY``, resilience/faults.py) multiplies the loss the
-non-finite skip reads.  Pipeline stages are ROADMAP Queue 1 item 6.
+non-finite skip reads.
+
+A mesh with a pipe axis runs the 1F1B staged step
+(runtime/pipeline_schedule.py), which gives the bits of the accumulation
+over ``cfg.pipeline_microbatches`` microbatches; ``dp_only`` and a pipe
+axis are exclusive, as in JAX.
 """
 from __future__ import annotations
 
@@ -91,9 +99,11 @@ def init_train_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
 def apply_gradients(state: TrainState, opt_cfg: OptimizerConfig,
                     loss: torch.Tensor, metrics: Dict, grads, *,
                     mesh=None) -> Tuple[TrainState, Dict]:
-    """Shared optimizer tail: lr schedule, non-finite skip, AdamW; the
-    metrics gain the clip norm ``grad_norm``.  With a mesh, ``loss`` is the
-    global loss and the norm counts the expert shards of every rank."""
+    """Shared optimizer tail of the whole-batch, accumulated and 1F1B
+    steps: lr schedule, non-finite skip, AdamW; the metrics gain the clip
+    norm ``grad_norm``.  With a mesh, ``loss`` is the global loss and the
+    norm counts the expert shards of every rank of the (data, model)
+    slice."""
     lr = warmup_cosine(state.opt.step, opt_cfg.lr, opt_cfg.warmup_steps,
                        opt_cfg.total_steps)
     skip = ~torch.isfinite(loss)
@@ -188,7 +198,16 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     """Returns train_step(state, batch) -> (state, metrics); batch holds
     "tokens" and "labels" [B, S] integer tensors on the params' device,
     the global batch (the same on every rank) when there is a mesh, and
-    the chaos loss scale when a fault plan injects one."""
+    the chaos loss scale when a fault plan injects one.  A mesh with a
+    pipe axis takes the 1F1B step (``microbatch`` is then
+    ``cfg.pipeline_microbatches``' business)."""
+    if mesh is not None and sharding.axis_size(mesh, "pipe") > 1:
+        if cfg.dp_only:
+            raise NotImplementedError(
+                "dp_only and a pipe axis are mutually exclusive profiles")
+        from repro_torch.runtime.pipeline_schedule import \
+            make_pipeline_train_step
+        return make_pipeline_train_step(cfg, opt_cfg, mesh, use_lsh=use_lsh)
     if cfg.dp_only and sharding.num_ranks(mesh) > 1:
         return _make_dp_only_train_step(cfg, opt_cfg, mesh, use_lsh=use_lsh)
     accum_grads = make_accum_grad_fn(cfg, use_lsh=use_lsh,

@@ -5,7 +5,9 @@
       -m repro_torch.tune --device cpu --model 4 --node-size 2
   PYTHONPATH=src python -m repro_torch.tune --ladder 65536,4194304
 
-Under torchrun each process is one rank of a (data, model) mesh (NCCL on
+Under torchrun each process is one rank of a (data, model) mesh, or with
+``--pipe P`` a (data, pipe, model) one whose probe adds the 1F1B stage
+leg's rows (``kind`` "stage", tune/probe.py) (NCCL on
 ``cuda:$LOCAL_RANK``, gloo with ``--device cpu``); run alone it is a mesh
 of one rank, whose axis of one rank times no all-to-all and so stores no
 entry.  Rank 0 prints the probe rows and the tuned choices.
@@ -25,6 +27,8 @@ def main(argv=None) -> int:
                     help="cuda (default) or cpu")
     ap.add_argument("--data", type=int, default=1,
                     help="data-axis extent of the probe mesh")
+    ap.add_argument("--pipe", type=int, default=1,
+                    help="pipe-axis extent (> 1 adds the stage rows)")
     ap.add_argument("--model", type=int, default=0,
                     help="model-axis extent (0 = all remaining ranks)")
     ap.add_argument("--node-size", type=int, default=0,
@@ -79,14 +83,17 @@ def main(argv=None) -> int:
             sinks.append(log.add_sink(obs_events.JsonlSink(
                 os.path.join(args.metrics_dir, "events.jsonl"))))
     try:
-        model = args.model or max(1, world // max(1, args.data))
-        if args.data * model != world:
+        outer = max(1, args.data) * max(1, args.pipe)
+        model = args.model or max(1, world // outer)
+        if outer * model != world:
+            shape = "x".join(map(str, (args.data, args.pipe, model)
+                                 if args.pipe > 1 else (args.data, model)))
             obs_events.emit("error", where="tune",
-                            message=(f"mesh {args.data}x{model} needs "
-                                     f"{args.data * model} ranks, have "
-                                     f"{world}"))
+                            message=(f"mesh {shape} needs {outer * model} "
+                                     f"ranks, have {world}"))
             return 2
-        mesh = make_mesh(args.data, model, node_size=args.node_size)
+        mesh = make_mesh(args.data, model, args.pipe,
+                         node_size=args.node_size)
         ladder = tuple(int(b) for b in args.ladder.split(",") if b) \
             or DEFAULT_LADDER
         choices = autotune(

@@ -5,6 +5,8 @@ kernel ops (counterpart of ``repro/tune/probe.py``).
 exchange runs (the flat all-to-all, the 2-hop, the chunked transfer, and
 the coded int8 / fp8 transfers with their scales sidecar, chunked through
 ``wire.transfer_fn``), on a float wire tensor [R, 1, c, H].
+``probe_stage_transfer`` times the 1F1B stage leg over ``pipe`` (the
+reference's ``ppermute`` ring: ``collectives.raw_ring_shift``).
 ``probe_kernels`` times the kernel ops through ``kernels/dispatch.py``
 (so a CUDA tensor runs the hand-written kernels), at the reference's op
 list: ``lsh_hash`` (from f32 tokens: the FMA route, which the bf16
@@ -152,6 +154,26 @@ def probe_a2a(mesh, axis_name: str, transport: str, target_bytes: int, *,
 
 
 @torch.no_grad()
+def probe_stage_transfer(mesh, target_bytes: int, *, axis_name: str = "pipe",
+                         warmup: int = 1, iters: int = 5,
+                         device=None) -> MeasuredRow:
+    """Time one stage-boundary hand-off over the pipeline axis: each rank
+    sends a bf16 activation-shaped [c, H] buffer to the next stage (a
+    ring, the reference's single-neighbour ``ppermute``)."""
+    dev = probe_device(device)
+    c = max(8, int(round(target_bytes / (_PROBE_HIDDEN * 2) / 8)) * 8)
+    group = sharding.group(mesh, axis_name)
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((c, _PROBE_HIDDEN), generator=gen).to(
+        dev, torch.bfloat16)
+    seconds = _timed(lambda t: collectives.raw_ring_shift(t, group), (x,),
+                     warmup=warmup, iters=iters, device=dev)
+    return MeasuredRow(kind="stage", name="ppermute", wire_format="bf16",
+                       msg_bytes=int(c * _PROBE_HIDDEN * 2), chunks=1,
+                       seconds=float(seconds))
+
+
+@torch.no_grad()
 def probe_kernels(*, sizes: Sequence[Tuple[int, int, int]] = ((8, 256, 128),),
                   num_hashes: int = 4, num_slots: int = 64, warmup: int = 1,
                   iters: int = 5, wire_format: str = "int8",
@@ -248,7 +270,8 @@ def run_probe_suite(mesh, topo: Topology, axis_name: str = "model", *,
                     include_kernels: bool = True, verbose: bool = False,
                     device=None) -> List[MeasuredRow]:
     """Every transport the topology can run x wire format x ladder point
-    (pipelined also per chunk candidate), then the kernel ops.  On an
+    (pipelined also per chunk candidate), the stage leg at each ladder
+    point when the mesh has a pipe axis, then the kernel ops.  On an
     axis of one rank there is no all-to-all row: the planner runs flat
     there whatever the rows say."""
     dev = probe_device(device)
@@ -273,6 +296,14 @@ def run_probe_suite(mesh, topo: Topology, axis_name: str = "model", *,
                                  row.seconds * 1e3)
     elif verbose:
         log.info("probe: axis %r has size 1; no a2a rows", axis_name)
+    if topo.axis_size("pipe") > 1 and "pipe" in mesh.axis_names:
+        for nbytes in ladder:
+            row = probe_stage_transfer(mesh, nbytes, warmup=warmup,
+                                       iters=iters, device=dev)
+            rows.append(row)
+            if verbose:
+                log.info("probe stage/ppermute %dB -> %.3fms",
+                         row.msg_bytes, row.seconds * 1e3)
     if include_kernels:
         rows += probe_kernels(warmup=warmup, iters=iters, device=dev)
     return _agree(rows, dev)

@@ -147,6 +147,23 @@ def _port_main(rank, world, args):
         for k in full:
             out[f"roundtrip/{k}"] = np.asarray(torch.equal(back[k], full[k]))
         out["shard/w_up"] = mine["w_up"].numpy()
+    if world == 4:
+        # the (data, pipe, model) layouts: each group's ranks, by gathering
+        # the rank numbers over it (a group of one rank: this rank)
+        for shape in ((1, 2, 2), (2, 2, 1)):
+            m3 = tmesh.make_mesh(shape[0], shape[2], pipe=shape[1])
+            key = "x".join(map(str, shape))
+            out[f"mesh{key}/coords"] = np.asarray(
+                [m3.axis_index(a) for a in ("data", "pipe", "model")])
+            me = torch.tensor([rank], dtype=torch.int32)
+            for g, grp in (("data", sharding.group(m3, "data")),
+                           ("pipe", sharding.pipe_group(m3)),
+                           ("model", sharding.model_group(m3)),
+                           ("slice", sharding.all_group(m3)),
+                           ("world", sharding.world_group(m3))):
+                out[f"mesh{key}/{g}"] = coll.raw_all_gather(
+                    me, grp, 0).numpy() if coll.group_size(grp) > 1 \
+                    else me.numpy()
     np.savez(out_path.format(rank=rank), **out)
     return 0
 
@@ -218,10 +235,10 @@ def test_shard_gather_params_round_trip(runs):
 
 # ------------------------------------------------------------ planner --
 
-def _plan(shape, pipeline=None, **comm):
+def _plan(shape, **comm):
     return tplanner.plan_collectives(
         tmesh.Mesh(shape), tbase.CommConfig(**comm), msg_bytes=4 << 20,
-        chunk_extent=208, pipeline=pipeline)
+        chunk_extent=208)
 
 
 @pytest.mark.parametrize("comm,want", [
@@ -255,12 +272,29 @@ def test_planner_raises_for_item_3b(comm, want, tmp_path, monkeypatch):
 
 
 def test_planner_raises_for_bubble_in_a_pipeline():
-    """Inside a 1F1B pipeline the reference's auto rule picks the bubble
-    variant, which rides the 1F1B schedule (item 6) and so raises;
-    outside one an explicit bubble degrades to flat, as in the
-    reference."""
-    with pytest.raises(NotImplementedError, match="item 6"):
-        _plan((1, 4), pipeline=tplanner.PipelineContext(2, 4, 0.2))
+    """Inside a 1F1B pipeline the auto rule picks the bubble variant, as
+    the reference's does: the same base transport (flat below
+    min_hierarchical_bytes or where the axis does not factor, the 2-hop
+    where it does) and the same reason; outside one an explicit bubble
+    degrades to flat, as in the reference."""
+    pytest.importorskip("jax")
+    from repro.comm import planner as jplanner
+    from repro.comm import topology as jtopo
+    from repro.configs.base import CommConfig as JCommConfig
+    for node, msg in ((0, 4 << 20), (2, 4 << 20), (2, 1024)):
+        with jplanner.pipeline_context(2, 4, 0.2):
+            want = jplanner.plan_collectives(
+                None, JCommConfig(node_size=node), msg_bytes=msg,
+                chunk_extent=208, topology=jtopo.Topology(
+                    axis_sizes=(("data", 1), ("model", 4))))
+        with tplanner.pipeline_context(2, 4, 0.2):
+            got = tplanner.plan_collectives(
+                tmesh.Mesh((1, 4)), tbase.CommConfig(node_size=node),
+                msg_bytes=msg, chunk_extent=208)
+        assert want.algorithm == got.algorithm == "bubble"
+        assert (got.base, got.transport, got.reason, got.intra) == \
+            (want.base, want.transport, want.reason, want.intra)
+    assert tplanner.current_pipeline_context() is None
     plan = _plan((1, 4), a2a_impl="bubble")
     assert plan.algorithm == "flat" and plan.degraded
 
@@ -308,9 +342,30 @@ def test_nccl_is_required_for_cuda():
         assert tmesh.backend_for(torch.device("cuda")) == "nccl"
 
 
-def test_make_mesh_rejects_a_pipe_axis():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tmesh.make_mesh(1, 1, pipe=2)
+def test_make_mesh_rejects_a_pipe_axis(runs):
+    """make_mesh with pipe > 1 on 4 gloo ranks: the (data, pipe, model)
+    meshes (1, 2, 2) and (2, 2, 1) lay ranks out row-major, rank =
+    (d * pipe + p) * model + m, and each group holds the ranks of its
+    slice in order: an axis's, the (data, model) slice of the rank's pipe
+    index (``sharding.all_group``), and the whole mesh."""
+    for shape in ((1, 2, 2), (2, 2, 1)):
+        D, P, M = shape
+        for rank, got in enumerate(runs[4]):
+            key = "x".join(map(str, shape))
+            d, rest = divmod(rank, P * M)
+            p, m = divmod(rest, M)
+            assert list(got[f"mesh{key}/coords"]) == [d, p, m]
+            want = {
+                "data": [(dd * P + p) * M + m for dd in range(D)],
+                "pipe": [(d * P + pp) * M + m for pp in range(P)],
+                "model": [(d * P + p) * M + mm for mm in range(M)],
+                "slice": [(dd * P + p) * M + mm for dd in range(D)
+                          for mm in range(M)],
+                "world": list(range(4))}
+            for g, ranks in want.items():
+                np.testing.assert_array_equal(
+                    got[f"mesh{key}/{g}"], ranks if len(ranks) > 1
+                    else [rank], err_msg=f"rank {rank} {shape} {g}")
 
 
 if __name__ == "__main__":                  # RANK WORLD STORE args...

@@ -511,9 +511,10 @@ def _env():
                 JAX_PLATFORMS="cpu")
 
 
+STALL_S = 2.0          # an injected input stall before step 2
 COMMON = ["--arch", ARCH, "--smoke", "--steps", "3", "--batch", "2",
           "--seq", "32", "--log-every", "1", "--profile", "1",
-          "--anomaly-exit"]
+          "--anomaly-exit", "--chaos", f"data_stall@2:{STALL_S}"]
 
 
 @pytest.fixture(scope="module")
@@ -563,6 +564,23 @@ def test_train_metrics_keys_cover_jax(launched):
     assert not missing, missing
 
 
+def test_step_time_excludes_the_chaos_stall(launched):
+    """Both launchers start a step's clock after the chaos hook: under
+    ``--chaos data_stall@2:2.0`` the stall fired before step 2 in each,
+    and neither's step 2 counts it (its ``dt`` far below the stall,
+    where a smoke step takes some 20 ms)."""
+    tmp, _ = launched
+    read = {"torch": tevents.read_jsonl, "jax": jevents.read_jsonl}
+    for side, reader in read.items():
+        evs = reader(str(tmp / side / "events.jsonl"))
+        stalls = [e for e in evs if e.kind == "chaos"
+                  and e.data.get("fault") == "data_stall"]
+        assert [e.step for e in stalls] == [2], (side, stalls)
+        dt = {e.step: e.data["dt"] for e in evs if e.kind == "step"}
+        assert sorted(dt) == [0, 1, 2], (side, dt)
+        assert dt[2] < STALL_S / 2, (side, dt)
+
+
 def test_train_profile_requires_metrics_dir():
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
@@ -572,23 +590,46 @@ def test_train_profile_requires_metrics_dir():
     assert "--profile requires --metrics-dir" in out.stderr
 
 
-def test_anomaly_exit_on_persistent_stall(tmp_path):
-    """Input stalls of 0.6 s at steps 8-10 of a smoke run whose steps take
-    some 20 ms: three step-time regressions escalate to a checkpoint and
-    exit 43, before step 11.  The straggler factor of 10 keeps a loaded
-    host's 2x jitter in steps 2-7 from being flagged: with one such flag,
-    the stalls at 8 and 9 would make a persistent_straggler pattern and
-    escalate at step 9."""
+def test_anomaly_exit_on_persistent_stall(tmp_path, monkeypatch, capsys):
+    """Steps 8-10 of a smoke run whose steps take some 20 ms each spend
+    0.6 s more inside the step (the launcher in this process, its step
+    function wrapped to sleep there: an input stall injected by
+    ``--chaos`` is not a step's time): three step-time regressions
+    escalate to a checkpoint and exit 43, before step 11.  The straggler
+    factor of 10 keeps a loaded host's 2x jitter in steps 2-7 from being
+    flagged: with one such flag, the slow steps 8 and 9 would make a
+    persistent_straggler pattern and escalate at step 9."""
+    import signal
+    import time
+
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime import step as tstep
+    make = tstep.make_train_step
+
+    def slow_make(*args, **kw):
+        fn = make(*args, **kw)
+
+        def step(state, batch):
+            if int(state.opt.step) in (8, 9, 10):
+                time.sleep(0.6)
+            return fn(state, batch)
+        return step
+
+    monkeypatch.setattr(tstep, "make_train_step", slow_make)
     d = tmp_path / "m"
-    out = subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.train", "--arch", ARCH,
-         "--smoke", "--device", "cpu", "--steps", "14", "--batch", "2",
-         "--seq", "32", "--log-every", "1", "--metrics-dir", str(d),
-         "--straggler-factor", "10",
-         "--ckpt", str(tmp_path / "ck"), "--anomaly-exit", "--chaos",
-         "data_stall@8:0.6,data_stall@9:0.6,data_stall@10:0.6"],
-        capture_output=True, text=True, env=_env(), timeout=300)
-    assert out.returncode == 43, out.stdout[-3000:] + out.stderr[-3000:]
+    sigterm = signal.getsignal(signal.SIGTERM)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)        # as the launcher tests' OMP_NUM_THREADS
+    try:
+        rc = train_cli.main(
+            ["--arch", ARCH, "--smoke", "--device", "cpu", "--steps", "14",
+             "--batch", "2", "--seq", "32", "--log-every", "1",
+             "--metrics-dir", str(d), "--straggler-factor", "10",
+             "--ckpt", str(tmp_path / "ck"), "--anomaly-exit"])
+    finally:
+        signal.signal(signal.SIGTERM, sigterm)
+        torch.set_num_threads(threads)
+    assert rc == 43, capsys.readouterr().out[-3000:]
     evs = tevents.read_jsonl(str(d / "events.jsonl"))
     esc = [e for e in evs if e.kind == "anomaly_escalation"]
     assert len(esc) == 1 and esc[0].data["exit_code"] == 43

@@ -8,10 +8,10 @@ constants set equal on both sides (the port's priors are an H100 node's,
 the reference's another platform's): hop, messages and bytes equal,
 seconds within 1e-12 relative.  The planner is compared over a grid of
 (config, $REPRO_COMM_IMPL, axis size, node size, message, chunk extent,
-pipeline, calibration): the resolved algorithm, intra, chunks and
-calibrated flag equal the reference's, except where the reference
-resolves the bubble variant, which the port refuses citing item 6.  Then
-the planner cases of the reference's tests/test_comm.py.
+pipeline, calibration): the resolved algorithm, intra, chunks,
+calibrated flag, base transport (a bubble plan's) and reason equal the
+reference's, the bubble variant included.  Then the planner cases of the
+reference's tests/test_comm.py.
 """
 import itertools
 import logging
@@ -128,20 +128,20 @@ def test_planner_resolves_as_the_reference(impl, env, monkeypatch, caplog):
             want = jplanner.plan_collectives(
                 None, JCommConfig(**kw), topology=jt, calibration=jcal,
                 **args)
-        ctx = tplanner.PipelineContext(2, 4, 0.25) if pipe else None
         where = (kw, env, r, node, msg, extent, pipe, cname)
-        if want.algorithm == "bubble":
-            with pytest.raises(NotImplementedError, match="item 6"):
-                tplanner.plan_collectives(
+        if pipe:
+            with tplanner.pipeline_context(2, 4, 0.25):
+                got = tplanner.plan_collectives(
                     None, CommConfig(**kw), topology=tt, calibration=tcal,
-                    pipeline=ctx, **args)
-            continue
-        got = tplanner.plan_collectives(
-            None, CommConfig(**kw), topology=tt, calibration=tcal,
-            pipeline=ctx, **args)
+                    **args)
+        else:
+            got = tplanner.plan_collectives(
+                None, CommConfig(**kw), topology=tt, calibration=tcal,
+                **args)
         assert (got.algorithm, got.intra, got.chunks, got.calibrated,
-                got.degraded) == (want.algorithm, want.intra, want.chunks,
-                                  want.calibrated, want.degraded), where
+                got.degraded, got.base, got.transport) == (
+            want.algorithm, want.intra, want.chunks, want.calibrated,
+            want.degraded, want.base, want.transport), where
         assert got.reason == want.reason, where
         n += 1
     assert n > 0

@@ -428,16 +428,18 @@ def test_train_cli_smoke_on_cpu(capsys):
     assert s["tokens_per_s"] > 0 and s["peak_memory_bytes"] is None
 
 
-@pytest.mark.parametrize("argv", [
-    ["--mesh-pipe", "2"], ["--pipeline-microbatches", "2"]])
-def test_train_cli_rejects_flags_of_later_items(argv, capsys):
-    # --mesh-data / --mesh-model (test_torch_dist_train.py), --ckpt,
-    # --chaos, --metrics-dir, --auto-restart (test_torch_trainer.py) and
-    # --profile, --anomaly-exit (test_torch_profile.py) are ported; a pipe
-    # axis is ROADMAP Queue 1 item 6
-    with pytest.raises(SystemExit):
-        train_cli.main(["--arch", ARCH, *argv])
-    assert f"unrecognized arguments: {argv[0]}" in capsys.readouterr().err
+@pytest.mark.parametrize("argv,want", [
+    (["--mesh-pipe", "2"], "mesh 1x2x1 needs 2 devices, have 1"),
+    (["--pipeline-microbatches", "2", "--mesh-pipe", "2", "--mesh-model",
+      "2"], "mesh 1x2x2 needs 4 devices, have 1")])
+def test_train_cli_rejects_flags_of_later_items(argv, want, capsys):
+    """The pipe flags parse; a pipe mesh of more ranks than the job has
+    exits 2 with the JAX launcher's message, before anything is built,
+    and never trains on one stage."""
+    assert train_cli.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                           *argv]) == 2
+    err = capsys.readouterr().err
+    assert "unrecognized arguments" not in err and want in err
 
 
 def test_profile_summary_on_cpu():
