@@ -204,6 +204,31 @@ Phases, each of which raises (and so exits non-zero) on failure:
               same number of times; the schedule, step ms, peak memory
               and launches a step printed, and a kernels line of all
               eleven at this shape.
+ 14. hybrid  jamba-1.5-large-398b at full width (d_model 8192, Mamba-2
+              d_inner 16384 in 256 heads of 64, d_state 64, chunk 256;
+              64 attention heads with 8 KV heads; 16 experts top-2 of
+              ffn 24576; vocab 65536; bf16, seeded random weights), depth
+              cut from 72 layers to layout entries 4-5 (one Mamba + MoE
+              block, one attention + dense block, 11.9 G params, 23.8 GB;
+              one super-block is 90.3 GB).  The path's kernels at its
+              shapes (2 x 2048 tokens: F = 8192, E = 16, C = 640, S =
+              128, H = 8192; the backwards; and the decode step's F = 8,
+              C = 4) against their plain versions as phase kernels holds
+              them; prefill of 4 x 2048 tokens (finite last logits, every
+              routing and LSH kernel launched) timed; the serve loop (8
+              requests, 4 slots, 16 prompt + 16 generated tokens): each
+              routing kernel once a MoE layer a decode step, no LSH
+              kernel, tokens/s, p50 / p99, peak memory; loss_fn and its
+              backward at 2 x 2048 tokens with LSH on, three times (the
+              2nd and 3rd timed): finite loss and gradients, every kernel
+              of the path launched, peak memory.  Then the smoke config
+              in f32 on the card against the CPU: one train step with the
+              f32 and the bf16 wires (slots and loss by phase train
+              parity's rules; with the f32 wire gradients within 2e-3
+              and params within 1e-4 relative L2, beside the CPU's own
+              sensitivity to a 1e-7 move of the embedding, printed), and
+              16 teacher-forced decode steps against the forward (LSH
+              off) within 1e-3.
 The line before the last is the kernels' JSON record (times at the
 training shape, int8 for the wire kernels; launches of the bf16-wire
 LSH-on training run for the routing and LSH kernels, of the int8 runs
@@ -239,11 +264,6 @@ GRAD_RTOL = 1e-4
 PARAM_RTOL = 1e-5
 BF16_WIRE_LOSS_RTOL = 1e-3
 REPS = 30
-# seconds a profile waits before the step it counts: in four runs of
-# phase obs the obs-off profile, started just before its step, missed that
-# step's first 26-34 device events (the batch's copies, the embedding,
-# the first norm and projections), one each
-PROFILE_SETTLE_S = 0.5
 SLEEP_CYCLES = 4_000_000           # ~2 ms at the H100's clocks
 LAUNCH_FLOOR_SOURCE = "launch_floor.cu"   # an empty kernel (csrc/)
 POSITIONS_TILE = 256               # entries a block of token_position.cu
@@ -1523,14 +1543,30 @@ def _port_kernels(avgs, names):
     return out
 
 
+def profile_second_step(torch, run_step):
+    """torch.profiler over two calls of ``run_step``, counting the second:
+    the first runs in the profiler's warm-up, whose events are dropped.  A
+    profile started just before the step it counts missed that step's
+    first 26-45 device events (the batch's copies, the embedding, the
+    first norm and projections), in six runs of phase obs, also after
+    waiting 0.5 s for it to settle."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            run_step()
+            prof.step()
+    return prof
+
+
 def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
                         port_names, spy):
     """One steady-state training step under torch.profiler (LSH on), after
-    two warm-up steps and a host-clock timing of two more.  The first
+    two warm-up steps, a host-clock timing of two more and the profiler's
+    own warm-up step.  The first
     warm-up step runs under ``spy`` (spy_centroid_slots): returns (the
     profile's record, that step's segment_centroid slot sets)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from repro_torch.configs.base import OptimizerConfig
     opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=8)
     state = step_lib.init_train_state(cfg, opt, seed=0, device="cuda")
@@ -1551,10 +1587,8 @@ def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
     t0 = time.perf_counter()
     run(2, 2)
     wall_ms = (time.perf_counter() - t0) * 1e3 / 2
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        time.sleep(PROFILE_SETTLE_S)
-        run(4, 1)
+    profiled = iter(range(4, 6))
+    prof = profile_second_step(torch, lambda: run(next(profiled), 1))
     record, lines = summarize(prof, 1, wall_ms, top=15)
     for line in lines:
         log(f"[train-profile] {line}")
@@ -2732,13 +2766,12 @@ def obs_on_off(torch, cfg, step_lib, data_lib, summarize, steps=4,
                settings=(False, True)):
     """(b) The full config, bf16 wire, LSH on, 4 x 1024 tokens, from the
     same seed with obs off and on: ``steps`` steps, then one step under
-    torch.profiler as phase train's profile takes it (the batch's copy to
-    the card inside, the same optimizer).  Returns {obs: (losses,
+    torch.profiler as phase train's profile takes it (after the profiler's
+    warm-up step; the batch's copy to the card inside, the same
+    optimizer).  Returns {obs: (losses,
     params, kernels per step, the last step's scalar metrics, the device
     events by name)}."""
     import dataclasses
-
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.base import ObsConfig, OptimizerConfig
     opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=8)
@@ -2756,13 +2789,15 @@ def obs_on_off(torch, cfg, step_lib, data_lib, summarize, steps=4,
                 ds.batch_at(s), dev))
             losses.append(float(m["loss"]))
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(PROFILE_SETTLE_S)
+
+        def run_step():
+            nonlocal state, m
             state, m = step_fn(state, step_lib.batch_to_device(
-                ds.batch_at(steps), dev))
+                ds.batch_at(len(losses)), dev))
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
+
+        prof = profile_second_step(torch, run_step)
         rec, _ = summarize(prof, 1, 1.0, top=1)
         params = [p.detach().clone() for p in step_lib.leaves(state.params)]
         out[on] = (losses, params, rec["device_kernels_per_step"],
@@ -2911,28 +2946,29 @@ PIPE_STAGES = PIPE_MICROBATCHES = 4
 PIPE_BATCH, PIPE_SEQ, PIPE_STEPS = 8, 512, 2
 
 
-def pipeline_kernels(torch, mods, ref, moe_lib, hashing, cfg):
-    """The path's kernels at this config's own shapes, one microbatch
-    through a MoE layer (2 x 512 tokens, top-8 of E = 128, H = 2048): the
-    routing and LSH kernels, their backwards and the int8 wire kernels,
-    against their plain versions as phase kernels holds them."""
+def config_kernels(torch, mods, ref, moe_lib, hashing, cfg, T, label,
+                   seed, wire=True):
+    """The path's kernels at a config's own shapes, T tokens through one
+    of its MoE layers: the routing and LSH kernels and their backwards
+    (and the int8 wire kernels when ``wire``), against their plain
+    versions as phase kernels holds them."""
     moe = cfg.moe
-    T = PIPE_BATCH // PIPE_MICROBATCHES * PIPE_SEQ
     C = moe_lib.expert_capacity(T, moe.num_experts, moe.top_k,
                                 moe.capacity_factor)
     p = make_plan(torch, ref, T=T, k=moe.top_k, E=moe.num_experts, C=C,
-                  H=cfg.d_model, skew=True, bad_frac=0.01, seed=31)
+                  H=cfg.d_model, skew=True, bad_frac=0.01, seed=seed)
     res = check_kernels(torch, mods["token_position"],
-                        mods["scatter_gather"], ref, p, "pipeline")
+                        mods["scatter_gather"], ref, p, label)
     S = moe_lib.num_lsh_slots(C, moe.lsh.compression_rate)
     q = lsh_inputs(torch, ref, hashing, p, S, L=moe.lsh.num_hashes,
-                   Dr=moe.lsh.rotation_dim, seed=32)
+                   Dr=moe.lsh.rotation_dim, seed=seed + 1)
     res.update(check_lsh_kernels(torch, mods["lsh_hash"],
                                  mods["segment_centroid"],
-                                 mods["residual_apply"], ref, q, "pipeline"))
+                                 mods["residual_apply"], ref, q, label))
     check_backwards(torch, mods["dispatch"], ref, p, q)
-    res.update(check_wire_kernels(torch, mods, ref, p, q, "pipeline",
-                                  "int8"))
+    if wire:
+        res.update(check_wire_kernels(torch, mods, ref, p, q, label,
+                                      "int8"))
     return res
 
 
@@ -2999,7 +3035,11 @@ def phase_pipeline(torch, mods, ref, moe_lib, hashing, step_lib, data_lib,
         f"{cfg.vocab_size}, {cfg.dtype}), depth cut from "
         f"{full.num_super_blocks} to {PIPE_SUPER_BLOCKS} super-blocks for "
         "memory (AdamW's f32 moments and the f32 accumulators)")
-    res = pipeline_kernels(torch, mods, ref, moe_lib, hashing, cfg)
+    # one microbatch through a MoE layer (2 x 512 tokens, top-8 of E = 128,
+    # H = 2048), with the int8 wire kernels
+    res = config_kernels(torch, mods, ref, moe_lib, hashing, cfg,
+                         PIPE_BATCH // PIPE_MICROBATCHES * PIPE_SEQ,
+                         "pipeline", 31)
     sched = pipe_lib.build_1f1b(PIPE_STAGES, PIPE_MICROBATCHES)
     log(f"[pipeline] schedule: {PIPE_STAGES} stages x {PIPE_MICROBATCHES} "
         f"microbatches, {sched.ticks} ticks, bubble fraction "
@@ -3060,6 +3100,275 @@ def phase_pipeline(torch, mods, ref, moe_lib, hashing, step_lib, data_lib,
     log("[pipeline] kernels at this config's shapes, launches a 1F1B step "
         "by wire: " + json.dumps(record))
     return out
+
+
+# ------------------------------------------------------------- 14. hybrid --
+
+HYB_ARCH = "jamba-1.5-large-398b"
+# layout entries 4-5 of 8 (from 1): (MAMBA, MOE), (ATTN, DENSE)
+HYB_ENTRIES = (3, 5)
+HYB_PREFILL = (4, 2048)
+HYB_TRAIN = (2, 2048)
+HYB_SERVE = dict(requests=8, batch_slots=4, prompt_len=16, gen=16)
+HYB_RUNS = 3                     # forward + backward; the 2nd and 3rd timed
+# The card against the CPU at the smoke config, f32 wire: the Mamba layers'
+# gradients are sums over the sequence that cancel, and carry last-bit
+# differences further than granite's layers do (moving the embedding by
+# 1e-7 relative moves the CPU's own worst gradient leaf by 2.9e-5 to 6.2e-4
+# relative L2, by params seed and batch), and a first AdamW step moves a
+# param whose tiny gradient flipped sign by a whole lr.  Slots and the loss
+# keep phase train_parity's rules; gradients and params are held to these.
+# scripts/hybrid_parity_sweep.py reads the card's gaps on several seeds and
+# under faults of the Mamba path; PERF.md gives the readings that place
+# these bounds between the two.
+HYB_GRAD_RTOL = 2e-3
+HYB_PARAM_RTOL = 1e-4
+
+
+def hybrid_window(full):
+    lo, hi = HYB_ENTRIES
+    return full.replace(layout=full.layout[lo:hi], num_super_blocks=1)
+
+
+def hybrid_kernels(torch, mods, ref, moe_lib, hashing, cfg):
+    """The path's kernels at jamba's shapes: the training forward's MoE
+    layer (2 x 2048 tokens: F = 8192, E = 16, C = 640, S = 128, H = 8192,
+    L = 6, Dr = 64; routing, LSH and the backwards) and the decode step's
+    (4 slots, top-2 of 16, C = 4)."""
+    moe = cfg.moe
+    res = config_kernels(torch, mods, ref, moe_lib, hashing, cfg,
+                         HYB_TRAIN[0] * HYB_TRAIN[1], "hybrid", 41,
+                         wire=False)
+    slots = HYB_SERVE["batch_slots"]
+    cap = max(4, math.ceil(slots * moe.top_k / moe.num_experts * 2))
+    decode = make_plan(torch, ref, T=slots, k=moe.top_k, E=moe.num_experts,
+                       C=cap, H=cfg.d_model, skew=False, bad_frac=0.0,
+                       seed=43)
+    dec = check_kernels(torch, mods["token_position"],
+                        mods["scatter_gather"], ref, decode, "hybrid decode")
+    return res, dec
+
+
+def hybrid_serve(torch, model_lib, serve, kernels, routing_kernels,
+                 lsh_kernels, cfg, params, n_moe):
+    """Prefill of HYB_PREFILL tokens (a first call, then a timed one),
+    then the serve loop on ``cfg``: each routing kernel once a MoE layer
+    a decode step, no LSH kernel."""
+    dev = torch.device("cuda")
+    B, S = HYB_PREFILL
+    tokens = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(7))
+    for k in kernels:
+        k.launches = 0
+    logits, _ = model_lib.prefill(params, cfg, {"tokens": tokens})
+    ran = {k.name: k.launches for k in kernels}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, info = model_lib.prefill(params, cfg, {"tokens": tokens})
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if tuple(logits.shape) != (B, 1, cfg.vocab_size) \
+            or not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"prefill logits {tuple(logits.shape)} not "
+                             "finite or of the wrong shape")
+    never = [k.name for k in routing_kernels + lsh_kernels
+             if ran[k.name] == 0]
+    if never:
+        raise AssertionError(f"prefill (LSH on) never launched {never}")
+    log(f"[hybrid] prefill {B} x {S} tokens: {dt * 1e3:.3f} ms "
+        f"({B * S / dt:.1f} tokens/s), position {info['position']}, "
+        f"launches {ran}")
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    s = serve.serve_loop(cfg, dev, params=params, **HYB_SERVE)
+    launches = {k.name: k.launches for k in kernels}
+    steps = math.ceil(HYB_SERVE["requests"] / HYB_SERVE["batch_slots"]) \
+        * (HYB_SERVE["prompt_len"] + HYB_SERVE["gen"])
+    want = n_moe * steps
+    routing = {k.name for k in routing_kernels}
+    bad = {n: c for n, c in launches.items()
+           if c != (want if n in routing else 0)}
+    peak = torch.cuda.max_memory_allocated(dev)
+    log(f"[hybrid] serve: tokens/s {s['tokens_per_s']:.3f}, p50 "
+        f"{s['latency_p50_s']:.4f} s, p99 {s['latency_p99_s']:.4f} s, "
+        f"peak memory {peak / 1e9:.2f} GB; launches {launches} (want "
+        f"{want} = {n_moe} MoE layer(s) x {steps} decode steps)")
+    if bad:
+        raise AssertionError(f"kernel launches on the serve path: {bad}")
+    if s["tokens"] != HYB_SERVE["requests"] * HYB_SERVE["gen"] or not all(
+            math.isfinite(s[k]) and s[k] > 0 for k in (
+                "tokens_per_s", "latency_p50_s", "latency_p99_s")):
+        raise AssertionError(f"serve summary wrong: {s}")
+    return dict(prefill_ms=dt * 1e3, prefill_tokens_per_s=B * S / dt,
+                tokens_per_s=s["tokens_per_s"],
+                latency_p50_s=s["latency_p50_s"],
+                latency_p99_s=s["latency_p99_s"], peak_memory_gb=peak / 1e9,
+                launches=launches)
+
+
+def hybrid_fwd_bwd(torch, model_lib, step_lib, data_lib, kernels,
+                   path_kernels, cfg, params):
+    """loss_fn and its backward (no optimizer step) over HYB_TRAIN
+    tokens, LSH on, HYB_RUNS times; the 2nd and later timed."""
+    from repro_torch.optim.adam import leaves
+    dev = torch.device("cuda")
+    B, S = HYB_TRAIN
+    batch = step_lib.batch_to_device(
+        data_lib.SyntheticLMDataset(cfg.vocab_size, S, B).batch_at(0), dev)
+    train = [p for p in leaves(params) if p.is_floating_point()]
+    for p in train:
+        p.requires_grad_(True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    dts, losses = [], []
+    for r in range(HYB_RUNS):
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model_lib.loss_fn(params, cfg, batch, use_lsh=True)
+        grads = torch.autograd.grad(loss, train, allow_unused=True)
+        torch.cuda.synchronize()
+        dts.append((time.perf_counter() - t0) * 1e3)
+        launches = {k.name: k.launches for k in kernels}
+        losses.append(float(loss.detach()))
+        n_none = sum(g is None for g in grads)
+        bad = [i for i, g in enumerate(grads)
+               if g is not None and not bool(torch.isfinite(g).all())]
+        del grads, loss
+        if bad or not math.isfinite(losses[-1]):
+            raise AssertionError(f"hybrid fwd + bwd run {r}: loss "
+                                 f"{losses[-1]}, non-finite gradients {bad}")
+        never = [k.name for k in path_kernels if launches[k.name] == 0]
+        if never:
+            raise AssertionError(f"hybrid fwd + bwd never launched {never}")
+    for p in train:
+        p.requires_grad_(False)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rec = dict(losses=losses, ms=dts, timed_ms=dts[1:],
+               peak_memory_gb=peak / 1e9, launches_per_step=launches,
+               grads_none=n_none, grads=len(train))
+    log(f"[hybrid] forward + backward {B} x {S} tokens, LSH on, bf16: "
+        + json.dumps(rec, sort_keys=True))
+    return rec
+
+
+def hybrid_parity(torch, model_lib, step_lib, clustering, lh, kernels,
+                  path_kernels, smoke):
+    """jamba's smoke config in f32 on the card and on the CPU: one train
+    step per wire (phase train_parity's rules), and the card's
+    teacher-forced decode against its forward.  With the f32 wire the
+    gradients and params are held to HYB_GRAD_RTOL / HYB_PARAM_RTOL (see
+    there), the slots and the loss to phase train_parity's rules."""
+    from repro_torch.configs.base import MOE, OptimizerConfig
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=10, total_steps=100)
+    n_moe = sum(f == MOE for _, f in smoke.layout) * smoke.num_super_blocks
+    for wire in ("float32", "bfloat16"):
+        cfg = with_wire(smoke, wire_dtype=wire)
+        batch = SyntheticLMDataset(cfg.vocab_size, 64, 2).batch_at(0)
+        a, b = _parity_runs(torch, model_lib, step_lib, clustering, kernels,
+                            {k.name for k in path_kernels}, cfg, opt, batch)
+        n_diff, margin, loss_rel, g_rel, p_rel = _parity_stats(
+            torch, lh, a, b, n_moe)
+        log(f"[hybrid] parity, smoke f32, wire {wire}: slot ids differing "
+            f"per record {n_diff}; smallest near-tie margin {margin:.3g}; "
+            f"loss cuda {a['loss']} cpu {b['loss']} (rel {loss_rel:.3g}); "
+            f"worst gradient rel L2 {g_rel:.3g}; worst param-after-AdamW "
+            f"rel L2 {p_rel:.3g}; TF32 off"
+            + (f"; bounds {HYB_GRAD_RTOL} / {HYB_PARAM_RTOL}"
+               if wire == "float32" else ""))
+        if wire == "float32":
+            ok = (not any(n_diff) and loss_rel <= LOSS_RTOL
+                  and g_rel <= HYB_GRAD_RTOL and p_rel <= HYB_PARAM_RTOL)
+        else:                                  # as phase train_parity
+            ok = n_diff[0] == 0 and loss_rel <= BF16_WIRE_LOSS_RTOL
+        if not ok:
+            raise AssertionError(f"hybrid smoke, wire {wire}: CUDA and CPU "
+                                 "train steps disagree")
+    dev = torch.device("cuda")
+    params = model_lib.init_params(smoke, seed=6, device=dev)
+    tokens = torch.randint(0, smoke.vocab_size, (2, 16), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(8))
+    with torch.no_grad():
+        full, _ = model_lib.forward(params, smoke, tokens, use_lsh=False)
+    state = model_lib.init_decode_state(smoke, 2, 16, device=dev)
+    outs = []
+    for i in range(16):
+        logits, state = model_lib.decode_step(params, smoke, state,
+                                              tokens[:, i:i + 1])
+        outs.append(logits)
+    err = float((torch.cat(outs, 1) - full).abs().max())
+    log(f"[hybrid] decode against the forward on the card (smoke f32, LSH "
+        f"off, 2 x 16): max |diff| {err} (atol {PARITY_ATOL})")
+    if not err <= PARITY_ATOL:
+        raise AssertionError("the card's decode disagrees with its forward")
+
+
+def phase_hybrid(torch, mods, ref, moe_lib, hashing, model_lib, step_lib,
+                 data_lib, serve, clustering, kernels, routing_kernels,
+                 lsh_kernels):
+    """Phase hybrid: jamba-1.5-large-398b's Mamba-2 + MoE path.  The
+    path's kernels at its shapes; the full-width window (layout entries
+    HYB_ENTRIES, one super-block, bf16, seeded random weights): prefill
+    and serving, then forward + backward with LSH on; the smoke config
+    on the card against the CPU.  Returns the records."""
+    from repro_torch.configs.base import MOE, param_count
+    from repro_torch.configs.registry import get_config, get_smoke_config
+    from repro_torch.optim.adam import leaves
+    t_phase = time.time()
+    full = get_config(HYB_ARCH)
+    cfg = hybrid_window(full)
+    one = full.replace(num_super_blocks=1)
+    lo, hi = HYB_ENTRIES
+    log(f"[hybrid] {HYB_ARCH} at full width (d_model {cfg.d_model}, Mamba-2 "
+        f"d_inner {cfg.ssm.expand * cfg.d_model} of {cfg.ssm.head_dim}-wide "
+        f"heads, d_state {cfg.ssm.d_state}, chunk {cfg.ssm.chunk_size}; "
+        f"{cfg.num_heads} heads with {cfg.num_kv_heads} KV heads; "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} of ffn "
+        f"{cfg.moe.expert_ffn_dim}; vocab {cfg.vocab_size}; {cfg.dtype}), "
+        f"depth cut from {full.num_layers} layers to layers {lo + 1}-{hi} "
+        f"of the layout ({', '.join('+'.join(e) for e in cfg.layout)}): one "
+        f"super-block is {param_count(one) * 2 / 1e9:.1f} GB, the window "
+        f"{param_count(cfg) * 2 / 1e9:.1f} GB")
+    res, dec = hybrid_kernels(torch, mods, ref, moe_lib, hashing, cfg)
+    torch.cuda.empty_cache()
+    log(f"[time] hybrid kernels done at {time.time() - t_phase:.1f} s of "
+        "the phase")
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.time()
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    log(f"[hybrid] params: {n_params} ({param_count(cfg)} by param_count), "
+        f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB on the card, made "
+        f"in {time.time() - t0:.1f} s")
+    n_moe = sum(f == MOE for _, f in cfg.layout) * cfg.num_super_blocks
+    served = hybrid_serve(torch, model_lib, serve, kernels, routing_kernels,
+                          lsh_kernels, cfg, params, n_moe)
+    trained = hybrid_fwd_bwd(torch, model_lib, step_lib, data_lib, kernels,
+                             routing_kernels + lsh_kernels, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    hybrid_parity(torch, model_lib, step_lib, clustering, mods["lsh_hash"],
+                  kernels, routing_kernels + lsh_kernels,
+                  get_smoke_config(HYB_ARCH).replace(dtype="float32"))
+    record = {"kernels": [
+        {"name": k.name, "launches": trained["launches_per_step"][k.name],
+         **({key: res[k.name][key] for key in (
+             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")} if k.name in res else {}),
+         **({"decode_ms": dec[k.name]["ms"]} if k.name in dec else {})}
+        for k in kernels]}
+    log("[hybrid] kernels at this config's shapes, launches a forward + "
+        "backward: " + json.dumps(record))
+    dt = time.time() - t_phase
+    log(f"[hybrid] phase time {dt:.1f} s")
+    return dict(serve=served, train=trained, seconds=dt)
 
 
 # -------------------------------------------------------------- main --
@@ -3162,6 +3471,10 @@ def main() -> int:
     phase_pipeline(torch, mods, ref, moe_lib, hashing, step_lib, synthetic,
                    kernels, path_k)
     log(f"[time] pipeline done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    phase_hybrid(torch, mods, ref, moe_lib, hashing, model_lib, step_lib,
+                 synthetic, serve, clustering, kernels, routing_k, lsh_k)
+    log(f"[time] hybrid done at {time.time() - t_start:.1f} s")
 
     # launches of the main path's runs: the bf16 wire with LSH on for the
     # routing and LSH kernels, the int8 wire with LSH on for the kernels

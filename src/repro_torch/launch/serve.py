@@ -5,8 +5,9 @@ batches of ``--batch-slots`` requests.
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch granite-moe-3b-a800m --requests 8 --gen 16
 
-Runs on the CUDA device unless ``--device cpu``.  Latency is per request,
-arrival -> completion, with every request arriving at t0 (so it includes
+Runs on the CUDA device unless ``--device cpu``.  ``serve_loop`` runs the
+same loop on a given ``ModelConfig`` (a config cut to size, for example).
+Latency is per request, arrival -> completion, with every request arriving at t0 (so it includes
 queueing behind earlier batches), as the JAX launcher defines it.  The
 events go through obs/events.py: one JSON line per request
 (``serve_request``) and a final ``serve_summary`` line with requests,
@@ -82,36 +83,64 @@ def main(argv=None) -> int:
 
 
 def _serve(args, dev) -> int:
-    import torch
-
     from repro_torch.configs.registry import get_config, get_smoke_config
-    from repro_torch.models import model as model_lib
     from repro_torch.obs import benchrow
     from repro_torch.obs.events import emit
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
-    B = args.batch_slots
-    max_len = args.prompt_len + args.gen
+    s = serve_loop(cfg, dev, requests=args.requests, gen=args.gen,
+                   prompt_len=args.prompt_len, batch_slots=args.batch_slots,
+                   smoke=args.smoke)
+    if args.bench_json:
+        row = benchrow.bench_row(
+            name=args.bench_name, kind="serve",
+            metrics={k: float(s[k]) for k in (
+                "latency_p50_s", "latency_p99_s", "tokens_per_s",
+                "tokens_per_s_device", "requests", "tokens")},
+            context={"arch": args.arch, "smoke": args.smoke,
+                     "gen": args.gen, "prompt_len": args.prompt_len,
+                     "batch_slots": args.batch_slots, "devices": 1,
+                     "device": s["device"]})
+        path = benchrow.append_row(args.bench_json, row)
+        emit("bench_row", name=args.bench_name, row_kind="serve",
+             path=path)
+    return 0
+
+
+def serve_loop(cfg, dev, *, requests: int = 8, gen: int = 16,
+               prompt_len: int = 16, batch_slots: int = 4,
+               params=None, smoke: bool = False) -> dict:
+    """The serving loop on ``cfg`` (seeded random params unless ``params``
+    are given) on device ``dev``: emits one ``serve_request`` event a
+    request and a ``serve_summary``, and returns the summary's fields."""
+    import torch
+
+    from repro_torch.models import model as model_lib
+    from repro_torch.obs.events import emit
+
+    B = batch_slots
+    max_len = prompt_len + gen
     n_dev = 1
-    params = model_lib.init_params(cfg, seed=0, device=dev)
-    gen = torch.Generator().manual_seed(1)      # prompts
+    if params is None:
+        params = model_lib.init_params(cfg, seed=0, device=dev)
+    prompt_gen = torch.Generator().manual_seed(1)
     done = 0
     tokens_out = 0
     latencies = []
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     t0 = time.time()                    # every request "arrives" at t0
-    while done < args.requests:
-        n = min(B, args.requests - done)
-        prompts = torch.randint(0, cfg.vocab_size, (B, args.prompt_len),
-                                generator=gen).to(dev)
+    while done < requests:
+        n = min(B, requests - done)
+        prompts = torch.randint(0, cfg.vocab_size, (B, prompt_len),
+                                generator=prompt_gen).to(dev)
         state = model_lib.init_decode_state(cfg, B, max_len, device=dev)
         # prefill via teacher-forced decode (exercises the cache path)
-        for i in range(args.prompt_len):
+        for i in range(prompt_len):
             logits, state = model_lib.decode_step(params, cfg, state,
                                                   prompts[:, i:i + 1])
         tok = torch.argmax(logits, -1)
-        for _ in range(args.gen):
+        for _ in range(gen):
             logits, state = model_lib.decode_step(params, cfg, state, tok)
             tok = torch.argmax(logits, -1)
             tokens_out += n
@@ -120,34 +149,20 @@ def _serve(args, dev) -> int:
         for r in range(done, done + n):
             latencies.append(t_done - t0)
             emit("serve_request", request=r, latency_s=t_done - t0,
-                 tokens=args.gen)
+                 tokens=gen)
         done += n
     dt = max(1e-9, time.time() - t0)
     latencies.sort()
-    p50, p99 = _percentile(latencies, 50), _percentile(latencies, 99)
     device = torch.cuda.get_device_name(dev) if dev.type == "cuda" \
         else "cpu"
-    emit("serve_summary", requests=args.requests, tokens=tokens_out, dt=dt,
-         tokens_per_s=tokens_out / dt,
-         tokens_per_s_device=tokens_out / dt / n_dev,
-         latency_p50_s=p50, latency_p99_s=p99, device=device,
-         arch=args.arch, smoke=args.smoke)
-    if args.bench_json:
-        row = benchrow.bench_row(
-            name=args.bench_name, kind="serve",
-            metrics={"latency_p50_s": p50, "latency_p99_s": p99,
-                     "tokens_per_s": tokens_out / dt,
-                     "tokens_per_s_device": tokens_out / dt / n_dev,
-                     "requests": float(args.requests),
-                     "tokens": float(tokens_out)},
-            context={"arch": args.arch, "smoke": args.smoke,
-                     "gen": args.gen, "prompt_len": args.prompt_len,
-                     "batch_slots": args.batch_slots, "devices": n_dev,
-                     "device": device})
-        path = benchrow.append_row(args.bench_json, row)
-        emit("bench_row", name=args.bench_name, row_kind="serve",
-             path=path)
-    return 0
+    summary = dict(requests=requests, tokens=tokens_out, dt=dt,
+                   tokens_per_s=tokens_out / dt,
+                   tokens_per_s_device=tokens_out / dt / n_dev,
+                   latency_p50_s=_percentile(latencies, 50),
+                   latency_p99_s=_percentile(latencies, 99), device=device,
+                   arch=cfg.name, smoke=smoke)
+    emit("serve_summary", **summary)
+    return summary
 
 
 if __name__ == "__main__":

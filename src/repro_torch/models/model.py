@@ -23,8 +23,11 @@ and the experts are the rank's shard.  Each rank's loss is its share of
 the global loss, so that summing the replicated params' gradients over
 the ranks (runtime/step.py) gives the global gradient.
 
-Supported: attention mixers with MoE, dense or no FFN, RoPE or no position
-embedding.  Other mixers, learned positions and encoder-decoder raise.
+Supported: attention and Mamba-2 (models/ssm.py) mixers, mixed in one
+layout, with MoE, dense or no FFN, RoPE or no position embedding.  The
+Mamba forward over a sequence needs a ``model`` axis of 1 (decode runs on
+any mesh).  xLSTM mixers, learned positions, encoder-decoder and the
+patch frontend raise.
 """
 from __future__ import annotations
 
@@ -36,9 +39,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.comm import collectives
-from repro_torch.configs.base import ATTN, DENSE, MOE, NONE, ModelConfig
+from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MOE, NONE,
+                                      ModelConfig)
 from repro_torch.core.lsh_moe import lsh_moe_apply, lsh_moe_init
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import (embed, embedding_init, fanin_init,
                                        mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init, unembed)
@@ -58,7 +63,7 @@ def torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet."""
     for mixer, ffn in cfg.layout:
-        if mixer != ATTN:
+        if mixer not in (ATTN, MAMBA):
             raise NotImplementedError(
                 f"mixer {mixer!r} is not ported (ROADMAP Queue 1 item 7)")
         if ffn not in (DENSE, MOE, NONE):
@@ -69,6 +74,9 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.pos_emb not in ("rope", "none"):
         raise NotImplementedError(
             f"pos_emb={cfg.pos_emb!r} is not ported (ROADMAP Queue 1 item 7)")
+    if cfg.frontend == "patch_stub":
+        raise NotImplementedError(
+            "frontend='patch_stub' is not ported (ROADMAP Queue 1 item 7)")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -76,13 +84,19 @@ def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
     return list(cfg.layout) * cfg.num_super_blocks
 
 
-def _layer_init(gen, cfg: ModelConfig, ffn: str, dtype, device,
+def _mixer_init(gen, cfg: ModelConfig, mixer: str, dtype, device) -> Dict:
+    if mixer == MAMBA:
+        return ssm_lib.mamba_init(gen, cfg.d_model, cfg.ssm, dtype, device)
+    return attn_lib.attention_init(gen, cfg.d_model, cfg.num_heads,
+                                   cfg.num_kv_heads, cfg.resolved_head_dim,
+                                   dtype, device)
+
+
+def _layer_init(gen, cfg: ModelConfig, mixer: str, ffn: str, dtype, device,
                 mesh) -> Dict:
     h = cfg.d_model
     p: Dict = {"norm1": rmsnorm_init(h, dtype, device),
-               "mixer": attn_lib.attention_init(
-                   gen, h, cfg.num_heads, cfg.num_kv_heads,
-                   cfg.resolved_head_dim, dtype, device)}
+               "mixer": _mixer_init(gen, cfg, mixer, dtype, device)}
     if ffn == DENSE:
         p["norm2"] = rmsnorm_init(h, dtype, device)
         p["ffn"] = mlp_init(gen, h, cfg.d_ff, cfg.mlp_act, dtype, device)
@@ -112,22 +126,35 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["head"] = {"w": fanin_init(gen, (cfg.d_model, cfg.vocab_size),
                                           dtype, dev)}
-    params["layers"] = [_layer_init(gen, cfg, ffn, dtype, dev, mesh)
-                        for _, ffn in layer_kinds(cfg)]
+    params["layers"] = [_layer_init(gen, cfg, mixer, ffn, dtype, dev, mesh)
+                        for mixer, ffn in layer_kinds(cfg)]
     return params
 
 
-def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, ffn: str, *,
-           use_lsh: Optional[bool], mesh, moe_mode: str = "train"):
-    """One (mixer, ffn) block of the training forward -> (x, aux, z,
-    load, comm); aux / z / load are None without a MoE FFN, comm the MoE
-    layer's MetricBag (None unless ``ObsConfig.in_graph_metrics``)."""
-    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + attn_lib.attention_apply(
+def _apply_mixer(p: Dict, h: torch.Tensor, cfg: ModelConfig, mixer: str,
+                 mesh) -> torch.Tensor:
+    if mixer == MAMBA:
+        if sharding.axis_size(mesh, "model") > 1:
+            raise NotImplementedError(
+                "the Mamba forward on a mesh whose 'model' axis is > 1: the "
+                "residual stream is sharded by sequence there and the SSD "
+                "scan needs the whole sequence (ROADMAP Queue 1 item 7, "
+                "runtime/tp.py)")
+        return ssm_lib.mamba_apply(p["mixer"], h, cfg.ssm, cfg.norm_eps)
+    return attn_lib.attention_apply(
         p["mixer"], h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
         rope_theta=cfg.rope_theta, causal=True, kv_chunk=cfg.kv_chunk,
         use_rope=(cfg.pos_emb == "rope"), mesh=mesh)
+
+
+def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: str,
+           *, use_lsh: Optional[bool], mesh, moe_mode: str = "train"):
+    """One (mixer, ffn) block of the training forward -> (x, aux, z,
+    load, comm); aux / z / load are None without a MoE FFN, comm the MoE
+    layer's MetricBag (None unless ``ObsConfig.in_graph_metrics``)."""
+    h = rmsnorm(p["norm1"], x, cfg.norm_eps)
+    x = x + _apply_mixer(p, h, cfg, mixer, mesh)
     aux = z = load = comm = None
     if ffn == DENSE:
         x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps),
@@ -214,9 +241,9 @@ def _stack_forward(layers: List[Dict], x: torch.Tensor, cfg: ModelConfig, *,
     else:
         aux, z, load, comm = init_stats
     kinds = list(cfg.layout) * (len(layers) // max(1, len(cfg.layout)))
-    for (_, ffn), p in zip(kinds, layers):
-        fn = partial(_block, p, cfg=cfg, ffn=ffn, use_lsh=use_lsh,
-                     mesh=mesh, moe_mode=moe_mode)
+    for (mixer, ffn), p in zip(kinds, layers):
+        fn = partial(_block, p, cfg=cfg, mixer=mixer, ffn=ffn,
+                     use_lsh=use_lsh, mesh=mesh, moe_mode=moe_mode)
         if remat:
             x, a, zz, ld, cm = checkpoint(fn, x, use_reentrant=False)
         else:
@@ -355,13 +382,17 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device: DeviceLike = None) -> Dict:
-    """One KV cache per layer, and the decode position."""
+    """One state per layer, by its mixer: a KV cache {"k", "v"} for an
+    attention layer, {"h": f32 [B, nh, dh, N], "conv": [B, W - 1,
+    d_inner]} for a Mamba layer; and the decode position."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    caches = [attn_lib.init_kv_cache(batch, max_len, cfg.num_kv_heads,
-                                     cfg.resolved_head_dim, dtype, dev)
-              for _ in layer_kinds(cfg)]
+    caches = [ssm_lib.init_mamba_state(batch, cfg.d_model, cfg.ssm, dtype,
+                                       dev) if mixer == MAMBA
+              else attn_lib.init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                                          cfg.resolved_head_dim, dtype, dev)
+              for mixer, _ in layer_kinds(cfg)]
     return {"layers": caches, "position": 0}
 
 
@@ -369,21 +400,27 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
                 tokens: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: [B, 1] -> (logits [B, 1, V] f32, state).
-    The KV caches in ``state`` are updated in place; the returned state
-    holds the same caches and the next position.  With a mesh, tokens and
+    The KV caches and Mamba states in ``state`` are updated in place; the
+    returned state holds the same tensors and the next position.  With a mesh, tokens and
     caches are this rank's batch shard, the same on every rank of a model
     slice (decode batches are too small to shard further), and the MoE
     exchange runs over the model axis (``moe_dense_dispatch``)."""
     pos = int(state["position"])
     x = embed(params["embed"], tokens)
     dh = cfg.resolved_head_dim
-    for (_, ffn), p, cache in zip(layer_kinds(cfg), params["layers"],
-                                  state["layers"]):
+    for (mixer, ffn), p, cache in zip(layer_kinds(cfg), params["layers"],
+                                      state["layers"]):
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        y, _ = attn_lib.decode_attention(
-            p["mixer"], h, cache, pos, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=dh,
-            rope_theta=cfg.rope_theta, use_rope=(cfg.pos_emb == "rope"))
+        if mixer == MAMBA:
+            y, new = ssm_lib.mamba_decode(p["mixer"], h, cache, cfg.ssm,
+                                          cfg.norm_eps)
+            for k in ("h", "conv"):
+                cache[k].copy_(new[k])
+        else:
+            y, _ = attn_lib.decode_attention(
+                p["mixer"], h, cache, pos, num_heads=cfg.num_heads,
+                num_kv_heads=cfg.num_kv_heads, head_dim=dh,
+                rope_theta=cfg.rope_theta, use_rope=(cfg.pos_emb == "rope"))
         x = x + y
         if ffn == DENSE:
             x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps),
