@@ -5,6 +5,7 @@ Each is a ``torch.autograd.Function`` whose backward is its transpose:
 
   all_gather      <-transpose->  reduce_scatter (sum)
   all_to_all      <-transpose->  all_to_all (split = concat = dim 0)
+  all_reduce_sum  <-transpose->  all_reduce_sum (``AllReduceSum``)
 
 They move words, as the JAX package's ``_bits`` / ``_unbits`` do, so that
 no backend converts or widens the wire: bf16 (and f16) and fp8 move as
@@ -204,6 +205,22 @@ class AllReduceMean(torch.autograd.Function):
     def backward(ctx, ct):
         return raw_all_reduce_sum(ct, ctx.group) / group_size(ctx.group), \
             None
+
+
+class AllReduceSum(torch.autograd.Function):
+    """The sum over the group's ranks of a tensor each rank holds; each
+    rank gets the same result.  Backward: the sum of the cotangents (each
+    rank's objective reads the sum, so every rank's cotangent reaches
+    every addend)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return raw_all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return raw_all_reduce_sum(ct, ctx.group), None
 
 
 def all_to_all(x: torch.Tensor, group) -> torch.Tensor:

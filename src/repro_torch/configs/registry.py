@@ -9,6 +9,7 @@ _MODULES = {
     "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
     "qwen3-moe-30b-a3b": "repro_torch.configs.qwen3_moe_30b_a3b",
     "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
+    "xlstm-350m": "repro_torch.configs.xlstm_350m",
 }
 ARCH_IDS = tuple(_MODULES)
 

@@ -129,6 +129,7 @@ class Mesh:
         self.coords = _coords(self.shape, rank)
         self._groups = dict(groups or {})
         self._hops: Dict[int, Tuple[object, object]] = {}
+        self._unit = None
         self.node_size = int(node_size)
 
     def axis_size(self, name: str) -> int:
@@ -143,6 +144,27 @@ class Mesh:
         axes = (axes,) if isinstance(axes, str) else tuple(axes)
         return self._groups.get(tuple(a for a in self.axis_names
                                       if a in axes))
+
+    def tp_group(self) -> object:
+        """The group runtime/tp.py's collectives run over: the model
+        axis's, or where that axis holds one rank, a group of this rank
+        alone, so that the tensor-parallel path makes its calls on every
+        mesh.  The one-rank groups are built on first use, one for each
+        rank of the world in rank order (``dist.new_group`` is
+        collective: every rank reaches its first tensor-parallel call at
+        the same point of the same program)."""
+        if self.axis_size("model") > 1:
+            return self.group("model")
+        if self._unit is None:
+            if not dist.is_initialized():
+                raise RuntimeError("the tensor-parallel path needs a "
+                                   "started default process group")
+            me = dist.get_rank()
+            for r in range(dist.get_world_size()):
+                g = dist.new_group([r])
+                if r == me:
+                    self._unit = g
+        return self._unit
 
     def hop_groups(self, intra: int) -> Tuple[object, object]:
         """This rank's (intra-node, inter-node) subgroups of the model axis

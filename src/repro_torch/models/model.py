@@ -23,11 +23,11 @@ and the experts are the rank's shard.  Each rank's loss is its share of
 the global loss, so that summing the replicated params' gradients over
 the ranks (runtime/step.py) gives the global gradient.
 
-Supported: attention and Mamba-2 (models/ssm.py) mixers, mixed in one
-layout, with MoE, dense or no FFN, RoPE or no position embedding.  The
-Mamba forward over a sequence needs a ``model`` axis of 1 (decode runs on
-any mesh).  xLSTM mixers, learned positions, encoder-decoder and the
-patch frontend raise.
+Supported: attention, Mamba-2 (models/ssm.py; over a mesh its heads
+split over ``model``, runtime/tp.py) and the xLSTM mixers (models/xlstm.py;
+mesh-free or under ``dp_only``), mixed in one layout, with MoE, dense or
+no FFN, RoPE or no position embedding.  Learned positions,
+encoder-decoder and the patch frontend raise.
 """
 from __future__ import annotations
 
@@ -39,11 +39,12 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import DeviceLike, resolve_device
 from repro_torch.comm import collectives
-from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MOE, NONE,
-                                      ModelConfig)
+from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLSTM, MOE, NONE,
+                                      SLSTM, ModelConfig)
 from repro_torch.core.lsh_moe import lsh_moe_apply, lsh_moe_init
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
+from repro_torch.models import xlstm as xlstm_lib
 from repro_torch.models.layers import (embed, embedding_init, fanin_init,
                                        mlp_apply, mlp_init, rmsnorm,
                                        rmsnorm_init, unembed)
@@ -63,7 +64,7 @@ def torch_dtype(name: str) -> torch.dtype:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet."""
     for mixer, ffn in cfg.layout:
-        if mixer not in (ATTN, MAMBA):
+        if mixer not in (ATTN, MAMBA, MLSTM, SLSTM):
             raise NotImplementedError(
                 f"mixer {mixer!r} is not ported (ROADMAP Queue 1 item 7)")
         if ffn not in (DENSE, MOE, NONE):
@@ -87,6 +88,14 @@ def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
 def _mixer_init(gen, cfg: ModelConfig, mixer: str, dtype, device) -> Dict:
     if mixer == MAMBA:
         return ssm_lib.mamba_init(gen, cfg.d_model, cfg.ssm, dtype, device)
+    if mixer == MLSTM:
+        return xlstm_lib.mlstm_init(gen, cfg.d_model, cfg.resolved_head_dim,
+                                    cfg.xlstm.mlstm_proj_factor, dtype,
+                                    device)
+    if mixer == SLSTM:
+        return xlstm_lib.slstm_init(gen, cfg.d_model,
+                                    cfg.xlstm.slstm_proj_factor, dtype,
+                                    device)
     return attn_lib.attention_init(gen, cfg.d_model, cfg.num_heads,
                                    cfg.num_kv_heads, cfg.resolved_head_dim,
                                    dtype, device)
@@ -134,13 +143,19 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 def _apply_mixer(p: Dict, h: torch.Tensor, cfg: ModelConfig, mixer: str,
                  mesh) -> torch.Tensor:
     if mixer == MAMBA:
+        return ssm_lib.mamba_apply(p["mixer"], h, cfg.ssm, cfg.norm_eps,
+                                   mesh=mesh)
+    if mixer in (MLSTM, SLSTM):
         if sharding.axis_size(mesh, "model") > 1:
             raise NotImplementedError(
-                "the Mamba forward on a mesh whose 'model' axis is > 1: the "
-                "residual stream is sharded by sequence there and the SSD "
-                "scan needs the whole sequence (ROADMAP Queue 1 item 7, "
-                "runtime/tp.py)")
-        return ssm_lib.mamba_apply(p["mixer"], h, cfg.ssm, cfg.norm_eps)
+                f"the {mixer} forward on a mesh whose 'model' axis is > 1: "
+                "the residual stream is sharded by sequence there, and the "
+                "port runs the xLSTM mixers mesh-free or under dp_only "
+                "(ROADMAP Queue 1 item 7)")
+        if mixer == MLSTM:
+            return xlstm_lib.mlstm_apply(p["mixer"], h, cfg.resolved_head_dim,
+                                         cfg.xlstm.chunk_size, cfg.norm_eps)
+        return xlstm_lib.slstm_apply(p["mixer"], h, cfg.norm_eps)
     return attn_lib.attention_apply(
         p["mixer"], h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
@@ -380,18 +395,33 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
     return last, {"position": int(tokens.shape[1])}
 
 
+def _mixer_state(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
+                 dtype, device) -> Dict:
+    if mixer == MAMBA:
+        return ssm_lib.init_mamba_state(batch, cfg.d_model, cfg.ssm, dtype,
+                                        device)
+    if mixer == MLSTM:
+        dh = cfg.resolved_head_dim
+        d_in = xlstm_lib.mlstm_width(cfg.d_model, dh,
+                                     cfg.xlstm.mlstm_proj_factor)
+        return xlstm_lib.init_mlstm_state(batch, d_in // dh, dh, device)
+    if mixer == SLSTM:
+        return xlstm_lib.init_slstm_state(batch, cfg.d_model, device)
+    return attn_lib.init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                                  cfg.resolved_head_dim, dtype, device)
+
+
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device: DeviceLike = None) -> Dict:
     """One state per layer, by its mixer: a KV cache {"k", "v"} for an
     attention layer, {"h": f32 [B, nh, dh, N], "conv": [B, W - 1,
-    d_inner]} for a Mamba layer; and the decode position."""
+    d_inner]} for a Mamba layer, {"C", "n", "m"} (f32) for an mLSTM and
+    {"c", "n", "h", "m"} (f32 [B, H]) for an sLSTM (the JAX state's keys);
+    and the decode position."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    caches = [ssm_lib.init_mamba_state(batch, cfg.d_model, cfg.ssm, dtype,
-                                       dev) if mixer == MAMBA
-              else attn_lib.init_kv_cache(batch, max_len, cfg.num_kv_heads,
-                                          cfg.resolved_head_dim, dtype, dev)
+    caches = [_mixer_state(cfg, mixer, batch, max_len, dtype, dev)
               for mixer, _ in layer_kinds(cfg)]
     return {"layers": caches, "position": 0}
 
@@ -400,8 +430,9 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
 def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
                 tokens: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: [B, 1] -> (logits [B, 1, V] f32, state).
-    The KV caches and Mamba states in ``state`` are updated in place; the
-    returned state holds the same tensors and the next position.  With a mesh, tokens and
+    Every layer's state in ``state`` (KV cache, Mamba or xLSTM state) is
+    updated in place; the returned state holds the same tensors and the
+    next position.  With a mesh, tokens and
     caches are this rank's batch shard, the same on every rank of a model
     slice (decode batches are too small to shard further), and the MoE
     exchange runs over the model axis (``moe_dense_dispatch``)."""
@@ -411,16 +442,23 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
     for (mixer, ffn), p, cache in zip(layer_kinds(cfg), params["layers"],
                                       state["layers"]):
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-        if mixer == MAMBA:
-            y, new = ssm_lib.mamba_decode(p["mixer"], h, cache, cfg.ssm,
-                                          cfg.norm_eps)
-            for k in ("h", "conv"):
-                cache[k].copy_(new[k])
-        else:
+        if mixer == ATTN:
             y, _ = attn_lib.decode_attention(
                 p["mixer"], h, cache, pos, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads, head_dim=dh,
                 rope_theta=cfg.rope_theta, use_rope=(cfg.pos_emb == "rope"))
+        else:
+            if mixer == MAMBA:
+                y, new = ssm_lib.mamba_decode(p["mixer"], h, cache, cfg.ssm,
+                                              cfg.norm_eps)
+            elif mixer == MLSTM:
+                y, new = xlstm_lib.mlstm_decode(p["mixer"], h, cache, dh,
+                                                cfg.norm_eps)
+            else:
+                y, new = xlstm_lib.slstm_decode(p["mixer"], h, cache,
+                                                cfg.norm_eps)
+            for k, v in new.items():    # the serve loop keeps the tensors
+                cache[k].copy_(v)
         x = x + y
         if ffn == DENSE:
             x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps),

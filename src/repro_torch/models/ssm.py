@@ -16,10 +16,18 @@ output is cast to the input's dtype; silu runs in f32 and is cast back.
 Decode computes its conv as an f32 product over the [B, W, d_inner]
 buffer, a different rounding from the training path's conv, as in JAX.
 
-The mesh-free arithmetic only: on a mesh whose ``model`` axis is > 1 the
-port shards the residual stream by sequence, which the scan cannot take
-(models/model.py raises there; the JAX package shards heads instead,
-``runtime/tp.py``).
+On a mesh ``mamba_apply`` splits the heads over the ``model`` axis
+(runtime/tp.py), as the JAX function does: the residual stream arrives
+sharded by sequence, one all-gather gives every rank the whole sequence,
+and rank m of g computes heads [m nh / g, (m + 1) nh / g) (their columns
+of ``w_z``, ``w_x``, ``conv_w`` and the norm, their entries of ``w_dt``,
+``dt_bias``, ``a_log`` and ``d_skip``, their rows of ``w_out``), which
+the conv and the scan need whole along the sequence.  ``w_b`` and ``w_c``
+are shared by every head: each rank projects its own tokens and
+all-gathers the result, so that their gradient is counted once.  The
+norm over d_inner sums each rank's mean of squares across the ranks
+(``tp.tp_rmsnorm``); ``w_out``'s partial products are reduce-scattered
+back to the sequence slices.
 """
 from __future__ import annotations
 
@@ -31,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.layers import (fanin_init, normal_init, rmsnorm,
                                        rmsnorm_init)
+from repro_torch.runtime import sharding, tp
 
 
 def mamba_init(gen, d_model: int, cfg, dtype, device) -> Dict:
@@ -131,26 +140,44 @@ def _ssd_chunk_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return torch.cat(ys, dim=1), h
 
 
-def mamba_apply(params: Dict, x: torch.Tensor, cfg,
-                norm_eps: float = 1e-5) -> torch.Tensor:
-    """Full-sequence forward (train / prefill).  x: [B, S, H] -> [B, S, H]."""
+def mamba_apply(params: Dict, x: torch.Tensor, cfg, norm_eps: float = 1e-5,
+                mesh=None) -> torch.Tensor:
+    """Full-sequence forward (train / prefill).  x: [B, S, H] -> [B, S, H];
+    with a mesh, this rank's sequence slice, and the heads split over the
+    ``model`` axis (module docstring)."""
     B, S, H = x.shape
     d_inner = cfg.expand * H
     nh = d_inner // cfg.head_dim
-    z = x @ params["w_z"]
-    xr = x @ params["w_x"]
-    Bm = (x @ params["w_b"]).to(torch.float32)
-    Cm = (x @ params["w_c"]).to(torch.float32)
-    dt = softplus((x @ params["w_dt"]).to(torch.float32) + params["dt_bias"])
-    xs = _causal_conv(xr, params["conv_w"])
+    if mesh is None:
+        z = x @ params["w_z"]
+        xr = x @ params["w_x"]
+        Bm = x @ params["w_b"]
+        Cm = x @ params["w_c"]
+        dt = x @ params["w_dt"]
+        heads = params
+    else:
+        # w_dt's nh columns must split over the axis, so the slices of the
+        # d_inner columns fall on whole heads
+        g = sharding.axis_size(mesh, "model")
+        z, xr, Bm, Cm, dt = tp.tp_in_project(
+            x, [params[k] for k in ("w_z", "w_x", "w_b", "w_c", "w_dt")],
+            mesh, replicate=(False, False, True, True, False))
+        heads = {k: tp.rank_slice(params[k], mesh)
+                 for k in ("dt_bias", "a_log", "d_skip", "conv_w")}
+        nh, d_inner, S = nh // g, d_inner // g, S * g
+    Bm, Cm = Bm.to(torch.float32), Cm.to(torch.float32)
+    dt = softplus(dt.to(torch.float32) + heads["dt_bias"])
+    xs = _causal_conv(xr, heads["conv_w"])
     xs = F.silu(xs.to(torch.float32)).to(x.dtype)
     xh = xs.reshape(B, S, nh, cfg.head_dim)
-    y, _ = _ssd_chunk_scan(xh, dt, params["a_log"], Bm, Cm, cfg.chunk_size)
-    y = y + params["d_skip"].to(x.dtype)[None, None, :, None] * xh
+    y, _ = _ssd_chunk_scan(xh, dt, heads["a_log"], Bm, Cm, cfg.chunk_size)
+    y = y + heads["d_skip"].to(x.dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, d_inner)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
-    y = rmsnorm(params["norm"], y, norm_eps)
-    return y @ params["w_out"]
+    if mesh is None:
+        return rmsnorm(params["norm"], y, norm_eps) @ params["w_out"]
+    y = tp.tp_rmsnorm(params["norm"], y, mesh, norm_eps)
+    return tp.tp_project(y, params["w_out"], mesh)
 
 
 # ------------------------------------------------------------------ decode --

@@ -160,6 +160,9 @@ def adamw_update(params: Any, grads: List[Optional[torch.Tensor]],
             else:
                 m.copy_(torch.where(skip, m, mf.to(m.dtype)))
                 v.copy_(torch.where(skip, v, vf.to(v.dtype)))
+            # free this leaf's f32 copies before the next leaf makes its
+            # own: at a billion elements a leaf each is gigabytes
+            del gf, mf, vf, upd, pf
     return OptState(step, state.m, state.v,
                     state.grad_skips + skip.to(torch.int32))
 
