@@ -255,6 +255,29 @@ Phases, each of which raises (and so exits non-zero) on failure:
               within 1e-4, the zero-initialised biases within 1e-2 of
               their norm) and 16 teacher-forced decode steps against the
               forward within 1e-3.
+ 17. archs   the six dense, patch-prefix and encoder-decoder archs at full
+              width (bf16, seeded weights; none launches a port kernel:
+              no MoE layer): whisper-base, smollm-360m, phi3-mini-3.8b,
+              granite-8b, internvl2-26b, nemotron-4-15b.  Each served at
+              full depth (8 requests, 4 slots, 16 + 16 tokens: tokens/s,
+              p50, p99, peak memory; the params freed before the next).
+              Training, finite losses, no skips: whisper-base through
+              runtime.step (the launcher's data has no frames) 3 steps
+              of 4 x 448 tokens over 4 x 1500 seeded frames;
+              launch/train.main 3 steps at 4 x 1024 for smollm-360m and
+              phi3-mini-3.8b at full depth, and for granite-8b and
+              internvl2-26b (on text) at the deepest whole super-block
+              count whose step peaks within 90% of the card's memory,
+              reckoned from one step's peak at 1 and 2 super-blocks (the
+              reckoning printed); nemotron-4-15b a full step of one
+              super-block where it fits, else (printed with its
+              reckoning) loss_fn and its backward over the whole 256k
+              vocab at 4 x 1024, twice, timed, peak memory.  Then f32 on
+              the card against the CPU, TF32 off: whisper-base at 2 + 2
+              layers, one train step (loss 1e-5, gradients 1e-4, params
+              1e-4) and 16 decode steps (1e-3); internvl2-26b at 2
+              layers with 4 patches: logits (1e-3), loss and gradients
+              (1e-5, 1e-4).
 The line before the last is the kernels' JSON record (times at the
 training shape, int8 for the wire kernels; launches of the bf16-wire
 LSH-on training run for the routing and LSH kernels, of the int8 runs
@@ -3840,6 +3863,384 @@ def phase_xlstm(torch, model_lib, step_lib, data_lib, serve, train,
                 parity=parity)
 
 
+# -------------------------------------------------------------- 17. archs --
+
+# The dense, patch-prefix and encoder-decoder archs, lightest first.
+ARCHS_NEW = ("whisper-base", "smollm-360m", "phi3-mini-3.8b", "granite-8b",
+             "internvl2-26b", "nemotron-4-15b")
+ARCHS_SERVE = dict(requests=8, batch_slots=4, prompt_len=16, gen=16)
+ARCHS_TRAIN = (4, 1024)
+ARCHS_STEPS = 3
+# trained at full depth; granite-8b and internvl2-26b at the deepest whole
+# super-block count that fits, nemotron-4-15b by archs_nemotron
+ARCHS_FULL_DEPTH = ("smollm-360m", "phi3-mini-3.8b")
+ARCHS_CUT = ("granite-8b", "internvl2-26b")
+# the share of the card's memory the fitted depth may reach at its peak
+ARCHS_FIT_SHARE = 0.9
+# whisper's frontend stub takes frames: its 30 s window is 1500 encoder
+# frames, and its decoder context 448 tokens
+WHISPER_TRAIN = (4, 1500, 448)
+ARCHS_PARITY_TOKENS = 32        # internvl parity: 4 patches + 28 tokens
+
+
+def _gib(n):
+    return round(n / 2 ** 30, 3)
+
+
+def archs_serve(torch, serve, kernels, cfg):
+    """The serve loop at full width and depth, seeded weights; the peak of
+    allocated device memory over the run."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for k in kernels:
+        k.launches = 0
+    s = serve.serve_loop(cfg, dev, **ARCHS_SERVE)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ran = {k.name: k.launches for k in kernels if k.launches}
+    out = {k: s[k] for k in ("tokens_per_s", "latency_p50_s",
+                             "latency_p99_s")}
+    out.update(peak_memory_gib=_gib(peak), layers=cfg.num_layers)
+    log(f"[archs] serve {cfg.name}: " + json.dumps(out, sort_keys=True))
+    if ran:
+        raise AssertionError(f"{cfg.name} serving launched port kernels "
+                             f"{ran}: it has no MoE layer")
+    if s["tokens"] != ARCHS_SERVE["requests"] * ARCHS_SERVE["gen"] or not all(
+            math.isfinite(s[k]) and s[k] > 0 for k in (
+                "tokens_per_s", "latency_p50_s", "latency_p99_s")):
+        raise AssertionError(f"{cfg.name} serve summary wrong: {s}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def archs_train_main(torch, train, registry, arch, cfg):
+    """launch/train.main on ``cfg`` (the registry's config, or a depth cut
+    of it handed to the launcher through the registry), 3 steps at 4 x
+    1024; finite losses, no skips."""
+    B, S = ARCHS_TRAIN
+    orig = registry.get_config
+    registry.get_config = lambda a: cfg if a == arch else orig(a)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(["--arch", arch, "--batch", str(B), "--seq",
+                             str(S), "--steps", str(ARCHS_STEPS),
+                             "--log-every", "1"])
+    finally:
+        registry.get_config = orig
+        torch.cuda.empty_cache()
+    events = _events(buf)
+    steps = [e for e in events if e["kind"] == "step"]
+    summary = [e for e in events if e["kind"] == "train_summary"]
+    if rc != 0 or len(steps) != ARCHS_STEPS or len(summary) != 1 or not all(
+            math.isfinite(e["loss"]) and e["skips"] == 0 for e in steps):
+        raise AssertionError(f"{arch} train.main: rc {rc}, steps {steps}")
+    s = summary[0]
+    out = dict(layers=cfg.num_layers, losses=[e["loss"] for e in steps],
+               mean_step_ms_after_first=s["mean_step_ms_after_first"],
+               tokens_per_s=s["tokens_per_s"],
+               peak_memory_gib=_gib(s["peak_memory_bytes"]))
+    log(f"[archs] train {arch} ({cfg.num_layers} of "
+        f"{registry.get_config(arch).num_layers} layers, {B} x {S}): "
+        + json.dumps(out, sort_keys=True))
+    return out
+
+
+def _step_peak(torch, step_lib, data_lib, cfg, B, S):
+    """The peak allocated bytes of one training step of ``cfg`` (init,
+    forward, backward, AdamW) at B x S from a clean cache."""
+    from repro_torch.configs.base import OptimizerConfig
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    state = step_lib.init_train_state(cfg, opt, seed=0, device=dev)
+    try:
+        batch = step_lib.batch_to_device(
+            data_lib.SyntheticLMDataset(cfg.vocab_size, S, B).batch_at(0),
+            dev)
+        state, m = step_lib.make_train_step(cfg, opt)(state, batch)
+        if not math.isfinite(float(m["loss"])):
+            raise AssertionError(f"{cfg.name}: non-finite loss")
+    finally:
+        del state
+        torch.cuda.empty_cache()
+    return torch.cuda.max_memory_allocated(dev)
+
+
+def archs_fit_depth(torch, step_lib, data_lib, cfg):
+    """The deepest whole super-block count whose training step's peak
+    stays within ARCHS_FIT_SHARE of the card's memory, from the measured
+    peaks of one step at 1 and 2 super-blocks (the growth a super-block
+    is its params, gradients, f32 moments and saved input: linear)."""
+    B, S = ARCHS_TRAIN
+    total = torch.cuda.get_device_properties(0).total_memory
+    p1 = _step_peak(torch, step_lib, data_lib,
+                    cfg.replace(num_super_blocks=1), B, S)
+    p2 = _step_peak(torch, step_lib, data_lib,
+                    cfg.replace(num_super_blocks=2), B, S)
+    per = p2 - p1
+    n = min(cfg.num_super_blocks,
+            1 + int((ARCHS_FIT_SHARE * total - p1) // per))
+    rec = dict(peak_1_gib=_gib(p1), peak_2_gib=_gib(p2),
+               per_super_block_gib=_gib(per), card_gib=_gib(total),
+               budget_gib=_gib(ARCHS_FIT_SHARE * total),
+               fit_super_blocks=n, of=cfg.num_super_blocks,
+               full_depth_need_gib=_gib(p1 + (cfg.num_super_blocks - 1)
+                                          * per))
+    log(f"[archs] fit {cfg.name}: " + json.dumps(rec, sort_keys=True))
+    if n < 1:
+        raise AssertionError(f"{cfg.name}: one super-block does not fit")
+    return n, rec
+
+
+def archs_whisper_train(torch, step_lib, data_lib, cfg):
+    """whisper-base at full width and depth through runtime.step (the
+    launcher's synthetic data has no frames): 3 steps of 4 x 448 tokens
+    over 4 x 1500 seeded frames, finite losses."""
+    from repro_torch.configs.base import OptimizerConfig
+    dev = torch.device("cuda")
+    B, F, S = WHISPER_TRAIN
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=0, total_steps=ARCHS_STEPS)
+    state = step_lib.init_train_state(cfg, opt, seed=0, device=dev)
+    step = step_lib.make_train_step(cfg, opt)
+    ds = data_lib.SyntheticLMDataset(cfg.vocab_size, S, B)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    losses, dts = [], []
+    for s in range(ARCHS_STEPS):
+        batch = step_lib.batch_to_device(ds.batch_at(s), dev)
+        batch["frames"] = torch.randn((B, F, cfg.d_model), generator=gen,
+                                      device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        dts.append(time.perf_counter() - t0)
+        if int(m["grad_skips"]):
+            raise AssertionError("whisper: a step was skipped")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"whisper losses {losses}")
+    out = dict(layers=cfg.num_layers,
+               encoder_layers=cfg.num_encoder_super_blocks, losses=losses,
+               step_ms=[d * 1e3 for d in dts],
+               tokens_per_s=B * S * (len(dts) - 1) / sum(dts[1:]),
+               peak_memory_gib=_gib(torch.cuda.max_memory_allocated(dev)))
+    log(f"[archs] train whisper-base ({B} x {S} tokens over {B} x {F} "
+        "frames, runtime.step): " + json.dumps(out, sort_keys=True))
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def archs_nemotron(torch, model_lib, step_lib, data_lib, cfg):
+    """nemotron-4-15b: a full training step of one super-block if it fits
+    the card; where it does not, the reckoning, and loss_fn with its
+    backward at full width (the 256k vocab whole) and 4 x 1024 tokens."""
+    from repro_torch.configs.base import param_count
+    from repro_torch.optim.adam import leaves
+    dev = torch.device("cuda")
+    B, S = ARCHS_TRAIN
+    one = cfg.replace(num_super_blocks=1)
+    n = param_count(one)
+    vocab_leaf = cfg.vocab_size * cfg.d_model
+    reckoning = dict(
+        params_1_super_block=n, params_full=param_count(cfg),
+        bf16_params_and_grads_gib=_gib(4 * n),
+        f32_moments_gib=_gib(8 * n),
+        f32_copy_of_the_vocab_leaf_gib=_gib(4 * vocab_leaf),
+        card_gib=_gib(torch.cuda.get_device_properties(0).total_memory))
+    out = dict(reckoning=reckoning)
+    try:
+        out["step_peak_gib"] = _gib(_step_peak(torch, step_lib, data_lib,
+                                                 one, B, S))
+        out["full_step"] = True
+    except torch.OutOfMemoryError as exc:
+        out["full_step"] = False
+        out["oom"] = str(exc).splitlines()[0][:200]
+        torch.cuda.empty_cache()
+    log(f"[archs] nemotron-4-15b, one super-block: "
+        + json.dumps(out, sort_keys=True))
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model_lib.init_params(one, seed=0, device=dev)
+    train = [p for p in leaves(params) if p.is_floating_point()]
+    for p in train:
+        p.requires_grad_(True)
+    batch = step_lib.batch_to_device(
+        data_lib.SyntheticLMDataset(one.vocab_size, S, B).batch_at(0), dev)
+    times = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = model_lib.loss_fn(params, one, batch)
+        grads = torch.autograd.grad(loss, train)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        finite = math.isfinite(float(loss.detach())) and all(
+            bool(torch.isfinite(g).all()) for g in grads)
+        del grads
+    out.update(loss=float(loss.detach()), loss_and_backward_ms=times,
+               loss_and_backward_peak_gib=_gib(
+                   torch.cuda.max_memory_allocated(dev)))
+    log(f"[archs] nemotron-4-15b loss_fn + backward, one super-block, "
+        f"vocab {one.vocab_size}, {B} x {S}: loss {out['loss']}, ms "
+        f"{times}, peak {out['loss_and_backward_peak_gib']} GiB")
+    del params, train, loss
+    torch.cuda.empty_cache()
+    if not finite:
+        raise AssertionError("nemotron: non-finite loss or gradient")
+    return out
+
+
+def archs_parity(torch, model_lib, step_lib, clustering, kernels,
+                 registry):
+    """f32 on the card against the CPU, TF32 off: whisper-base at 2 + 2
+    layers, one train step (loss and gradients within phase train
+    parity's f32 bounds, params within HYB_PARAM_RTOL) and 16 decode
+    steps (within PARITY_ATOL); internvl2-26b at 2 layers with 4 patches,
+    forward (within PARITY_ATOL), loss and gradients."""
+    import numpy as np
+
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.optim.adam import leaves
+    cpu, dev = torch.device("cpu"), torch.device("cuda")
+
+    def rel(u, v):
+        return float((u.double() - v.double()).norm()
+                     / v.double().norm().clamp_min(1e-30))
+
+    out = {}
+    cfg = registry.get_config("whisper-base").replace(
+        num_super_blocks=2, num_encoder_super_blocks=2, dtype="float32")
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=10, total_steps=100)
+    batch = SyntheticLMDataset(cfg.vocab_size, 64, 2).batch_at(0)
+    batch["frames"] = np.random.default_rng(5).standard_normal(
+        (2, 128, cfg.d_model)).astype(np.float32)
+    a, b = _parity_runs(torch, model_lib, step_lib, clustering, kernels,
+                        set(), cfg, opt, batch)
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    g_rel = max(rel(x, y) for x, y in zip(a["grads"], b["grads"])
+                if y is not None and y.any())
+    p_rel = max(rel(x, y) for x, y in zip(a["params"], b["params"])
+                if y.is_floating_point())
+    params = model_lib.init_params(cfg, seed=6, device=cpu)
+    tokens = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (2, 16)))
+    logits = {}
+    for d in (dev, cpu):
+        p = tree_to(params, d) if d.type == "cuda" else params
+        state = model_lib.init_decode_state(cfg, 2, 16, device=d)
+        outs = []
+        for i in range(16):
+            lg, state = model_lib.decode_step(p, cfg, state,
+                                              tokens[:, i:i + 1].to(d))
+            outs.append(lg.cpu())
+        logits[d.type] = torch.cat(outs, 1)
+    dec = float((logits["cuda"] - logits["cpu"]).abs().max())
+    out["whisper"] = dict(loss_rel=loss_rel, grad_rel=g_rel,
+                          param_rel=p_rel, decode_err=dec)
+    log(f"[archs] parity whisper-base 2 + 2 layers f32 (2 x 64 tokens, "
+        f"2 x 128 frames): loss cuda {a['loss']} cpu {b['loss']} (rel "
+        f"{loss_rel:.3g}), worst gradient rel L2 {g_rel:.3g}, worst param "
+        f"rel L2 {p_rel:.3g}; 16 decode steps max |diff| {dec:.3g}; bounds "
+        f"{LOSS_RTOL} / {GRAD_RTOL} / {HYB_PARAM_RTOL} / {PARITY_ATOL}")
+    if not (loss_rel <= LOSS_RTOL and g_rel <= GRAD_RTOL
+            and p_rel <= HYB_PARAM_RTOL and dec <= PARITY_ATOL):
+        raise AssertionError("whisper: CUDA and CPU disagree")
+    del params, a, b
+
+    cfg = registry.get_config("internvl2-26b").replace(
+        num_super_blocks=2, num_patches=4, dtype="float32")
+    rng = np.random.default_rng(9)
+    T = ARCHS_PARITY_TOKENS - cfg.num_patches
+    host = {"tokens": rng.integers(0, cfg.vocab_size, (2, T)),
+            "labels": rng.integers(0, cfg.vocab_size, (2, T)),
+            "patch_embeds": rng.standard_normal(
+                (2, cfg.num_patches, cfg.d_model)).astype(np.float32)}
+    # drawn on the card (seconds on the host for 1.9 G elements), then
+    # copied to the host
+    params = tree_to(model_lib.init_params(cfg, seed=7, device=dev), cpu)
+    torch.cuda.empty_cache()
+    runs = {}
+    for d in (dev, cpu):
+        p = tree_to(params, d) if d.type == "cuda" else params
+        batch = step_lib.batch_to_device(host, d)
+        train = [t for t in leaves(p) if t.is_floating_point()]
+        for t in train:
+            t.requires_grad_(True)
+        with torch.no_grad():
+            lg, _ = model_lib.forward(p, cfg, batch["tokens"],
+                                      patch_embeds=batch["patch_embeds"])
+        loss, _ = model_lib.loss_fn(p, cfg, batch)
+        grads = torch.autograd.grad(loss, train)
+        runs[d.type] = dict(logits=lg.cpu(), loss=float(loss),
+                            grads=[g.cpu() for g in grads])
+        for t in train:
+            t.requires_grad_(False)
+        del p, grads, train
+    a, b = runs["cuda"], runs["cpu"]
+    fwd = float((a["logits"] - b["logits"]).abs().max())
+    loss_rel = abs(a["loss"] - b["loss"]) / abs(b["loss"])
+    g_rel = max(rel(x, y) for x, y in zip(a["grads"], b["grads"])
+                if y.any())
+    out["internvl"] = dict(forward_err=fwd, loss_rel=loss_rel,
+                           grad_rel=g_rel)
+    log(f"[archs] parity internvl2-26b 2 layers f32 (2 x (4 patches + "
+        f"{T} tokens)): logits max |diff| {fwd:.3g}, loss cuda {a['loss']} "
+        f"cpu {b['loss']} (rel {loss_rel:.3g}), worst gradient rel L2 "
+        f"{g_rel:.3g}; bounds {PARITY_ATOL} / {LOSS_RTOL} / {GRAD_RTOL}")
+    if not (fwd <= PARITY_ATOL and loss_rel <= LOSS_RTOL
+            and g_rel <= GRAD_RTOL):
+        raise AssertionError("internvl: CUDA and CPU disagree")
+    del params, runs
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_archs(torch, model_lib, step_lib, data_lib, serve, train,
+                clustering, kernels):
+    """Phase archs: the six dense, patch-prefix and encoder-decoder archs
+    at full width: serving at full depth; training (full depth, the
+    deepest that fits, or nemotron's loss and backward); then whisper and
+    internvl in f32 on the card against the CPU."""
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import param_count
+    t0 = time.time()
+    out = {"serve": {}, "train": {}}
+    for arch in ARCHS_NEW:
+        cfg = registry.get_config(arch)
+        log(f"[archs] {arch}: {cfg.num_layers} layers"
+            + (f" + {cfg.num_encoder_super_blocks} encoder"
+               if cfg.encoder_decoder else "")
+            + f", d_model {cfg.d_model}, {cfg.num_heads} heads "
+            f"({cfg.num_kv_heads} KV) of {cfg.resolved_head_dim}, d_ff "
+            f"{cfg.d_ff} {cfg.mlp_act}, vocab {cfg.vocab_size}, "
+            f"pos {cfg.pos_emb}, {cfg.dtype}, {param_count(cfg)} params")
+        out["serve"][arch] = archs_serve(torch, serve, kernels, cfg)
+    log(f"[time] archs serve done at {time.time() - t0:.1f} s of the phase")
+    out["train"]["whisper-base"] = archs_whisper_train(
+        torch, step_lib, data_lib, registry.get_config("whisper-base"))
+    for arch in ARCHS_FULL_DEPTH:
+        out["train"][arch] = archs_train_main(
+            torch, train, registry, arch, registry.get_config(arch))
+    for arch in ARCHS_CUT:
+        cfg = registry.get_config(arch)
+        n, fit = archs_fit_depth(torch, step_lib, data_lib, cfg)
+        out["train"][arch] = archs_train_main(
+            torch, train, registry, arch, cfg.replace(num_super_blocks=n))
+        out["train"][arch]["fit"] = fit
+    out["train"]["nemotron-4-15b"] = archs_nemotron(
+        torch, model_lib, step_lib, data_lib,
+        registry.get_config("nemotron-4-15b"))
+    log(f"[time] archs train done at {time.time() - t0:.1f} s of the phase")
+    out["parity"] = archs_parity(torch, model_lib, step_lib, clustering,
+                                 kernels, registry)
+    log(f"[archs] phase time {time.time() - t0:.1f} s")
+    return out
+
+
 # -------------------------------------------------------------- main --
 
 def main() -> int:
@@ -3952,6 +4353,10 @@ def main() -> int:
     phase_xlstm(torch, model_lib, step_lib, synthetic, serve, train,
                 clustering, kernels)
     log(f"[time] xlstm done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    phase_archs(torch, model_lib, step_lib, synthetic, serve, train,
+                clustering, kernels)
+    log(f"[time] archs done at {time.time() - t_start:.1f} s")
 
     # launches of the main path's runs: the bf16 wire with LSH on for the
     # routing and LSH kernels, the int8 wire with LSH on for the kernels

@@ -60,18 +60,28 @@ def _index(tree: Any, i: int) -> Any:
     return _map(tree, lambda a: np.asarray(a)[i])
 
 
+def _layers(blocks) -> List[Dict]:
+    """JAX ``blocks`` (one entry per layout position, stacked over
+    super-blocks) -> the port's ``layers``, super-block major."""
+    blocks = list(blocks)
+    n_super = np.asarray(next(_leaves(blocks[0]))).shape[0] if blocks else 0
+    return [_index(blocks[i], sb) for sb in range(n_super)
+            for i in range(len(blocks))]
+
+
 def params_from_jax(tree: Dict, *, device: DeviceLike = None) -> Dict:
     """The JAX ``init_params`` pytree (numpy leaves) -> port params on
-    ``device`` (the CUDA device unless "cpu" is asked for)."""
+    ``device`` (the CUDA device unless "cpu" is asked for).  An
+    encoder-decoder's ``encoder`` {"blocks", "final_norm"} becomes
+    {"layers", "final_norm"} the same way; the decoder layers' ``cross`` /
+    ``cross_norm`` leaves come along with the rest of each layer."""
     dev = resolve_device(device)
-    blocks: List[Dict] = list(tree["blocks"])
-    n_super = np.asarray(next(_leaves(blocks[0]))).shape[0] if blocks else 0
-    layers = [_index(blocks[i], sb) for sb in range(n_super)
-              for i in range(len(blocks))]
     out = {k: v for k, v in tree.items() if k != "blocks"}
+    out["layers"] = _layers(tree["blocks"])
     if "encoder" in out:
-        raise NotImplementedError("encoder-decoder params are not ported")
-    out["layers"] = layers
+        enc = dict(out["encoder"])
+        enc["layers"] = _layers(enc.pop("blocks"))
+        out["encoder"] = enc
     return _map(out, lambda a: tensor_from_numpy(a, dev))
 
 
@@ -100,10 +110,14 @@ _BLOCK_KEY = re.compile(r"^(.*?)blocks/#(\d+)/(.*)$")
 
 def jax_checkpoint_layout(arrays: Dict) -> Dict:
     """A JAX checkpoint's {key: (array, dtype)} in the port's keys: each
-    ``.../blocks/#i/rest`` entry, stacked [num_super_blocks, ...], becomes
-    ``.../layers/#(sb * len(layout) + i)/rest`` = its row sb (a view)."""
-    entries = {int(m.group(2)) for m in map(_BLOCK_KEY.match, arrays) if m}
-    n_layout = max(entries) + 1 if entries else 0
+    ``pre/blocks/#i/rest`` entry, stacked [num_super_blocks, ...], becomes
+    ``pre/layers/#(sb * n + i)/rest`` = its row sb (a view), n the number
+    of entries under that prefix: the decoder's layout length under
+    ``params/`` and ``opt/m/``, 1 under ``params/encoder/``."""
+    n_layout: Dict[str, int] = {}
+    for m in filter(None, map(_BLOCK_KEY.match, arrays)):
+        n_layout[m.group(1)] = max(n_layout.get(m.group(1), 0),
+                                   int(m.group(2)) + 1)
     out = {}
     for key, (arr, dtype) in arrays.items():
         m = _BLOCK_KEY.match(key)
@@ -112,7 +126,8 @@ def jax_checkpoint_layout(arrays: Dict) -> Dict:
             continue
         pre, i, rest = m.group(1), int(m.group(2)), m.group(3)
         for sb in range(arr.shape[0]):
-            out[f"{pre}layers/#{sb * n_layout + i}/{rest}"] = (arr[sb], dtype)
+            out[f"{pre}layers/#{sb * n_layout[pre] + i}/{rest}"] = (
+                arr[sb], dtype)
     return out
 
 

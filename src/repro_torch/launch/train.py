@@ -8,7 +8,10 @@
 Runs on the CUDA device unless ``--device cpu``.  The optimizer is the JAX
 launcher's: ``OptimizerConfig(lr=1e-3, warmup_steps=min(20, steps // 5),
 total_steps=steps)``; the data is ``SyntheticLMDataset`` (the JAX
-package's batches, bit for bit, a pure function of the step).  Prints one
+package's batches, bit for bit, a pure function of the step): tokens and
+labels, so internvl2-26b trains on text alone (no patch prefix), as in
+the JAX launcher, and whisper-base, whose encoder needs frames, raises a
+ValueError.  Prints one
 JSON ``step`` line per logged step (step, loss, ce, lr, dt, skips) and a
 final ``train_summary`` line: steps run by this process, mean step ms
 after the first, tokens/s over those steps, final loss, and the peak of
@@ -295,6 +298,13 @@ def _train(args, dev, mesh, mem) -> int:
     emit = obs_events.emit
     rank0 = mesh is None or mesh.rank == 0
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.encoder_decoder:
+        raise ValueError(
+            f"{args.arch} is an encoder-decoder model: its batches need "
+            "frames [B, S_enc, d_model], and this launcher's synthetic "
+            "dataset makes tokens and labels only (as the JAX launcher's, "
+            "which cannot feed it either); train it through "
+            "runtime.step.make_train_step with a batch that holds frames")
     if args.mesh_pipe > 1:
         cfg = cfg.replace(pipeline_microbatches=args.pipeline_microbatches)
     if args.metrics_dir:

@@ -1,6 +1,7 @@
 """GQA attention (counterpart of ``repro/models/attention.py``): the
 chunked, exact online-softmax training / prefill path, and single-token
-decode against a KV cache.  Plain torch, with the JAX package's f32
+decode against a KV cache; both also as cross-attention over encoder
+states (whisper).  Plain torch, with the JAX package's f32
 softmax; no SDPA, so that the two packages stay like for like.
 
 Over a mesh the residual stream is sharded by sequence over ``model``
@@ -12,7 +13,7 @@ the one-device ones."""
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -77,18 +78,23 @@ def attention_apply(params: Dict, x: torch.Tensor, *, num_heads: int,
                     num_kv_heads: int, head_dim: int, rope_theta: float,
                     causal: bool = True, kv_chunk: int = 1024,
                     pos_offset: int = 0, use_rope: bool = True,
+                    kv_x: Optional[torch.Tensor] = None,
                     mesh=None) -> torch.Tensor:
-    """Full-sequence self-attention (training / prefill).  x: [B, S, H],
-    with a mesh this rank's sequence slice m of S_loc positions: its
-    queries sit at pos_offset + m * S_loc, and it attends to the K / V of
-    every slice."""
+    """Full-sequence attention (training / prefill).  x: [B, S, H], with a
+    mesh this rank's sequence slice m of S_loc positions: its queries sit
+    at pos_offset + m * S_loc, and it attends to the K / V of every slice.
+    ``kv_x`` [B, S_kv, H] makes it cross-attention: the keys and values
+    come from it (encoder states, of another length than x), without RoPE
+    (the caller passes causal=False, as the JAX package's does)."""
     B, S, _ = x.shape
     group = sharding.model_group(mesh)
     pos_offset = pos_offset + sharding.axis_index(mesh, "model") * S
+    src = x if kv_x is None else kv_x
+    S_kv = src.shape[1]
     q = (x @ params["wq"]).reshape(B, S, num_heads, head_dim)
-    k = (x @ params["wk"]).reshape(B, S, num_kv_heads, head_dim)
-    v = (x @ params["wv"]).reshape(B, S, num_kv_heads, head_dim)
-    if use_rope:
+    k = (src @ params["wk"]).reshape(B, S_kv, num_kv_heads, head_dim)
+    v = (src @ params["wv"]).reshape(B, S_kv, num_kv_heads, head_dim)
+    if use_rope and kv_x is None:
         pos = pos_offset + torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
@@ -108,35 +114,41 @@ def init_kv_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int,
 
 def decode_attention(params: Dict, x: torch.Tensor, cache: Dict,
                      position: int, *, num_heads: int, num_kv_heads: int,
-                     head_dim: int, rope_theta: float, use_rope: bool = True
-                     ) -> Tuple[torch.Tensor, Dict]:
+                     head_dim: int, rope_theta: float, use_rope: bool = True,
+                     cross: bool = False) -> Tuple[torch.Tensor, Dict]:
     """One-token decode.  x: [B, 1, H]; cache {"k", "v"}: [B, max_len, nkv,
     dh]; position: the current index.  Returns (out [B, 1, H], cache).
 
     Unlike the JAX function, which returns a new cache, this one writes the
     new key and value into ``cache`` IN PLACE and returns the same dict.
     The softmax is the JAX package's: f32 scores over the whole cache, with
-    positions above ``position`` masked to NEG_INF."""
+    positions above ``position`` masked to NEG_INF.  ``cross``: attention
+    over a cache of encoder keys and values, as the JAX function's: nothing
+    is written, nothing masked, the softmax runs over the whole cache."""
     B = x.shape[0]
     S = cache["k"].shape[1]
-    if not 0 <= position < S:
-        raise IndexError(f"position {position} outside the cache [0, {S})")
     q = (x @ params["wq"]).reshape(B, 1, num_heads, head_dim)
-    kx = (x @ params["wk"]).reshape(B, 1, num_kv_heads, head_dim)
-    vx = (x @ params["wv"]).reshape(B, 1, num_kv_heads, head_dim)
-    if use_rope:
-        pos = torch.full((B, 1), position, dtype=torch.int32, device=x.device)
-        q = apply_rope(q, pos, rope_theta)
-        kx = apply_rope(kx, pos, rope_theta)
-    cache["k"][:, position] = kx[:, 0].to(cache["k"].dtype)
-    cache["v"][:, position] = vx[:, 0].to(cache["v"].dtype)
+    if not cross:
+        if not 0 <= position < S:
+            raise IndexError(f"position {position} outside the cache "
+                             f"[0, {S})")
+        kx = (x @ params["wk"]).reshape(B, 1, num_kv_heads, head_dim)
+        vx = (x @ params["wv"]).reshape(B, 1, num_kv_heads, head_dim)
+        if use_rope:
+            pos = torch.full((B, 1), position, dtype=torch.int32,
+                             device=x.device)
+            q = apply_rope(q, pos, rope_theta)
+            kx = apply_rope(kx, pos, rope_theta)
+        cache["k"][:, position] = kx[:, 0].to(cache["k"].dtype)
+        cache["v"][:, position] = vx[:, 0].to(cache["v"].dtype)
     k, v = cache["k"], cache["v"]
     g = num_heads // num_kv_heads
     qg = q.reshape(B, num_kv_heads, g, head_dim).to(torch.float32) \
         * head_dim ** -0.5
     s = torch.einsum("bkgd,bskd->bkgs", qg, k.to(torch.float32))
-    future = torch.arange(S, device=x.device) > position
-    s = s.masked_fill(future[None, None, None, :], NEG_INF)
+    if not cross:
+        future = torch.arange(S, device=x.device) > position
+        s = s.masked_fill(future[None, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p, v.to(torch.float32))
     out = out.reshape(B, 1, num_heads * head_dim).to(x.dtype)

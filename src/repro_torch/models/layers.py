@@ -64,6 +64,41 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+# ------------------------------------------------- sinusoidal positions --
+
+# The decode step's table length: it adds row ``position % DECODE_TABLE``.
+DECODE_TABLE = 8192
+
+
+def sinusoidal(seq: int, d: int, device=None) -> torch.Tensor:
+    """The JAX package's ``_sinusoidal``: f32 [seq, d], sin at the even
+    columns and cos at the odd ones (interleaved, not RoPE's halves), of
+    pos / 10000 ** (2i / d), computed in f32 as there."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, dim / d)
+    out = torch.zeros((seq, d), dtype=torch.float32, device=device)
+    out[:, 0::2] = torch.sin(ang)
+    out[:, 1::2] = torch.cos(ang)
+    return out
+
+
+_SINUSOID_TABLES: Dict = {}
+
+
+def sinusoid_rows(start: int, n: int, d: int, device) -> torch.Tensor:
+    """Rows [start, start + n) of the sinusoid table, f32 [n, d].  One
+    table per (width, device) is kept and grown when a longer one is asked
+    for (a row does not depend on the table's length), so a decode step
+    reads its row without building the table again."""
+    key = (d, str(torch.device(device)))
+    table = _SINUSOID_TABLES.get(key)
+    if table is None or table.shape[0] < start + n:
+        rows = max(start + n, DECODE_TABLE)
+        table = _SINUSOID_TABLES[key] = sinusoidal(rows, d, device)
+    return table[start:start + n]
+
+
 # ------------------------------------------------------------------ MLPs --
 
 def activation(h: torch.Tensor, g: torch.Tensor, act: str) -> torch.Tensor:

@@ -23,11 +23,22 @@ and the experts are the rank's shard.  Each rank's loss is its share of
 the global loss, so that summing the replicated params' gradients over
 the ranks (runtime/step.py) gives the global gradient.
 
-Supported: attention, Mamba-2 (models/ssm.py; over a mesh its heads
-split over ``model``, runtime/tp.py) and the xLSTM mixers (models/xlstm.py;
-mesh-free or under ``dp_only``), mixed in one layout, with MoE, dense or
-no FFN, RoPE or no position embedding.  Learned positions,
-encoder-decoder and the patch frontend raise.
+Supported: every architecture of the JAX package.  Attention, Mamba-2
+(models/ssm.py; over a mesh its heads split over ``model``,
+runtime/tp.py) and the xLSTM mixers (models/xlstm.py; mesh-free or under
+``dp_only``), mixed in one layout, with MoE, dense or no FFN; RoPE, no
+position embedding, or the fixed sinusoid (``pos_emb="learned"``, the
+JAX name: a table, no parameter, models/layers.sinusoidal); the patch
+frontend (``patch_embeds`` [B, P, H] prepended to the token embeddings,
+the loss over the token positions only; over a mesh the combined P + S
+sequence is what splits over ``model``, runtime/sharding.shard_batch);
+and the encoder-decoder stack (whisper): ``params["encoder"] =
+{"layers", "final_norm"}``, a bidirectional (attention, dense) stack over
+``frames`` [B, S_enc, H], and in every decoder attention layer a
+cross-attention (``cross_norm``, ``cross``) over its output.  An
+encoder-decoder forward on a ``model`` axis > 1 raises (whisper-base is
+``dp_only``, ROADMAP Queue 1 item 7), as does its pipeline staging
+(runtime/pipeline_schedule.py), as in JAX.
 """
 from __future__ import annotations
 
@@ -45,9 +56,10 @@ from repro_torch.core.lsh_moe import lsh_moe_apply, lsh_moe_init
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.layers import (embed, embedding_init, fanin_init,
-                                       mlp_apply, mlp_init, rmsnorm,
-                                       rmsnorm_init, unembed)
+from repro_torch.models.layers import (DECODE_TABLE, embed, embedding_init,
+                                       fanin_init, mlp_apply, mlp_init,
+                                       rmsnorm, rmsnorm_init, sinusoid_rows,
+                                       unembed)
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.runtime import sharding
 
@@ -62,22 +74,15 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not run yet."""
+    """Raise for a layout or position embedding the port does not know."""
     for mixer, ffn in cfg.layout:
         if mixer not in (ATTN, MAMBA, MLSTM, SLSTM):
             raise NotImplementedError(
                 f"mixer {mixer!r} is not ported (ROADMAP Queue 1 item 7)")
         if ffn not in (DENSE, MOE, NONE):
             raise ValueError(f"unknown ffn kind {ffn!r}")
-    if cfg.encoder_decoder:
-        raise NotImplementedError(
-            "encoder-decoder models are not ported (ROADMAP Queue 1 item 7)")
-    if cfg.pos_emb not in ("rope", "none"):
-        raise NotImplementedError(
-            f"pos_emb={cfg.pos_emb!r} is not ported (ROADMAP Queue 1 item 7)")
-    if cfg.frontend == "patch_stub":
-        raise NotImplementedError(
-            "frontend='patch_stub' is not ported (ROADMAP Queue 1 item 7)")
+    if cfg.pos_emb not in ("rope", "none", "learned"):
+        raise ValueError(f"unknown pos_emb {cfg.pos_emb!r}")
 
 
 def layer_kinds(cfg: ModelConfig) -> List[Tuple[str, str]]:
@@ -102,10 +107,15 @@ def _mixer_init(gen, cfg: ModelConfig, mixer: str, dtype, device) -> Dict:
 
 
 def _layer_init(gen, cfg: ModelConfig, mixer: str, ffn: str, dtype, device,
-                mesh) -> Dict:
+                mesh, cross: bool = False) -> Dict:
     h = cfg.d_model
     p: Dict = {"norm1": rmsnorm_init(h, dtype, device),
                "mixer": _mixer_init(gen, cfg, mixer, dtype, device)}
+    if cross and mixer == ATTN:
+        p["cross_norm"] = rmsnorm_init(h, dtype, device)
+        p["cross"] = attn_lib.attention_init(
+            gen, h, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim,
+            dtype, device)
     if ffn == DENSE:
         p["norm2"] = rmsnorm_init(h, dtype, device)
         p["ffn"] = mlp_init(gen, h, cfg.d_ff, cfg.mlp_act, dtype, device)
@@ -123,7 +133,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     distributions are the JAX package's; the numbers are not (the tests
     share params through convert.params_from_jax).  With a mesh every
     rank draws the same params and keeps its shard of the experts, which
-    pad to a multiple of the model axis."""
+    pad to a multiple of the model axis.  An encoder-decoder config gets
+    the decoder layers' ``cross_norm`` / ``cross`` and ``params["encoder"]
+    = {"layers": num_encoder_super_blocks (attention, dense) layers,
+    "final_norm"}``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
@@ -135,13 +148,25 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     if not cfg.tie_embeddings:
         params["head"] = {"w": fanin_init(gen, (cfg.d_model, cfg.vocab_size),
                                           dtype, dev)}
-    params["layers"] = [_layer_init(gen, cfg, mixer, ffn, dtype, dev, mesh)
+    params["layers"] = [_layer_init(gen, cfg, mixer, ffn, dtype, dev, mesh,
+                                    cross=cfg.encoder_decoder)
                         for mixer, ffn in layer_kinds(cfg)]
+    if cfg.encoder_decoder:
+        params["encoder"] = {
+            "layers": [_layer_init(gen, cfg, ATTN, DENSE, dtype, dev, mesh)
+                       for _ in range(cfg.num_encoder_super_blocks)],
+            "final_norm": rmsnorm_init(cfg.d_model, dtype, dev)}
     return params
 
 
 def _apply_mixer(p: Dict, h: torch.Tensor, cfg: ModelConfig, mixer: str,
-                 mesh) -> torch.Tensor:
+                 mesh, causal: bool = True,
+                 enc_states: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mixer over the normed input h; an attention layer with
+    ``cross`` params and ``enc_states`` adds its cross-attention over them,
+    whose input is ``rmsnorm(cross_norm, h + y)``: h the block's normed
+    input, as in the JAX forward (its decode step norms x + y instead;
+    ``decode_step`` mirrors that)."""
     if mixer == MAMBA:
         return ssm_lib.mamba_apply(p["mixer"], h, cfg.ssm, cfg.norm_eps,
                                    mesh=mesh)
@@ -156,20 +181,27 @@ def _apply_mixer(p: Dict, h: torch.Tensor, cfg: ModelConfig, mixer: str,
             return xlstm_lib.mlstm_apply(p["mixer"], h, cfg.resolved_head_dim,
                                          cfg.xlstm.chunk_size, cfg.norm_eps)
         return xlstm_lib.slstm_apply(p["mixer"], h, cfg.norm_eps)
-    return attn_lib.attention_apply(
-        p["mixer"], h, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-        rope_theta=cfg.rope_theta, causal=True, kv_chunk=cfg.kv_chunk,
-        use_rope=(cfg.pos_emb == "rope"), mesh=mesh)
+    heads = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                 head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
+                 kv_chunk=cfg.kv_chunk, mesh=mesh)
+    y = attn_lib.attention_apply(p["mixer"], h, causal=causal,
+                                 use_rope=(cfg.pos_emb == "rope"), **heads)
+    if enc_states is not None and "cross" in p:
+        hc = rmsnorm(p["cross_norm"], h + y, cfg.norm_eps)
+        y = y + attn_lib.attention_apply(p["cross"], hc, causal=False,
+                                         use_rope=False, kv_x=enc_states,
+                                         **heads)
+    return y
 
 
 def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: str,
-           *, use_lsh: Optional[bool], mesh, moe_mode: str = "train"):
+           *, use_lsh: Optional[bool], mesh, moe_mode: str = "train",
+           causal: bool = True, enc_states: Optional[torch.Tensor] = None):
     """One (mixer, ffn) block of the training forward -> (x, aux, z,
     load, comm); aux / z / load are None without a MoE FFN, comm the MoE
     layer's MetricBag (None unless ``ObsConfig.in_graph_metrics``)."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + _apply_mixer(p, h, cfg, mixer, mesh)
+    x = x + _apply_mixer(p, h, cfg, mixer, mesh, causal, enc_states)
     aux = z = load = comm = None
     if ffn == DENSE:
         x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps),
@@ -227,19 +259,55 @@ def stage_blocks(layers: List[Dict], start: int, stop: int,
     return layers[start * layout_len:stop * layout_len]
 
 
-def _embed_inputs(params: Dict, cfg: ModelConfig,
-                  tokens: torch.Tensor) -> torch.Tensor:
-    return embed(params["embed"], tokens)
+def _positions(x: torch.Tensor, mesh) -> torch.Tensor:
+    """x plus its rows of the sinusoid table, cast to x's dtype; over a
+    mesh the rank's sequence slice starts at its global offset."""
+    S = x.shape[1]
+    rows = sinusoid_rows(sharding.axis_index(mesh, "model") * S, S,
+                         x.shape[-1], x.device)
+    return x + rows.to(x.dtype)[None]
+
+
+def _embed_inputs(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
+                  patch_embeds: Optional[torch.Tensor] = None,
+                  mesh=None) -> torch.Tensor:
+    """Token embeddings, after the patch embeddings (cast to the model
+    dtype) when the config has the patch frontend and they are given, then
+    the sinusoid for ``pos_emb="learned"``.  RoPE positions then count the
+    patch prefix."""
+    x = embed(params["embed"], tokens)
+    if cfg.frontend == "patch_stub" and patch_embeds is not None:
+        x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
+    if cfg.pos_emb == "learned":
+        x = _positions(x, mesh)
+    return x
+
+
+def _encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
+            mesh=None) -> torch.Tensor:
+    """The whisper-style encoder over frame embeddings [B, S_enc, H]:
+    cast to the model dtype, plus the sinusoid, the bidirectional
+    (attention, dense) stack with the decoder's heads and remat policy,
+    the encoder's final norm."""
+    x = _positions(frames.to(torch_dtype(cfg.dtype)), mesh)
+    enc = params["encoder"]
+    x, _ = _stack_forward(enc["layers"], x, cfg, use_lsh=None, mesh=mesh,
+                          layout=((ATTN, DENSE),), causal=False)
+    return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
 def _stack_forward(layers: List[Dict], x: torch.Tensor, cfg: ModelConfig, *,
                    use_lsh: Optional[bool], mesh, moe_mode: str = "train",
-                   init_stats: Optional[Tuple] = None
+                   init_stats: Optional[Tuple] = None, layout=None,
+                   causal: bool = True,
+                   enc_states: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, Dict]:
-    """The blocks of ``layers`` (whole super-blocks, in params["layers"]
-    order) over x -> (x, stats).  ``init_stats`` is the (aux, z, load,
-    comm) carry of the stack before (``stats_carry``) when the stack is
-    cut into pipeline stages; None starts it as the whole stack does
+    """The blocks of ``layers`` (whole super-blocks of ``layout``,
+    ``cfg.layout`` unless given, in params["layers"] order) over x ->
+    (x, stats); ``causal`` False for the encoder, ``enc_states`` the
+    encoder's output for the decoder's cross-attention.  ``init_stats``
+    is the (aux, z, load, comm) carry of the stack before
+    (``stats_carry``) when the stack is cut into pipeline stages; None starts it as the whole stack does
     (aux and z zero, load and comm empty until the first MoE layer).
     Each block is recomputed in the backward pass
     (``torch.utils.checkpoint``, which runs its collectives again, in the
@@ -255,10 +323,12 @@ def _stack_forward(layers: List[Dict], x: torch.Tensor, cfg: ModelConfig, *,
         load, comm = None, initial_comm_stat(cfg)
     else:
         aux, z, load, comm = init_stats
-    kinds = list(cfg.layout) * (len(layers) // max(1, len(cfg.layout)))
+    layout = cfg.layout if layout is None else layout
+    kinds = list(layout) * (len(layers) // max(1, len(layout)))
     for (mixer, ffn), p in zip(kinds, layers):
         fn = partial(_block, p, cfg=cfg, mixer=mixer, ffn=ffn,
-                     use_lsh=use_lsh, mesh=mesh, moe_mode=moe_mode)
+                     use_lsh=use_lsh, mesh=mesh, moe_mode=moe_mode,
+                     causal=causal, enc_states=enc_states)
         if remat:
             x, a, zz, ld, cm = checkpoint(fn, x, use_reentrant=False)
         else:
@@ -300,26 +370,63 @@ def _final_stats(stats: Dict, device) -> Dict:
 
 def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             use_lsh: Optional[bool] = None, mesh=None,
-            moe_mode: str = "train") -> Tuple[torch.Tensor, Dict]:
+            moe_mode: str = "train",
+            patch_embeds: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict]:
     """tokens [B, S] (with a mesh, this rank's [B / data, S / model]) ->
-    (logits [B, S, V] f32, stats with "aux_loss", "z_loss" summed over
+    (logits [B, P + S, V] f32, stats with "aux_loss", "z_loss" summed over
     the MoE layers and "expert_load" summed per expert, each over every
     rank, and with in-graph metrics on, "comm": the MetricBag merged over
-    the layers, obs/metrics.py): ``_embed_inputs``, ``_stack_forward``
-    over every layer, ``head_logits``."""
+    the layers, obs/metrics.py): ``_encode`` (an encoder-decoder config,
+    over ``frames``), ``_embed_inputs`` (P patch positions first when
+    ``patch_embeds`` are given), ``_stack_forward`` over every layer,
+    ``head_logits``."""
     check_supported(cfg)
-    x = _embed_inputs(params, cfg, tokens)
+    enc_states = None
+    if cfg.encoder_decoder:
+        if sharding.axis_size(mesh, "model") > 1:
+            raise NotImplementedError(
+                "the encoder-decoder forward on a mesh whose 'model' axis "
+                "is > 1: the port runs it mesh-free or under dp_only "
+                "(ROADMAP Queue 1 item 7)")
+        if frames is None:
+            raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
+                             "forward needs frames [B, S_enc, d_model]")
+        enc_states = _encode(params, cfg, frames, mesh)
+    x = _embed_inputs(params, cfg, tokens, patch_embeds, mesh)
     x, stats = _stack_forward(params["layers"], x, cfg, use_lsh=use_lsh,
-                              mesh=mesh, moe_mode=moe_mode)
+                              mesh=mesh, moe_mode=moe_mode,
+                              enc_states=enc_states)
     return head_logits(params, cfg, x), _final_stats(stats, x.device)
 
 
+def patch_count(cfg: ModelConfig, batch: Dict) -> Optional[int]:
+    """The patch positions this (rank's) batch puts before its tokens:
+    None when it carries no ``patch_embeds`` (or the config has no patch
+    frontend), else their count, which a rank past the prefix holds as
+    0."""
+    if cfg.frontend != "patch_stub" or "patch_embeds" not in batch:
+        return None
+    return int(batch["patch_embeds"].shape[1])
+
+
+def _inputs(cfg: ModelConfig, batch: Dict) -> Dict:
+    """forward's keyword inputs from a batch dict."""
+    return {"patch_embeds": batch.get("patch_embeds")
+            if cfg.frontend == "patch_stub" else None,
+            "frames": batch.get("frames")}
+
+
 def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,
-                     labels: torch.Tensor,
-                     mesh=None) -> Tuple[torch.Tensor, Dict]:
+                     labels: torch.Tensor, mesh=None,
+                     npatch: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Dict]:
     """CE over labels >= 0, + z-loss on the logits' log-sum-exp + the MoE
     aux and router-z losses.  The label log-prob is a gather, which picks
-    the same value as JAX's mask-and-reduce.
+    the same value as JAX's mask-and-reduce.  ``npatch`` (``patch_count``)
+    drops the logits' first npatch positions, the patch prefix, so that
+    the CE and the z-loss's mean run over the token positions only.
 
     Over n ranks the objective returned is this rank's share of the
     global loss: its CE terms over the global label count, its z-loss
@@ -328,17 +435,27 @@ def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,
     metrics are global (summed over the ranks, no gradient)."""
     world = sharding.all_group(mesh)
     n = collectives.group_size(world)
+    if npatch:
+        logits = logits[:, npatch:]
     lse = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1,
                       labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
     count = collectives.all_reduce_sum(mask.sum(), world)
     ce = torch.sum((lse - ll) * mask) / torch.clamp(count, min=1.0)
-    zl = cfg.z_loss_weight * torch.mean(torch.square(lse))
     moe_aux = (cfg.moe.router_aux_weight * stats["aux_loss"]
                + cfg.moe.router_z_weight * stats["z_loss"])
-    if n > 1:             # every rank holds the same number of tokens
-        zl, moe_aux = zl / n, moe_aux / n
+    if n > 1 and npatch is not None:
+        # the patch prefix lies on the first ranks, so the ranks hold
+        # different numbers of token positions: over the global count
+        tokens = collectives.all_reduce_sum(torch.tensor(
+            float(lse.numel()), device=lse.device), world)
+        zl = cfg.z_loss_weight * torch.sum(torch.square(lse)) / tokens
+        moe_aux = moe_aux / n
+    else:
+        zl = cfg.z_loss_weight * torch.mean(torch.square(lse))
+        if n > 1:         # every rank holds the same number of tokens
+            zl, moe_aux = zl / n, moe_aux / n
     total = ce + zl + moe_aux
     metrics = {"ce": ce, "z_loss": zl, "loss": total}
     metrics = {k: collectives.all_reduce_sum(v.detach(), world)
@@ -364,27 +481,31 @@ def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
             use_lsh: Optional[bool] = None,
             mesh=None) -> Tuple[torch.Tensor, Dict]:
-    """batch {"tokens", "labels"}: [B, S] int (with a mesh, this rank's
-    part: runtime.sharding.shard_batch) -> (loss, metrics); over a mesh
-    the loss is this rank's share (``loss_from_logits``)."""
+    """batch {"tokens", "labels"}: [B, S] int, and "patch_embeds" [B, P,
+    H] or "frames" [B, S_enc, H] where the config takes them (with a mesh,
+    this rank's part: runtime.sharding.shard_batch) -> (loss, metrics);
+    over a mesh the loss is this rank's share (``loss_from_logits``)."""
     logits, stats = forward(params, cfg, batch["tokens"], use_lsh=use_lsh,
-                            mesh=mesh)
-    return loss_from_logits(cfg, logits, stats, batch["labels"], mesh)
+                            mesh=mesh, **_inputs(cfg, batch))
+    return loss_from_logits(cfg, logits, stats, batch["labels"], mesh,
+                            patch_count(cfg, batch))
 
 
 @torch.no_grad()
 def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
             mesh=None) -> Tuple[torch.Tensor, Dict]:
     """Inference prefill (the JAX ``prefill``): the forward over
-    batch["tokens"] [B, S] through the expert-parallel MoE path (LSH as
-    configured), without gradients -> (the last position's logits
-    [B, 1, V] f32, {"position": S}).  With a mesh the batch is the global
-    one and every rank returns the global logits (gathered over ``model``,
+    batch["tokens"] [B, S] (and its "patch_embeds" or "frames") through
+    the expert-parallel MoE path (LSH as configured), without gradients
+    -> (the last position's logits [B, 1, V] f32, {"position": S}).
+    With a mesh the batch is the global one and every rank returns the global logits (gathered over ``model``,
     which holds the sequence, and ``data``).  The serve loop keeps its
     teacher-forced prefill, as the JAX launcher does."""
     tokens = batch["tokens"]
-    local = sharding.shard_batch({"tokens": tokens}, mesh)["tokens"]
-    logits, _ = forward(params, cfg, local, mesh=mesh, moe_mode="prefill")
+    local = sharding.shard_batch({k: v for k, v in batch.items()
+                                  if k != "labels"}, mesh)
+    logits, _ = forward(params, cfg, local["tokens"], mesh=mesh,
+                        moe_mode="prefill", **_inputs(cfg, local))
     last = logits[:, -1:, :]
     if sharding.axis_size(mesh, "model") > 1:
         last = collectives.raw_all_gather(
@@ -407,15 +528,23 @@ def _mixer_state(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
         return xlstm_lib.init_mlstm_state(batch, d_in // dh, dh, device)
     if mixer == SLSTM:
         return xlstm_lib.init_slstm_state(batch, cfg.d_model, device)
-    return attn_lib.init_kv_cache(batch, max_len, cfg.num_kv_heads,
-                                  cfg.resolved_head_dim, dtype, device)
+    cache = attn_lib.init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                                   cfg.resolved_head_dim, dtype, device)
+    if cfg.encoder_decoder:
+        # the encoder keys and values the cross-attention reads; zeros,
+        # as the JAX state holds them (its decode never fills them)
+        cross = attn_lib.init_kv_cache(batch, max_len, cfg.num_kv_heads,
+                                       cfg.resolved_head_dim, dtype, device)
+        cache.update(cross_k=cross["k"], cross_v=cross["v"])
+    return cache
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
                       device: DeviceLike = None) -> Dict:
     """One state per layer, by its mixer: a KV cache {"k", "v"} for an
-    attention layer, {"h": f32 [B, nh, dh, N], "conv": [B, W - 1,
-    d_inner]} for a Mamba layer, {"C", "n", "m"} (f32) for an mLSTM and
+    attention layer (and {"cross_k", "cross_v"} of zeros [B, max_len, nkv,
+    dh] in an encoder-decoder model's), {"h": f32 [B, nh, dh, N],
+    "conv": [B, W - 1, d_inner]} for a Mamba layer, {"C", "n", "m"} (f32) for an mLSTM and
     {"c", "n", "h", "m"} (f32 [B, H]) for an sLSTM (the JAX state's keys);
     and the decode position."""
     check_supported(cfg)
@@ -438,6 +567,9 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
     exchange runs over the model axis (``moe_dense_dispatch``)."""
     pos = int(state["position"])
     x = embed(params["embed"], tokens)
+    if cfg.pos_emb == "learned":
+        x = x + sinusoid_rows(pos % DECODE_TABLE, 1, cfg.d_model,
+                              x.device).to(x.dtype)[None]
     dh = cfg.resolved_head_dim
     for (mixer, ffn), p, cache in zip(layer_kinds(cfg), params["layers"],
                                       state["layers"]):
@@ -447,6 +579,17 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
                 p["mixer"], h, cache, pos, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads, head_dim=dh,
                 rope_theta=cfg.rope_theta, use_rope=(cfg.pos_emb == "rope"))
+            if "cross" in p:
+                # the JAX decode norms the residual stream x + y here
+                # (its forward: the normed input h + y)
+                hc = rmsnorm(p["cross_norm"], x + y, cfg.norm_eps)
+                y2, _ = attn_lib.decode_attention(
+                    p["cross"], hc, {"k": cache["cross_k"],
+                                     "v": cache["cross_v"]}, pos,
+                    num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+                    head_dim=dh, rope_theta=cfg.rope_theta, use_rope=False,
+                    cross=True)
+                y = y + y2
         else:
             if mixer == MAMBA:
                 y, new = ssm_lib.mamba_decode(p["mixer"], h, cache, cfg.ssm,

@@ -206,6 +206,11 @@ def make_pipeline_grad_fn(cfg: ModelConfig, mesh=None, *,
     gradient per floating leaf (None for an integer leaf), the
     replicated params' summed over the rank's (data, model) slice."""
     model_lib.check_supported(cfg)
+    if cfg.encoder_decoder:
+        raise NotImplementedError(
+            "pipeline staging of encoder-decoder stacks (the encoder is not "
+            "part of the staged decoder stack), as in the JAX package "
+            "(ROADMAP Queue 1 item 7)")
     stages = _resolve_stages(mesh, stages)
     bounds = model_lib.stage_bounds(cfg.num_super_blocks, stages)
     n_mb = int(cfg.pipeline_microbatches) or stages
@@ -250,7 +255,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, mesh=None, *,
             b, sp = mbs[mb], sps[s]
             with torch.enable_grad():
                 if s == 0:
-                    x = model_lib._embed_inputs(sp, cfg, b["tokens"])
+                    x = model_lib._embed_inputs(
+                        sp, cfg, b["tokens"], b.get("patch_embeds"), mesh)
                     init, got = None, []
                 else:
                     x_in, *carry = sent.pop((s - 1, mb))
@@ -266,7 +272,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, mesh=None, *,
                     logits = model_lib.head_logits(sp, cfg, x)
                     loss_t[mb], m = model_lib.loss_from_logits(
                         cfg, logits, model_lib._final_stats(stats, x.device),
-                        b["labels"], mesh)
+                        b["labels"], mesh, model_lib.patch_count(cfg, b))
                     metrics.clear()
                     metrics.update((k, v.detach()) for k, v in m.items())
                     loss_v[mb] = metrics["loss"]

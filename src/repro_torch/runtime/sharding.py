@@ -6,7 +6,8 @@ place every tensor.  The port places them itself, in one layout:
 
   tokens         batch over the dp axes, sequence over ``model``: rank
                  (d, m) holds [B / n_dp, S / model] (the JAX residual
-                 stream's ("batch", "seq") sharding);
+                 stream's ("batch", "seq") sharding); with a patch prefix
+                 the combined P + S sequence splits (``shard_batch``);
   expert weights w_gate / w_up / w_down [E_pad, X, Y] split E_pad over
                  ``model`` and X over ``data`` (the JAX package's
                  ``P("model", "data", None)``): [E_pad / model, X / data, Y];
@@ -131,13 +132,31 @@ def token_slices(mesh, batch: int, seq: int) -> Tuple[slice, slice]:
 
 
 def shard_batch(batch: Dict, mesh) -> Dict:
-    """The rank's [B / n_dp, S / model] part of every [B, S, ...] entry
-    of a global batch (numpy arrays or tensors)."""
+    """The rank's part of a global batch (numpy arrays or tensors), by the
+    JAX package's ``batch_specs``: "tokens" and "labels" [B, S] by batch
+    over the dp axes and by sequence over ``model``; "frames" [B, S_enc,
+    H] by batch and its own sequence.  With "patch_embeds" [B, P, H] the
+    residual stream is the combined P + S sequence, and that is what
+    splits over ``model``: rank m holds its positions [m L, (m + 1) L), L
+    = (P + S) / model, so the patch prefix lies on the first ranks (a rank
+    past it holds its 0 patches) and the rank's tokens and labels are the
+    token positions of its slice."""
     if mesh is None:
         return batch
-    any_v = next(iter(batch.values()))
-    bs, ss = token_slices(mesh, any_v.shape[0], any_v.shape[1])
-    return {k: v[bs, ss] for k, v in batch.items()}
+    B, S = batch["tokens"].shape[:2]
+    P = batch["patch_embeds"].shape[1] if "patch_embeds" in batch else 0
+    bs, cs = token_slices(mesh, B, P + S)
+    patches = slice(min(cs.start, P), min(cs.stop, P))
+    tokens = slice(max(cs.start - P, 0), max(cs.stop - P, 0))
+    out = {}
+    for k, v in batch.items():
+        if k == "patch_embeds":
+            out[k] = v[bs, patches]
+        elif k == "frames":
+            out[k] = v[bs, token_slices(mesh, B, v.shape[1])[1]]
+        else:
+            out[k] = v[bs, tokens]
+    return out
 
 
 def dp_only_batch_slice(mesh, batch: int) -> slice:

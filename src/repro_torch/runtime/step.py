@@ -196,8 +196,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                     use_lsh: Optional[bool] = None, microbatch: int = 0,
                     mesh=None):
     """Returns train_step(state, batch) -> (state, metrics); batch holds
-    "tokens" and "labels" [B, S] integer tensors on the params' device,
-    the global batch (the same on every rank) when there is a mesh, and
+    "tokens" and "labels" [B, S] integer tensors on the params' device
+    (and "patch_embeds" [B, P, H] or "frames" [B, S_enc, H] where the
+    config takes them: every split cuts them with the rows), the global
+    batch (the same on every rank) when there is a mesh, and
     the chaos loss scale when a fault plan injects one.  A mesh with a
     pipe axis takes the 1F1B step (``microbatch`` is then
     ``cfg.pipeline_microbatches``' business)."""

@@ -97,7 +97,7 @@ def test_granite_config_and_param_count_match_jax():
 
 def test_unknown_arch_lists_known():
     with pytest.raises(KeyError, match="granite-moe-3b-a800m"):
-        get_config("smollm-360m")
+        get_config("no-such-arch")
 
 
 def test_entry_points_need_cuda_or_explicit_cpu(monkeypatch):

@@ -18,6 +18,8 @@ package's on the CPU.
   raises a clear CheckpointError.
 - The JAX suite's damage and protocol cases, by name
   (tests/test_resilience.py, tests/test_optim_ckpt.py).
+- ``jax_checkpoint_layout`` numbers the layers of each stack (decoder,
+  encoder) by its own layout length.
 - A JAX run carried across: two JAX steps saved by the JAX package, the
   port restores them and takes the third step, held to JAX's third step
   within test_torch_train.py's f32-wire bounds (loss 1e-5 relative,
@@ -206,6 +208,35 @@ def test_port_restores_a_jax_checkpoint(tmp_path, monkeypatch, mesh):
     assert step == 1
     _assert_trees_equal(got, want)
     assert int(got.opt.step) == 1 and got.opt.step.device == CPU
+
+
+def test_jax_layout_counts_entries_per_prefix():
+    """``jax_checkpoint_layout`` numbers each stack's layers by the layout
+    length under its own prefix: here a decoder of 2 entries x 3
+    super-blocks beside an encoder of 1 entry x 4, in the params and in a
+    moment tree."""
+    from repro_torch.convert import jax_checkpoint_layout
+    arrays = {}
+    for pre in ("params/", "opt/m/"):
+        for i in range(2):
+            arrays[f"{pre}blocks/#{i}/mixer/wq"] = (
+                np.arange(3 * 2).reshape(3, 2) + 10 * i, "float32")
+        arrays[f"{pre}encoder/blocks/#0/mixer/wq"] = (
+            np.arange(4 * 2).reshape(4, 2) + 100, "float32")
+        arrays[f"{pre}encoder/final_norm/scale"] = (np.ones(2), "float32")
+    out = jax_checkpoint_layout(arrays)
+    for pre in ("params/", "opt/m/"):
+        for sb in range(3):
+            for i in range(2):
+                arr, dtype = out[f"{pre}layers/#{sb * 2 + i}/mixer/wq"]
+                np.testing.assert_array_equal(arr, [2 * sb + 10 * i,
+                                                    2 * sb + 1 + 10 * i])
+        for sb in range(4):
+            arr, _ = out[f"{pre}encoder/layers/#{sb}/mixer/wq"]
+            np.testing.assert_array_equal(arr, [2 * sb + 100,
+                                                2 * sb + 101])
+        assert f"{pre}encoder/final_norm/scale" in out
+    assert len(out) == 2 * (3 * 2 + 4 + 1)
 
 
 def test_zstd_shard_raises_a_clear_error(tmp_path, mesh):
