@@ -16,9 +16,16 @@ Phases, each of which raises (and so exits non-zero) on failure:
               C=4, H=1536) and the training shape (F=32768, E=40, C=1024,
               H=1536): bitwise for integers and unique plans, and a
               duplicate-(e, c) scatter within 1e-6 of the sum of its
-              terms' magnitudes.  LSH kernels at the training shape
-              (T=40960 hashed rows, L=6, Dr=64; G=40, C=1024, S=208) and a
-              ragged small shape with out-of-range slots: lsh_hash equal
+              terms' magnitudes.  combine_gather also swept over the
+              shape classes its launcher separates (granite's and
+              jamba's decode shapes, F = resident warps - 1 and F =
+              resident warps at H = 1536, whose rows it splits in two
+              and in one, and the training shape): bitwise, dropped
+              entries +0.0, timed beside buf[ids, pos] * w and the
+              bound, with the launcher's plan.  LSH kernels at the
+              training shape (T=40960 hashed rows, L=6, Dr=64; G=40,
+              C=1024, S=208) and a ragged small shape with out-of-range
+              slots: lsh_hash equal
               wherever the two largest |v| differ by more than 1e-5 of the
               largest, segment_centroid within 1e-6 of the mean magnitude
               with exact counts, residual_apply bitwise; lsh_hash's
@@ -494,6 +501,26 @@ def _positions_chain(torch, ids, E):
             cs[-1])
 
 
+def _gather_record(torch, sg, ref, p, label):
+    """combine_gather on plan ``p``: bitwise its plain version, dropped
+    entries exactly +0.0, timed beside the indexing chain buf[ids, pos] *
+    w (its index arithmetic done beforehand) and its bound."""
+    F, E, C, H = p["F"], p["E"], p["C"], p["H"]
+    flat, pos, buf, w, keep = p["flat"], p["pos"], p["buf"], p["w"], p["keep"]
+    ids_c, pos_c = flat.long().clamp(0, E - 1), pos.long().clamp(0, C - 1)
+    w_m = w * keep.float()
+    out = sg.combine_gather(flat, pos, buf, w)
+    if not bool((out[~keep].view(torch.int32) == 0).all()):
+        raise AssertionError(f"[{label}] combine_gather: dropped entries "
+                             "must gather +0.0")
+    return _record(
+        torch, label, "combine_gather",
+        lambda: (sg.combine_gather(flat, pos, buf, w),),
+        lambda: (ref.combine_gather_ref(flat, pos, buf, w),),
+        lambda: buf[ids_c, pos_c] * w_m[:, None],
+        _bound(F * 12 + int(keep.sum()) * H * 4 + F * H * 4, F * H))
+
+
 def check_kernels(torch, tp, sg, ref, p, label):
     """Compare each kernel with its plain version on ``p`` and time both and
     the nearest single PyTorch call.  Returns {kernel name: record}."""
@@ -505,8 +532,6 @@ def check_kernels(torch, tp, sg, ref, p, label):
     # the library calls get their index arithmetic done beforehand
     rows = torch.where(keep, flat.long() * C + pos.long(), E * C)
     src32 = src.float()
-    ids_c, pos_c = flat.long().clamp(0, E - 1), pos.long().clamp(0, C - 1)
-    w_m = w * keep.float()
     out = {
         "positions_in_expert": _record(
             torch, label, "positions_in_expert",
@@ -522,12 +547,7 @@ def check_kernels(torch, tp, sg, ref, p, label):
                 (rows,), src32, accumulate=True),
             _bound(F * 8 + n_kept * H * src.element_size() + E * C * H * 4,
                    n_kept * H)),
-        "combine_gather": _record(
-            torch, label, "combine_gather",
-            lambda: (sg.combine_gather(flat, pos, buf, w),),
-            lambda: (ref.combine_gather_ref(flat, pos, buf, w),),
-            lambda: buf[ids_c, pos_c] * w_m[:, None],
-            _bound(F * 12 + n_kept * H * 4 + F * H * 4, F * H)),
+        "combine_gather": _gather_record(torch, sg, ref, p, label),
     }
     # the backward of combine_gather scatters an f32 cotangent
     out["dispatch_scatter (f32 src)"] = _record(
@@ -542,6 +562,56 @@ def check_kernels(torch, tp, sg, ref, p, label):
     log(f"[kernels] {label}: F={F} E={E} C={C} H={H} kept={n_kept} "
         f"dropped={F - n_kept} (ids out of range or over capacity)")
     _log_records(label, out)
+    return out
+
+
+def check_gather_sweep(torch, sg, ref, moe_lib, decode, train):
+    """combine_gather over the shape classes its launcher separates (rows
+    split over warps while the entries cannot fill the resident warps, one
+    chunk a row once they can): granite's decode shape (``decode``: F =
+    32, H = 1536), jamba's (F = 8, E = 16, C = 4, H = 8192), F = resident
+    warps - 1 and F = resident warps at E = 40, H = 1536 (either side of
+    the switch), and the training shape (``train``).  Each bitwise its
+    plain version, dropped entries +0.0, timed beside the indexing chain,
+    its bound and a contiguous copy of as many floats (the card's rate
+    for reads and writes of the same size), with the launcher's plan."""
+    warps = sg.gather_plan(1, 1536)["resident_warps"]
+    cases = {"granite decode": decode,
+             "jamba decode": make_plan(torch, ref, T=4, k=2, E=16, C=4,
+                                       H=8192, skew=False, bad_frac=0.0,
+                                       seed=51)}
+    for F in (warps - 1, warps):
+        cases[f"F = warps {F - warps:+d}"] = make_plan(
+            torch, ref, T=F, k=1, E=40,
+            C=moe_lib.expert_capacity(F, 40, 1, 1.25), H=1536, skew=True,
+            bad_frac=0.01, seed=54 + F - warps)
+    cases["train"] = train
+    out = {}
+    for name, p in cases.items():
+        label = f"gather sweep {name}"
+        plan = sg.gather_plan(p["F"], p["H"])
+        r = out[name] = dict(_gather_record(torch, sg, ref, p, label),
+                             **plan)
+        n = min(p["F"] * p["H"], p["buf"].numel())
+        dst = torch.empty(n, device="cuda")
+        r["copy_ms"] = time_ms(
+            torch, lambda: dst.copy_(p["buf"].view(-1)[:n]))
+        del dst
+        lib = r["library_ms"]
+        log(f"[kernels] {label}: F={p['F']} E={p['E']} C={p['C']} "
+            f"H={p['H']} split={plan['split']} chunk={plan['chunk']} "
+            f"grid={plan['grid']} resident_warps={warps} "
+            f"kernel_ms={r['ms']:.6f} call_ms={r['call_ms']:.6f} "
+            f"plain_ms={r['plain_ms']:.6f} library_ms={lib:.6f} "
+            f"copy_ms={r['copy_ms']:.6f} "
+            f"bound_us={r['bound_ms'] * 1e3:.3f} "
+            f"kernel_share_of_bound={r['bound_ms'] / r['ms']:.3f} "
+            f"faster_than_library={r['ms'] <= lib} "
+            f"max_abs_err={r['max_abs_err']}")
+    splits = [out[f"F = warps {d:+d}"]["split"] for d in (-1, 0)]
+    if splits != [2, 1]:
+        raise AssertionError(f"gather sweep: splits either side of the "
+                             f"switch {splits}, expected [2, 1]")
     return out
 
 
@@ -1053,14 +1123,24 @@ def check_wire_kernels(torch, mods, ref, p, q, label, fmt):
 def check_wire_decode_shape(torch, mods, ref, p, label):
     """The fused routing kernels at the decode shape and the quantize /
     dequantize / residual kernels at a decode-sized [E, C, H], bitwise and
-    timed (printed only)."""
+    timed beside the same library chains as at the training shape
+    (printed only)."""
     wq, fw = mods["wire_quant"], mods["fused_wire"]
     E, C, H = p["E"], p["C"], p["H"]
-    flat, pos, src, buf, w = p["flat"], p["pos"], p["src"], p["buf"], p["w"]
+    flat, pos, src, buf, w, keep = (p["flat"], p["pos"], p["src"], p["buf"],
+                                    p["w"], p["keep"])
     g = torch.Generator(device="cuda").manual_seed(17)
     slots = torch.randint(0, 2 * C, (E, 2 * C), generator=g, device="cuda",
                           dtype=torch.int32)
     resid = torch.randn(E, 2 * C, H, generator=g, device="cuda")
+    ids_c, pos_c = flat.long().clamp(0, E - 1), pos.long().clamp(0, C - 1)
+    w_m = w * keep.float()
+    rows = torch.where(keep, flat.long() * C + pos.long(), E * C)
+    src32 = src.float()
+    # slots at or past C read nothing
+    slot_ok = (slots < C).float()[..., None]
+    rows_c = (torch.arange(E, device="cuda")[:, None] * C
+              + slots.clamp(max=C - 1)).reshape(-1)
     for fmt in WIRE_FORMATS:
         qb, sb = ref.wire_quantize_ref(buf, fmt)
         base = ref.wire_dequantize_ref(qb, sb)
@@ -1069,32 +1149,41 @@ def check_wire_decode_shape(torch, mods, ref, p, label):
                 torch, label, f"wire_quantize {fmt}",
                 lambda: tuple(map(_u8, wq.wire_quantize(buf, fmt))),
                 lambda: tuple(map(_u8, ref.wire_quantize_ref(buf, fmt))),
-                None, _bound(buf.numel() * 5, 0)),
+                lambda: _quantize_chain(torch, buf, fmt),
+                _bound(buf.numel() * 5, 0)),
             "wire_dequantize": _record(
                 torch, label, f"wire_dequantize {fmt}",
                 lambda: (wq.wire_dequantize(qb, sb),),
-                lambda: (ref.wire_dequantize_ref(qb, sb),), None,
+                lambda: (ref.wire_dequantize_ref(qb, sb),),
+                lambda: qb.float() * sb[..., None],
                 _bound(buf.numel() * 5, 0)),
             "dispatch_scatter_quantize": _record(
                 torch, label, f"dispatch_scatter_quantize {fmt}",
                 lambda: tuple(map(_u8, fw.dispatch_scatter_quantize(
                     flat, pos, src, E, C, fmt))),
                 lambda: tuple(map(_u8, ref.dispatch_scatter_quantize_ref(
-                    flat, pos, src, E, C, fmt))), None,
+                    flat, pos, src, E, C, fmt))),
+                lambda: _quantize_chain(torch, torch.zeros(
+                    E * C + 1, H, device="cuda").index_put_(
+                        (rows,), src32, accumulate=True), fmt),
                 _bound(E * C * H * 3, 0)),
             "dequantize_combine_gather": _record(
                 torch, label, f"dequantize_combine_gather {fmt}",
                 lambda: (fw.dequantize_combine_gather(flat, pos, qb, sb,
                                                       w),),
                 lambda: (ref.dequantize_combine_gather_ref(
-                    flat, pos, qb, sb, w),), None,
+                    flat, pos, qb, sb, w),),
+                lambda: (qb[ids_c, pos_c].float()
+                         * sb[ids_c, pos_c][:, None]) * w_m[:, None],
                 _bound(p["F"] * H * 5, 0)),
             "dequantize_residual_apply": _record(
                 torch, label, f"dequantize_residual_apply {fmt}",
                 lambda: (fw.dequantize_residual_apply(slots, qb, sb, resid,
                                                       base),),
                 lambda: (ref.dequantize_residual_apply_ref(
-                    slots, qb, sb, resid, base),), None,
+                    slots, qb, sb, resid, base),),
+                lambda: (qb.float() * sb[..., None] - base).reshape(
+                    E * C, H)[rows_c].view(E, 2 * C, H) * slot_ok + resid,
                 _bound(resid.numel() * 8, 0)),
         }
         _log_records(f"{label} {fmt}", out)
@@ -1289,6 +1378,7 @@ def phase_kernels(torch, mods, ref, moe_lib, hashing):
         raise AssertionError("train plan has no over-capacity entries")
     res = check_kernels(torch, tp, sg, ref, train, "train")
     check_duplicates(torch, sg, ref, 40, C_train, 1536, 32768, seed=13)
+    check_gather_sweep(torch, sg, ref, moe_lib, decode, train)
     S = moe_lib.num_lsh_slots(C_train, 0.2)
     q = lsh_inputs(torch, ref, hashing, train, S)
     res.update(check_lsh_kernels(torch, mods["lsh_hash"],

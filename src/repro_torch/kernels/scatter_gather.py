@@ -14,7 +14,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, load_library
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -29,6 +29,25 @@ GATHER = CudaKernel(
     symbol="combine_gather_launch",
     argtypes=(_P, _P, _P, _P, _I, _I, _I, _I, _P),
     replaces="src/repro/kernels/scatter_gather.py:109")
+
+
+PLAN_KEYS = ("split", "chunk", "grid", "resident_warps")
+
+
+def gather_plan(num_entries: int, hidden: int) -> dict:
+    """How ``combine_gather``'s vector path (H % 4 == 0) tiles F entries of
+    H columns on the current CUDA device: ``split`` column chunks a row of
+    ``chunk`` float4s each, ``grid`` blocks of 4 warps, and the device's
+    ``resident_warps``, which decide the split (``csrc/scatter_gather.cu``).
+    The launcher computes the same; this reports it."""
+    fn = load_library(GATHER.source).combine_gather_plan
+    fn.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    plan = (ctypes.c_int * len(PLAN_KEYS))()
+    err = fn(num_entries, hidden, plan)
+    if err != 0:
+        raise RuntimeError(f"combine_gather_plan failed: cudaError {err}")
+    return dict(zip(PLAN_KEYS, plan))
 
 
 def _check_routing(expert_ids: torch.Tensor, pos: torch.Tensor) -> int:

@@ -97,6 +97,66 @@ def test_cuda_scatter_gather_bitwise(h100, src_dtype, h):
     assert (out.cpu()[flat == e] == 0).all()
 
 
+def _gather_case(rng, f, h, device, e=5, c=7, offset=False):
+    """ids in [-2, e + 2) and positions in [-1, c + 1) (entry 0 on the
+    buffer's last row), signed weights; with ``offset`` the buffer is a
+    view one float past an aligned allocation."""
+    ids = rng.integers(-2, e + 2, size=f).astype(np.int32)
+    pos = rng.integers(-1, c + 1, size=f).astype(np.int32)
+    ids[0], pos[0] = e - 1, c - 1
+    flat = rng.standard_normal(e * c * h + 1).astype(np.float32)
+    w = rng.standard_normal(f).astype(np.float32)
+    ids, pos, w = (torch.from_numpy(a).to(device) for a in (ids, pos, w))
+    flat = torch.from_numpy(flat).to(device)
+    buf = (flat[1:] if offset else flat[:-1]).view(e, c, h)
+    return ids, pos, buf, w
+
+
+def _check_gather(ids, pos, buf, w):
+    """The kernel against the plain version on the same inputs: the same
+    values, dropped entries exactly +0.0, one launch a call.  Returns the
+    number of dropped entries."""
+    e, c, _ = buf.shape
+    before = scatter_gather.GATHER.launches
+    out = scatter_gather.combine_gather(ids, pos, buf, w)
+    assert scatter_gather.GATHER.launches == before + 1
+    want = ref.combine_gather_ref(ids.cpu(), pos.cpu(), buf.cpu(), w.cpu())
+    assert torch.equal(out.cpu(), want)
+    dropped = ((ids < 0) | (ids >= e) | (pos < 0) | (pos >= c)).cpu()
+    assert (out.cpu()[dropped].view(torch.int32) == 0).all()
+    return int(dropped.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [False, True])
+@pytest.mark.parametrize("h", [30, 1536, 8192])
+@pytest.mark.parametrize("f", [1, 8, 32, 33, 4097])
+def test_cuda_combine_gather_bitwise(h100, f, h, offset):
+    """Each shape class of the gather's launcher: few entries, whose rows
+    it splits over warps (f = 1 to 33, as at decode), and many; h = 30 and
+    a buffer one float off its alignment take the one-column-a-lane
+    kernel.  Every case but the single in-range entry drops some."""
+    dropped = _check_gather(*_gather_case(np.random.default_rng(f * 7 + h),
+                                          f, h, h100, offset=offset))
+    assert dropped > 0 or f == 1
+
+
+@pytest.mark.cuda
+def test_cuda_combine_gather_plan_switch(h100):
+    """The launcher splits rows only while the entries cannot fill the
+    resident warps: two chunks a row at F = warps - 1, one at F = warps,
+    one float4 a lane at jamba's decode shape; each side bitwise."""
+    warps = scatter_gather.gather_plan(1, 1536)["resident_warps"]
+    for f, split in ((warps - 1, 2), (warps, 1)):
+        plan = scatter_gather.gather_plan(f, 1536)
+        assert plan["split"] == split and plan["chunk"] % 32 == 0
+        assert plan["split"] * plan["chunk"] >= 384
+        _check_gather(*_gather_case(np.random.default_rng(f), f, 1536,
+                                    h100))
+    plan = scatter_gather.gather_plan(8, 8192)
+    assert (plan["split"], plan["chunk"], plan["grid"]) == (64, 32, 128)
+
+
 @pytest.mark.cuda
 def test_cuda_scatter_duplicates(h100):
     rng = np.random.default_rng(9)

@@ -104,19 +104,51 @@ def test_dispatch_scatter_matches_jax(backend, src_dtype):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+# (F, E, C, H): jamba's decode shape class (few entries, rows split over
+# warps), a ragged F and H % 4 == 0, one entry with H % 4 != 0 (the
+# one-column-a-lane path on the card), every entry dropped
+GATHER_SHAPES = {"decode": (8, 16, 4, 64), "ragged-f": (33, 5, 7, 36),
+                 "one-entry": (1, 3, 2, 30), "dropped": (40, 4, 8, 32)}
+
+
+def _gather_inputs(shape):
+    """(ids, positions, buf, weights, dropped) for one shape class of the
+    CUDA launcher: "f300" is the original plan (drops to capacity and
+    out-of-range ids); the others draw ids in [-2, e + 2) and positions in
+    [-1, c + 1), so both can leave the range on either side, with entry 0
+    on the buffer's last row; "dropped" has every entry out of range."""
+    if shape == "f300":
+        flat_ids, pos, _, w, e, c = _routing(np.random.default_rng(3))
+        buf = np.random.default_rng(4).standard_normal((e, c, 32)).astype(
+            np.float32)
+        return flat_ids, pos, buf, w, flat_ids == e
+    f, e, c, h = GATHER_SHAPES[shape]
+    rng = np.random.default_rng(f * 1000 + h)
+    ids = rng.integers(-2, e + 2, size=f).astype(np.int32)
+    pos = rng.integers(-1, c + 1, size=f).astype(np.int32)
+    ids[0], pos[0] = e - 1, c - 1          # the last row, in range
+    if shape == "dropped":
+        ids = np.where(rng.uniform(size=f) < 0.5, -1, e).astype(np.int32)
+    buf = rng.standard_normal((e, c, h)).astype(np.float32)
+    w = rng.standard_normal(f).astype(np.float32)
+    dropped = (ids < 0) | (ids >= e) | (pos < 0) | (pos >= c)
+    return ids, pos, buf, w, dropped
+
+
 @pytest.mark.parametrize("backend", JAX_BACKENDS)
-def test_combine_gather_matches_jax(backend):
-    flat_ids, pos, src, w, e, c = _routing(np.random.default_rng(3))
-    buf = np.random.default_rng(4).standard_normal((e, c, 32)).astype(
-        np.float32)
-    want = jdispatch.combine_gather(jnp.asarray(flat_ids), jnp.asarray(pos),
+@pytest.mark.parametrize("shape", ["f300", *GATHER_SHAPES])
+def test_combine_gather_matches_jax(backend, shape):
+    ids, pos, buf, w, dropped = _gather_inputs(shape)
+    want = jdispatch.combine_gather(jnp.asarray(ids), jnp.asarray(pos),
                                     jnp.asarray(buf), jnp.asarray(w),
                                     backend=backend)
-    got = dispatch.combine_gather(_t(flat_ids), _t(pos), _t(buf), _t(w))
+    got = dispatch.combine_gather(_t(ids), _t(pos), _t(buf), _t(w))
+    assert got.dtype == torch.float32 and got.shape == (len(ids),
+                                                        buf.shape[2])
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-    dropped = flat_ids == e
-    assert dropped.any()
     assert (got.numpy()[dropped] == 0.0).all()
+    assert dropped.any() or shape == "one-entry"
+    assert dropped.all() == (shape == "dropped")
 
 
 def test_dispatch_scatter_duplicates_sum():
