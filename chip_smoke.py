@@ -131,7 +131,20 @@ Phases, each of which raises (and so exits non-zero) on failure:
               norms and every param leaf (a digest of its bits) after step
               2 bit-equal; then one more step of each under the profiler:
               step ms, device busy ms, kernel launches, the port's kernels
-              and NCCL's (none: a group of one rank makes no call).
+              and NCCL's (none: a group of one rank makes no call); the
+              param bytes a rank.  The mesh path places every leaf by its
+              spec (runtime/params.py) and runs the FSDP / TP helpers and
+              the vocabulary split at data = model = 1.
+ 9b. placement  on that rank: granite-8b at full width and 4 super-blocks
+              (bf16, f32 AdamW moments), 2 steps at 4 x 1024 through the
+              mesh path on a (1, 1) mesh (every leaf placed by its spec,
+              attention and the dense FFN through runtime/tp.py, the
+              vocabulary-split embedding, head and loss) and through the
+              mesh-free path from the same seed: losses, clip norms and
+              every param leaf bit-equal; step ms and peak memory of each.
+              Then, from the specs on meta tensors, the param bytes a
+              rank of granite-8b, nemotron-4-15b and internvl2-26b at
+              (2, 2) and (1, 4).
  10. comm   on that NCCL rank: the chunked all-to-all as raw calls (2 and
               4 chunks of axis 2, every chunk issued asynchronously, then
               waited) on the nccl phase's leaves, bitwise the unchunked
@@ -2104,6 +2117,7 @@ def phase_mesh(torch, cfg, step_lib, data_lib, summarize, port_names,
 
     from repro_torch.configs.base import OptimizerConfig
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim.adam import leaves
     dev = torch.device("cuda")
     mesh = make_mesh(1, 1)
     opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=8)
@@ -2139,6 +2153,9 @@ def phase_mesh(torch, cfg, step_lib, data_lib, summarize, port_names,
             busy, _ = summarize(prof, 1, dts[-1], top=0)
             avgs = prof.key_averages()
             rec = dict(losses=losses, grad_norms=norms, step_ms=dts,
+                       param_bytes_per_rank=sum(
+                           t.numel() * t.element_size()
+                           for t in leaves(state.params)),
                        profiled_device_busy_ms=busy["device_busy_ms_per_step"],
                        profiled_kernels=busy["device_kernels_per_step"],
                        port_kernels_ms=_port_kernels(avgs, port_names),
@@ -2172,6 +2189,95 @@ def phase_mesh(torch, cfg, step_lib, data_lib, summarize, port_names,
                                  "bit-equal to the mesh-free path")
         out[fmt] = runs
     return out
+
+
+# ---------------------------------------------------------- 9b. placement --
+
+PLACEMENT_ARCH = "granite-8b"
+PLACEMENT_SUPER_BLOCKS = 4
+PLACEMENT_ARCHS = ("granite-8b", "nemotron-4-15b", "internvl2-26b")
+PLACEMENT_MESHES = ((2, 2), (1, 4))
+
+
+def param_bytes_per_rank(registry, params_lib, Mesh):
+    """{arch: {"DxM": bytes}} of the full configs' params a rank over
+    PLACEMENT_MESHES, from their specs on meta tensors (nothing
+    allocated), with each one's whole bytes."""
+    from repro_torch.models import model as model_lib
+    from repro_torch.optim.adam import leaves
+    out = {}
+    for arch in PLACEMENT_ARCHS:
+        cfg = registry.get_config(arch)
+        rec = {"whole": sum(t.numel() * t.element_size() for t in
+                            leaves(model_lib.logical_params(cfg)))}
+        for shape in PLACEMENT_MESHES:
+            mesh = Mesh(shape)
+            rec[f"{shape[0]}x{shape[1]}"] = params_lib.local_bytes(
+                model_lib.logical_params(cfg, mesh),
+                params_lib.model_specs(cfg, mesh), mesh)
+        out[arch] = rec
+    return out
+
+
+def phase_placement(torch, step_lib, data_lib, registry):
+    """granite-8b at full width and PLACEMENT_SUPER_BLOCKS super-blocks,
+    MESH_STEPS steps at 4 x 1024 through the mesh path on a (1, 1) mesh
+    and the mesh-free path from the same seed: losses, clip norms and
+    every leaf bit-equal; step ms and peak memory.  Then the param bytes
+    a rank of the full configs over (2, 2) and (1, 4)."""
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.launch.mesh import Mesh, make_mesh
+    from repro_torch.optim.adam import leaves
+    from repro_torch.runtime import params as params_lib
+    dev = torch.device("cuda")
+    mesh = make_mesh(1, 1)
+    cfg = registry.get_config(PLACEMENT_ARCH).replace(
+        num_super_blocks=PLACEMENT_SUPER_BLOCKS)
+    opt = OptimizerConfig(lr=1e-3, warmup_steps=1, total_steps=8)
+    ds = data_lib.SyntheticLMDataset(cfg.vocab_size, 1024, 4)
+    runs = {}
+    for tag, m in (("mesh-free", None), ("mesh (1, 1)", mesh)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        state = step_lib.init_train_state(cfg, opt, seed=0, device=dev,
+                                          mesh=m)
+        step_fn = step_lib.make_train_step(cfg, opt, mesh=m)
+        losses, norms, dts = [], [], []
+        for s in range(MESH_STEPS):
+            batch = step_lib.batch_to_device(ds.batch_at(s), dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step_fn(state, batch)
+            losses.append(met["loss"].item())
+            norms.append(met["grad_norm"].item())
+            dts.append((time.perf_counter() - t0) * 1e3)
+        rec = dict(losses=losses, grad_norms=norms, step_ms=dts,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(dev),
+                   param_bytes_per_rank=sum(
+                       t.numel() * t.element_size()
+                       for t in leaves(state.params)))
+        log(f"[placement] {cfg.name} at {cfg.num_super_blocks} super-blocks, "
+            f"{tag}: " + json.dumps(rec, sort_keys=True))
+        if not all(math.isfinite(v) for v in losses + norms):
+            raise AssertionError(f"placement {tag}: not finite {losses} "
+                                 f"{norms}")
+        runs[tag] = (rec, _digest(torch, state.params))
+        del state, step_fn
+    (a, da), (b, db) = runs["mesh-free"], runs["mesh (1, 1)"]
+    same = (a["losses"] == b["losses"] and a["grad_norms"]
+            == b["grad_norms"] and da == db)
+    log(f"[placement] mesh (1, 1) against mesh-free after {MESH_STEPS} "
+        f"steps: losses, clip norms and all {len(da)} param leaves "
+        f"{'bit-equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("placement: the mesh (1, 1) path is not "
+                             "bit-equal to the mesh-free path")
+    per_rank = param_bytes_per_rank(registry, params_lib, Mesh)
+    log("[placement] param bytes a rank from the specs: "
+        + json.dumps(per_rank, sort_keys=True))
+    torch.cuda.empty_cache()
+    return {"runs": {k: v[0] for k, v in runs.items()},
+            "param_bytes": per_rank}
 
 
 # --------------------------------------------------------------- 10. comm --
@@ -2482,8 +2588,8 @@ def _tree_mismatch(torch, a, b):
     """Keys of the leaves of two trees whose bits differ (or are missing
     on one side)."""
     from repro_torch.checkpoint.checkpoint import _flatten
-    fa = {k: v for k, v, _ in _flatten(a)}
-    fb = {k: v for k, v, _ in _flatten(b)}
+    fa = {k: v for k, v in _flatten(a)}
+    fb = {k: v for k, v in _flatten(b)}
     bad = sorted(set(fa) ^ set(fb))
     for k in set(fa) & set(fb):
         x, y = fa[k].detach(), fb[k].detach()
@@ -3578,9 +3684,12 @@ def tp_helpers(torch, tp, mesh):
         _tp_case(torch, "sp_gather", lambda a: tp.sp_gather(a, mesh),
                  lambda a: a * 1, [x], r(TP_X)),
         _tp_case(torch, "tp_in_project",
-                 lambda a, b: tp.tp_in_project(a, [b], mesh)[0],
+                 lambda a, b: tp.tp_in_project(
+                     a, [b], mesh, [(("data",), ("model",))])[0],
                  lambda a, b: a @ b, [x, w], r(TP_X[:2] + (TP_W[1],))),
-        _tp_case(torch, "tp_project", lambda a, b: tp.tp_project(a, b, mesh),
+        _tp_case(torch, "tp_project",
+                 lambda a, b: tp.tp_project(a, b, mesh,
+                                            (("model",), ("data",))),
                  lambda a, b: a @ b, [y, w_out], r(TP_X))]
 
 
@@ -4411,6 +4520,9 @@ def main() -> int:
     meshed = phase_mesh(torch, cfg, step_lib, synthetic, summarize,
                         port_names, kernels, path_k)
     log(f"[time] mesh done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    phase_placement(torch, step_lib, synthetic, registry)
+    log(f"[time] placement done at {time.time() - t_start:.1f} s")
     phase_comm(torch, cfg, collectives, moe_lib, step_lib, synthetic,
                summarize, port_names, kernels,
                meshed["bf16"]["mesh (1, 1)"][0]["losses"][0])

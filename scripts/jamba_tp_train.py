@@ -4,8 +4,9 @@ tensor-parallel Mamba (runtime/tp.py) on the expert-parallel axis.
 The window is chip_smoke.py phase hybrid's: layout entries 4-5 of the
 full-width config (one Mamba + MoE block, one attention + dense block;
 11.9 G params, bf16, seeded random weights).  On one card its params,
-gradients and f32 AdamW moments need about 143 GB; over (1, 4) the experts
-split four ways and the rest stays replicated, 4.65 G params a rank.
+gradients and f32 AdamW moments need about 143 GB; over (1, 4) every leaf
+splits by its spec (runtime/params.py): the experts, the Mamba and
+attention heads, the dense FFN's hidden columns and the vocabulary.
 Each rank:
 
 1. before the mesh state exists, rank 0 runs the mesh-free ``loss_fn``

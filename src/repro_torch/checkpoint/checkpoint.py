@@ -32,16 +32,19 @@ bf16 travels as its 16 bits under the dtype name ``"bfloat16"``, as JAX
 writes it.  A zstd shard (a JAX host with ``zstandard``) raises
 ``CheckpointError``: the port reads zlib only.
 
-Over a (data, model) mesh the arrays saved are logical (full): the
-expert leaves of params and moments (w_gate / w_up / w_down of a MoE
-layer, and their int8 ``q`` / ``scale``) are gathered over ``data`` then
-``model`` on every rank (``convert.gather_params``' rule), rank 0 writes,
-and the ranks then agree that the write succeeded (an all-reduce of a
-failure flag, which is also the barrier).  On restore every rank reads
-the same files and cuts its part (``convert.shard_params``' rule), so a
-checkpoint restores on another mesh with the same padded expert count;
-another ``E_pad`` is template drift.  ``sharded=False`` (the ``dp_only``
-profile, whose ranks hold every param) gathers and cuts nothing.
+Over a (data, model) mesh the arrays saved are logical (full): every
+leaf the tree's ``specs`` split (runtime/params.py:
+``train_state_specs``, params and moments, an int8 moment's ``q`` and
+``scale`` by the JAX package's ``moment_specs``) is gathered over ``data`` then
+``model`` on every rank (``convert.gather_params``' rule), rank 0
+writes, and the ranks then agree that the write succeeded (an all-reduce
+of a failure flag, which is also the barrier).  On restore every rank
+reads the same files and cuts its part by the specs of the mesh it runs
+on (``convert.shard_params``' rule), so a checkpoint restores on another
+mesh, on one card, or in the JAX package, with the same padded expert
+count; another ``E_pad`` is template drift.  Over a mesh of more than
+one rank the specs are required (the ``dp_only`` profile's, whose ranks
+hold every leaf, are all whole); ``specs=None`` is for one rank.
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ import torch
 
 from repro_torch.comm import collectives
 from repro_torch.obs import events as obs_events
+from repro_torch.runtime import params as params_lib
 from repro_torch.runtime import sharding
 
 ZLIB_LEVEL = 0
@@ -299,27 +303,22 @@ def unpackb(data: bytes) -> Any:
 
 # ------------------------------------------------------ tree <-> keys --
 
-def _flatten(tree: Any, prefix: str = "", expert: bool = False
-             ) -> List[Tuple[str, Any, bool]]:
-    """(key, leaf, is_expert) of every non-None leaf, keys as the JAX
-    package names them (dict key, ``#i`` for a list entry, the field name
-    of a NamedTuple).  ``is_expert``: an expert weight of a MoE layer, or
-    a part of its moment."""
+def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(key, leaf) of every non-None leaf, keys as the JAX package names
+    them (dict key, ``#i`` for a list entry, the field name of a
+    NamedTuple)."""
     if tree is None:
         return []
     if hasattr(tree, "_fields"):
         items = [(f, getattr(tree, f)) for f in tree._fields]
     elif isinstance(tree, dict):
-        moe = "router_w" in tree
-        return [x for k, v in tree.items() for x in _flatten(
-            v, f"{prefix}{k}{_KEY_SEP}",
-            expert or (moe and k in sharding.EXPERT_KEYS))]
+        items = list(tree.items())
     elif isinstance(tree, (list, tuple)):
         items = [(f"#{i}", v) for i, v in enumerate(tree)]
     else:
-        return [(prefix[:-len(_KEY_SEP)], tree, expert)]
+        return [(prefix[:-len(_KEY_SEP)], tree)]
     return [x for k, v in items
-            for x in _flatten(v, f"{prefix}{k}{_KEY_SEP}", expert)]
+            for x in _flatten(v, f"{prefix}{k}{_KEY_SEP}")]
 
 
 def _unflatten(template: Any, values: Dict[str, Any], prefix: str = ""):
@@ -354,7 +353,7 @@ def _host_array(t: torch.Tensor) -> np.ndarray:
 
 def _sync_device(tree) -> torch.device:
     """A device the mesh's backend moves: a CUDA leaf's if there is one."""
-    for _, leaf, _ in _flatten(tree):
+    for _, leaf in _flatten(tree):
         if leaf.device.type == "cuda":
             return leaf.device
     return torch.device("cpu")
@@ -369,26 +368,31 @@ def _agree(failed: bool, mesh, device: torch.device) -> bool:
     return collectives.any_rank(failed, sharding.world_group(mesh), device)
 
 
-def _gather_expert(t: torch.Tensor, mesh) -> torch.Tensor:
-    if sharding.axis_size(mesh, "data") > 1:
-        t = collectives.raw_all_gather(t, sharding.group(mesh, "data"), 1)
-    if sharding.axis_size(mesh, "model") > 1:
-        t = collectives.raw_all_gather(t, sharding.model_group(mesh), 0)
-    return t
-
-
 HostEntry = Tuple[str, np.ndarray, str, List[int]]
 
 
-def host_copy(tree, mesh=None, sharded: bool = True
-              ) -> Optional[List[HostEntry]]:
-    """(key, host bytes, dtype, logical shape) of every leaf, the expert
-    leaves gathered over the mesh leaf by leaf (a collective: every rank
-    calls it); None on ranks other than 0, which write nothing."""
+def _split_specs(specs, mesh) -> Dict[str, Any]:
+    """{key: spec} of the leaves ``specs`` split over ``mesh``."""
+    if specs is None:
+        if sharding.num_ranks(mesh) > 1:
+            raise ValueError(
+                "a checkpoint over a mesh of more than one rank needs the "
+                "state's specs (runtime/params.train_state_specs)")
+        return {}
+    return {k: s for k, s in params_lib.flat_specs(specs).items()
+            if params_lib.split_axes(s, mesh)}
+
+
+def host_copy(tree, mesh=None, specs=None) -> Optional[List[HostEntry]]:
+    """(key, host bytes, dtype, logical shape) of every leaf, the leaves
+    ``specs`` split gathered over the mesh leaf by leaf (a collective:
+    every rank calls it); None on ranks other than 0, which write
+    nothing."""
     out: Optional[List[HostEntry]] = [] if _is_rank0(mesh) else None
-    for key, leaf, expert in _flatten(tree):
-        if expert and sharded:
-            leaf = _gather_expert(leaf, mesh)
+    split = _split_specs(specs, mesh)
+    for key, leaf in _flatten(tree):
+        if key in split:
+            leaf = params_lib.gather(leaf, split[key], mesh)
         if out is not None:
             out.append((key, _host_array(leaf), dtype_name(leaf),
                         list(leaf.shape)))
@@ -451,12 +455,13 @@ def write_checkpoint(directory: str, step: int, entries: List[HostEntry],
 
 def save_checkpoint(directory: str, step: int, tree, *,
                     extra: Optional[Dict] = None, mesh=None,
-                    sharded: bool = True) -> str:
-    """Synchronous save of ``tree`` (a collective over the mesh)."""
+                    specs=None) -> str:
+    """Synchronous save of ``tree`` (a collective over the mesh; ``specs``
+    the tree's spec tree, module docstring)."""
     final = os.path.join(directory, f"step_{step}")
     if os.path.exists(os.path.join(final, "COMMIT")):
         return final
-    entries = host_copy(tree, mesh, sharded)
+    entries = host_copy(tree, mesh, specs)
     err = None
     if entries is not None:
         try:
@@ -570,15 +575,7 @@ def read_checkpoint(path: str
     return manifest, arrays
 
 
-def _logical_shape(t: torch.Tensor, expert: bool, mesh, sharded: bool):
-    shape = list(t.shape)
-    if expert and sharded and mesh is not None:
-        shape[0] *= sharding.axis_size(mesh, "model")
-        shape[1] *= sharding.axis_size(mesh, "data")
-    return shape
-
-
-def _restore_from(path: str, template, mesh, sharded: bool,
+def _restore_from(path: str, template, mesh, specs,
                   remap: Optional[Callable]) -> Tuple[Any, Dict]:
     """Verified restore of one committed step directory into
     ``template``'s structure, devices and (over a mesh) this rank's
@@ -587,26 +584,27 @@ def _restore_from(path: str, template, mesh, sharded: bool,
     manifest, arrays = read_checkpoint(path)
     if remap is not None:
         arrays = remap(arrays)
+    split = _split_specs(specs, mesh)
     values = {}
-    for key, tpl, expert in _flatten(template):
+    for key, tpl in _flatten(template):
         if key not in arrays:
             raise CheckpointError(
                 f"{path}: checkpoint has no entry for template leaf "
                 f"{key!r}: template / checkpoint structure mismatch")
         arr, dtype = arrays[key]
-        want = _logical_shape(tpl, expert, mesh, sharded)
+        want = list(params_lib.logical_shape(tpl.shape, split[key], mesh)
+                    if key in split else tpl.shape)
         if dtype_name(tpl) != dtype or want != list(arr.shape):
             raise CheckpointError(
                 f"{path}: leaf {key!r} is {dtype}{list(arr.shape)} in the "
                 f"checkpoint but {dtype_name(tpl)}{want} in the template: "
                 "config / arch (or padded expert count) drift between save "
                 "and restore")
-        if expert and sharded and mesh is not None:
-            s0, s1 = sharding.expert_slices(mesh, arr.shape)
-            arr = arr[s0, s1]
         t = torch.from_numpy(np.asarray(arr, order="C"))
         if dtype == "bfloat16":
             t = t.view(torch.bfloat16)
+        if key in split:
+            t = params_lib.shard(t, split[key], mesh).contiguous()
         values[key] = t.to(tpl.device)
     return _unflatten(template, values), manifest.get("extra", {})
 
@@ -627,7 +625,7 @@ def quarantine_step(directory: str, step: int, reason: str) -> str:
 
 
 def load_checkpoint(directory: str, template, *, step: Optional[int] = None,
-                    fallback: bool = True, mesh=None, sharded: bool = True,
+                    fallback: bool = True, mesh=None, specs=None,
                     remap: Optional[Callable] = None):
     """Restore into ``template``'s structure -> (tree, step, extra).  A
     corrupt newest step is quarantined and restore falls back to the next
@@ -650,7 +648,7 @@ def load_checkpoint(directory: str, template, *, step: Optional[int] = None,
         path = os.path.join(directory, f"step_{s}")
         err = None
         try:
-            tree, extra = _restore_from(path, template, mesh, sharded, remap)
+            tree, extra = _restore_from(path, template, mesh, specs, remap)
         except CheckpointCorruptError as e:
             err = e
         if not _agree(err is not None, mesh, dev):
@@ -673,7 +671,7 @@ class CheckpointManager:
     """Async double-buffered saves and keep-last-k GC.
 
     ``save_async`` waits for the previous save, copies the state to the
-    host (the only synchronous part; the expert leaves gathered over the
+    host (the only synchronous part; the split leaves gathered over the
     mesh), and writes it on a thread on rank 0.  A failed save is emitted
     as ``checkpoint_error`` and re-raised as CheckpointError from
     ``wait()``, once; over a mesh every rank raises it (``wait`` is a
@@ -681,11 +679,12 @@ class CheckpointManager:
     ``last_bytes`` describe the latest save."""
 
     def __init__(self, directory: str, keep: int = 3, *, mesh=None,
-                 sharded: bool = True):
+                 specs=None):
         self.directory = directory
         self.keep = keep
+        _split_specs(specs, mesh)             # raises where they are missing
         self.mesh = mesh
-        self.sharded = sharded
+        self.specs = specs
         self._pending: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._error_step: Optional[int] = None
@@ -699,7 +698,7 @@ class CheckpointManager:
         self.wait()
         self._device = _sync_device(tree)
         t0 = time.perf_counter()
-        entries = host_copy(tree, self.mesh, self.sharded)
+        entries = host_copy(tree, self.mesh, self.specs)
         self.last_host_copy_s = time.perf_counter() - t0
         if entries is None:
             return

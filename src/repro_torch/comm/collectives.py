@@ -134,6 +134,13 @@ def raw_all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return out
 
 
+def raw_all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max over the group's ranks, in a new tensor."""
+    out = x.detach().clone()
+    dist.all_reduce(out, op=dist.ReduceOp.MAX, group=group)
+    return out
+
+
 def raw_ring_shift(x: torch.Tensor, group) -> torch.Tensor:
     """Each rank's ``x`` to the next rank of the group (i -> i + 1 mod n);
     the result is the previous rank's.  One send and one receive a rank,

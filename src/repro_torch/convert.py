@@ -12,9 +12,8 @@ JAX stores ``blocks`` as one entry per layout position, each stacked
 the layout interleaved inside (models/model.py), the order the JAX scan runs
 the blocks in.
 
-``shard_params`` cuts full params to a rank's part by the reference's
-partition spec of the expert weights (``P("model", "data", None)``;
-everything else is replicated: runtime/sharding.py), and
+``shard_params`` cuts full params to a rank's part, every leaf by its
+spec (the JAX package's ``param_specs``: runtime/params.py), and
 ``gather_params`` puts the ranks' parts together again.
 
 ``state_from_jax`` carries a whole JAX ``TrainState`` (params and the
@@ -32,8 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import DeviceLike, resolve_device
-from repro_torch.comm import collectives
-from repro_torch.runtime import sharding
+from repro_torch.runtime import params as params_lib
 
 
 def tensor_from_numpy(a: Any, device: torch.device) -> torch.Tensor:
@@ -132,14 +130,14 @@ def jax_checkpoint_layout(arrays: Dict) -> Dict:
 
 
 def load_jax_checkpoint(directory: str, template, *, step=None, mesh=None,
-                        sharded: bool = True):
+                        specs=None):
     """Restore the newest (or ``step``'s) committed checkpoint of a JAX
     run into ``template``, a port ``TrainState`` of the same config ->
     (state, step, extra); the same digests, quarantine and fallback as
     the port's own (checkpoint/checkpoint.py)."""
     from repro_torch.checkpoint.checkpoint import load_checkpoint
     return load_checkpoint(directory, template, step=step, mesh=mesh,
-                           sharded=sharded, remap=jax_checkpoint_layout)
+                           specs=specs, remap=jax_checkpoint_layout)
 
 
 def _leaves(tree: Any):
@@ -153,30 +151,27 @@ def _leaves(tree: Any):
         yield tree
 
 
-def _map_experts(params: Dict, fn) -> Dict:
-    """``params`` with ``fn`` applied to every expert weight (the others
-    are the same tensors)."""
-    mask = iter(sharding.expert_leaf_mask(params))
-    return _map(params, lambda t: fn(t) if next(mask) else t)
-
-
-def shard_params(params: Dict, mesh) -> Dict:
+def shard_params(params: Dict, mesh, specs: Any = None) -> Dict:
     """Full port params (``params_from_jax``, or ``init_params`` without
-    a mesh) -> this rank's part: each expert weight [E_pad, X, Y] cut to
-    [E_pad / model, X / data, Y]; E_pad must split over the model axis
-    (the JAX ``init_params`` on the same mesh pads it so)."""
-    def cut(t):
-        s0, s1 = sharding.expert_slices(mesh, t.shape)
-        return t[s0, s1].contiguous()
-    return _map_experts(params, cut)
+    a mesh) -> this rank's part: each leaf cut by its spec (``specs``, or
+    ``param_specs`` of ``params``: a MoE layer's E_pad must split over
+    the model axis, as the JAX ``init_params`` on the same mesh pads
+    it), a split leaf's block a contiguous copy, a whole leaf itself."""
+    if specs is None:
+        specs = params_lib.param_specs(params, mesh)
+
+    def cut(t, spec):
+        s = params_lib.shard(t, spec, mesh)
+        return s.contiguous() if s.shape != t.shape else s
+    return params_lib.map_specs(cut, params, specs)
 
 
-def gather_params(params: Dict, mesh) -> Dict:
-    """The inverse of ``shard_params``: the full expert weights, gathered
-    over ``data`` then ``model`` (a collective: every rank calls it)."""
-    def gather(t):
-        t = collectives.raw_all_gather(t, sharding.group(mesh, "data"), 1) \
-            if sharding.axis_size(mesh, "data") > 1 else t
-        return collectives.raw_all_gather(t, sharding.model_group(mesh), 0) \
-            if sharding.axis_size(mesh, "model") > 1 else t
-    return _map_experts(params, gather)
+def gather_params(params: Dict, mesh, specs: Any, grad: bool = False
+                  ) -> Dict:
+    """The inverse of ``shard_params``: every split leaf gathered whole
+    over ``data`` then ``model`` (a collective: every rank calls it);
+    ``specs`` as the parts were cut by (``param_specs`` of the full
+    params, or ``runtime.params.model_specs``); ``grad``: differentiable
+    (the gradients come back reduce-scattered)."""
+    return params_lib.map_specs(
+        lambda t, s: params_lib.gather(t, s, mesh, grad), params, specs)

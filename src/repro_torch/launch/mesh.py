@@ -2,11 +2,13 @@
 process groups (counterpart of ``repro/launch/mesh.py``).
 
 Axes, as in the JAX package:
-  data   data parallelism and FSDP of the expert weights;
+  data   data parallelism and FSDP of every split weight
+         (runtime/params.py);
   pipe   the 1F1B pipeline's stage axis (runtime/pipeline_schedule.py),
          left out when it has one rank, so that such a mesh is the
          (data, model) mesh it was before, groups and rank numbers alike;
-  model  expert parallelism: the MoE all-to-all runs over it, and the
+  model  expert and tensor parallelism: the MoE all-to-all runs over
+         it, heads / FFN hidden / vocabulary split over it, and the
          residual stream between blocks is sharded over it by sequence.
 
 Ranks are laid out row-major over the mesh shape, as the JAX package's

@@ -282,6 +282,8 @@ def _train(args, dev, mesh, mem) -> int:
     from repro_torch.obs import events as obs_events
     from repro_torch.obs import export as obs_export
     from repro_torch.obs import timeline as timeline_lib
+    from repro_torch.optim.adam import leaves
+    from repro_torch.runtime import params as params_lib
     from repro_torch.runtime import sharding
     from repro_torch.runtime.fault import (EXIT_PREEMPTED, EXIT_WATCHDOG,
                                            ExpertRebalancer,
@@ -343,8 +345,8 @@ def _train(args, dev, mesh, mem) -> int:
     watchdog = StepWatchdog(args.watchdog_s)
     straggler = StragglerMonitor(threshold=args.straggler_factor)
     timeline = timeline_lib.StepTimeline()
-    sharded = not cfg.dp_only
-    mgr = CheckpointManager(args.ckpt, keep=3, mesh=mesh, sharded=sharded) \
+    specs = params_lib.train_state_specs(cfg, mesh, opt.moment_dtype)
+    mgr = CheckpointManager(args.ckpt, keep=3, mesh=mesh, specs=specs) \
         if args.ckpt else None
     monitor = escalator = None
     if args.metrics_dir:
@@ -376,7 +378,7 @@ def _train(args, dev, mesh, mem) -> int:
     start = 0
     if mgr and mgr.latest_step() is not None:
         state, start, _ = load_checkpoint(args.ckpt, state, mesh=mesh,
-                                          sharded=sharded)
+                                          specs=specs)
         emit("resume", from_step=start)
     step_fn = make_train_step(cfg, opt, use_lsh=use_lsh, mesh=mesh)
 
@@ -516,6 +518,8 @@ def _train(args, dev, mesh, mem) -> int:
          device=(torch.cuda.get_device_name(dev) if dev.type == "cuda"
                  else "cpu"),
          mesh=None if mesh is None else mesh.shape,
+         param_bytes_per_rank=sum(t.numel() * t.element_size()
+                                  for t in leaves(state.params)),
          comm_share=timeline.comm_share(), **extra)
     return 0
 

@@ -5,11 +5,14 @@ states (whisper).  Plain torch, with the JAX package's f32
 softmax; no SDPA, so that the two packages stay like for like.
 
 Over a mesh the residual stream is sharded by sequence over ``model``
-(runtime/sharding.py): each rank projects its own S / model queries, keys
-and values, gives them their global positions (RoPE), all-gathers K and
-V over ``model`` (comm/collectives.py; the backward reduce-scatters their
-cotangents) and attends over the whole sequence, whose kv chunks are then
-the one-device ones."""
+and the weights are the rank's shards, with their specs
+(runtime/params.py): as in JAX,
+``tp_in_project`` (runtime/tp.py) gathers the sequence and projects the
+rank's heads of q, k and v over all of it (K and V whole, on every rank,
+where the kv heads are fewer than the model ranks), and ``tp_project``
+reduce-scatters the output projection back to the rank's sequence slice;
+attention itself runs over the whole sequence on the rank's heads, whose
+kv chunks are then the one-device ones."""
 from __future__ import annotations
 
 import math
@@ -17,9 +20,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.comm import collectives
 from repro_torch.models.layers import apply_rope, fanin_init
-from repro_torch.runtime import sharding
+from repro_torch.runtime import sharding, tp
 
 NEG_INF = -1e30
 
@@ -79,30 +81,63 @@ def attention_apply(params: Dict, x: torch.Tensor, *, num_heads: int,
                     causal: bool = True, kv_chunk: int = 1024,
                     pos_offset: int = 0, use_rope: bool = True,
                     kv_x: Optional[torch.Tensor] = None,
-                    mesh=None) -> torch.Tensor:
-    """Full-sequence attention (training / prefill).  x: [B, S, H], with a
-    mesh this rank's sequence slice m of S_loc positions: its queries sit
-    at pos_offset + m * S_loc, and it attends to the K / V of every slice.
-    ``kv_x`` [B, S_kv, H] makes it cross-attention: the keys and values
-    come from it (encoder states, of another length than x), without RoPE
-    (the caller passes causal=False, as the JAX package's does)."""
-    B, S, _ = x.shape
-    group = sharding.model_group(mesh)
-    pos_offset = pos_offset + sharding.axis_index(mesh, "model") * S
+                    mesh=None, specs: Optional[Dict] = None
+                    ) -> torch.Tensor:
+    """Full-sequence attention (training / prefill).  x: [B, S, H]; with a
+    mesh, this rank's sequence slice, its queries at their global
+    positions, and the params the rank's shards of ``specs``: the result
+    is the rank's slice of the output (module docstring).  ``kv_x``
+    [B, S_kv, H] makes it cross-attention: the keys and values come from
+    it (encoder states, of another length than x), without RoPE (the
+    caller passes causal=False, as the JAX package's does)."""
+    B, S, H = x.shape
     src = x if kv_x is None else kv_x
-    S_kv = src.shape[1]
-    q = (x @ params["wq"]).reshape(B, S, num_heads, head_dim)
-    k = (src @ params["wk"]).reshape(B, S_kv, num_kv_heads, head_dim)
-    v = (src @ params["wv"]).reshape(B, S_kv, num_kv_heads, head_dim)
+    if mesh is None:
+        q = x @ params["wq"]
+        k = src @ params["wk"]
+        v = src @ params["wv"]
+        nh, nkv = num_heads, num_kv_heads
+    else:
+        g = sharding.axis_size(mesh, "model")
+        sq, sk, sv = specs["wq"], specs["wk"], specs["wv"]
+        # kv heads fewer than the model ranks: K and V whole on every rank
+        rep = num_kv_heads < g
+        if num_heads % g or not rep and num_kv_heads % g:
+            raise ValueError(f"{num_heads} query and {num_kv_heads} kv "
+                             f"heads do not split over a model axis of {g}")
+        if kv_x is None:
+            q, k, v = tp.tp_in_project(
+                x, (params["wq"], params["wk"], params["wv"]), mesh,
+                (sq, sk, sv), replicate=(False, rep, rep))
+        else:
+            (q,) = tp.tp_in_project(x, (params["wq"],), mesh, (sq,))
+            k, v = tp.tp_in_project(src, (params["wk"], params["wv"]), mesh,
+                                    (sk, sv), replicate=(rep, rep))
+        S, nh = q.shape[1], num_heads // g
+        if rep:
+            # each rank's query heads read their kv heads of the whole K / V
+            m, grp = sharding.axis_index(mesh, "model"), \
+                num_heads // num_kv_heads
+            heads = torch.arange(m * nh, (m + 1) * nh, device=x.device) // grp
+            k = k.reshape(B, -1, num_kv_heads, head_dim)[:, :, heads]
+            v = v.reshape(B, -1, num_kv_heads, head_dim)[:, :, heads]
+            nkv = nh
+        else:
+            nkv = num_kv_heads // g
+    S_kv = k.shape[1]
+    q = q.reshape(B, S, nh, head_dim)
+    k = k.reshape(B, S_kv, nkv, head_dim)
+    v = v.reshape(B, S_kv, nkv, head_dim)
     if use_rope and kv_x is None:
         pos = pos_offset + torch.arange(S, device=x.device)[None, :]
         q = apply_rope(q, pos, rope_theta)
         k = apply_rope(k, pos, rope_theta)
-    k = collectives.all_gather(k, group, 1)
-    v = collectives.all_gather(v, group, 1)
     out = chunked_attention(q, k, v, causal=causal, kv_chunk=kv_chunk,
                             q_offset=pos_offset)
-    return out.reshape(B, S, num_heads * head_dim) @ params["wo"]
+    out = out.reshape(B, S, nh * head_dim)
+    if mesh is None:
+        return out @ params["wo"]
+    return tp.tp_project(out, params["wo"], mesh, specs["wo"])
 
 
 def init_kv_cache(batch: int, max_len: int, num_kv_heads: int, head_dim: int,

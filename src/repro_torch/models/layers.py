@@ -13,6 +13,9 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from repro_torch.comm import collectives
+from repro_torch.runtime import sharding
+
 
 def normal_init(gen: torch.Generator, shape, dtype, device,
                 scale: float = 0.02) -> torch.Tensor:
@@ -146,8 +149,30 @@ def embedding_init(gen, vocab: int, d_model: int, dtype, device) -> Dict:
                                  scale=0.02)}
 
 
-def embed(params: Dict, tokens: torch.Tensor) -> torch.Tensor:
-    return params["table"][tokens]
+def embed(params: Dict, tokens: torch.Tensor, mesh=None,
+          spec=None) -> torch.Tensor:
+    """The rows of ``tokens``.  Over a mesh whose ``model`` axis of g
+    ranks splits the table (its ``spec``, runtime/params.py: rank m holds
+    rows [m V / g, (m + 1) V / g) of the vocabulary V), tokens [B, L] is
+    the rank's slice of the model group's sequence: each rank looks up
+    its own rows for the tokens of the whole group (a token outside
+    them, or a negative one, counts zero) and a reduce-scatter returns
+    the sums to the rank's slice, [B, L, H] (the ``tp_project`` pattern;
+    backward: the all-gather of the cotangents, so the rank's rows get
+    the whole sequence's gradient)."""
+    table = params["table"]
+    if spec is None or "model" not in spec[0] \
+            or sharding.axis_size(mesh, "model") == 1:
+        return table[tokens]
+    group = mesh.tp_group()
+    n = table.shape[0]
+    ids = collectives.raw_all_gather(tokens.contiguous(), group, 1) \
+        - sharding.axis_index(mesh, "model") * n
+    mine = (ids >= 0) & (ids < n)
+    rows = torch.where(mine[..., None], table[ids.clamp(0, n - 1)],
+                       torch.zeros((), dtype=table.dtype,
+                                   device=table.device))
+    return collectives.ReduceScatter.apply(rows, group, 1)
 
 
 def unembed(params: Dict, x: torch.Tensor) -> torch.Tensor:

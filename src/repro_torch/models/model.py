@@ -16,12 +16,18 @@ order: super-block major, layout entries interleaved inside, so layer
 
 Over a (data, model) mesh (launch/mesh.py) every function takes this
 rank's part: the residual stream between blocks is sharded by batch over
-``data`` and by sequence over ``model`` (runtime/sharding.py), so
-embedding, norms, the MoE layer, the head and the loss run on the rank's
-[B / data, S / model] tokens, attention gathers K and V over ``model``,
-and the experts are the rank's shard.  Each rank's loss is its share of
-the global loss, so that summing the replicated params' gradients over
-the ranks (runtime/step.py) gives the global gradient.
+``data`` and by sequence over ``model`` (runtime/sharding.py), and every
+param is the rank's shard (runtime/params.py; ``init_params`` places
+them).  Norms and the MoE layer run on the rank's [B / data, S / model]
+tokens; attention, the dense FFN and Mamba go through runtime/tp.py's
+gather-project / project-scatter pair with their weights FSDP-gathered
+over ``data`` inside; the embedding reads a vocabulary split over
+``model`` (layers.embed), the head gives the model group's whole
+sequence on the rank's vocabulary columns, and the loss reduces over
+that split.  Each rank's loss is its share of the global loss; a
+gradient comes back summed over the axes its leaf splits over, and the
+step sums it over the others (runtime/step.py).  Decode reads each
+layer's weights gathered whole just before it.
 
 Supported: every architecture of the JAX package.  Attention, Mamba-2
 (models/ssm.py; over a mesh its heads split over ``model``,
@@ -52,16 +58,18 @@ from repro_torch import DeviceLike, resolve_device
 from repro_torch.comm import collectives
 from repro_torch.configs.base import (ATTN, DENSE, MAMBA, MLSTM, MOE, NONE,
                                       SLSTM, ModelConfig)
+from repro_torch.convert import gather_params, shard_params
 from repro_torch.core.lsh_moe import lsh_moe_apply, lsh_moe_init
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models import xlstm as xlstm_lib
-from repro_torch.models.layers import (DECODE_TABLE, embed, embedding_init,
-                                       fanin_init, mlp_apply, mlp_init,
-                                       rmsnorm, rmsnorm_init, sinusoid_rows,
-                                       unembed)
+from repro_torch.models.layers import (DECODE_TABLE, activation, embed,
+                                       embedding_init, fanin_init, mlp_apply,
+                                       mlp_init, rmsnorm, rmsnorm_init,
+                                       sinusoid_rows, unembed)
 from repro_torch.obs import metrics as obs_metrics
-from repro_torch.runtime import sharding
+from repro_torch.runtime import params as params_lib
+from repro_torch.runtime import sharding, tp
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -107,7 +115,9 @@ def _mixer_init(gen, cfg: ModelConfig, mixer: str, dtype, device) -> Dict:
 
 
 def _layer_init(gen, cfg: ModelConfig, mixer: str, ffn: str, dtype, device,
-                mesh, cross: bool = False) -> Dict:
+                mesh, cross: bool = False, place: bool = True) -> Dict:
+    """One layer's params; with a mesh and ``place``, the rank's shard of
+    each (the MoE layer cuts its own, core/lsh_moe.py)."""
     h = cfg.d_model
     p: Dict = {"norm1": rmsnorm_init(h, dtype, device),
                "mixer": _mixer_init(gen, cfg, mixer, dtype, device)}
@@ -122,8 +132,19 @@ def _layer_init(gen, cfg: ModelConfig, mixer: str, ffn: str, dtype, device,
     elif ffn == MOE:
         p["norm2"] = rmsnorm_init(h, dtype, device)
         p["ffn"] = lsh_moe_init(gen, h, cfg.moe, mlp_act=cfg.mlp_act,
-                                dtype=dtype, device=device, mesh=mesh)
-    return p
+                                dtype=dtype, device=device, mesh=mesh,
+                                place=place)
+    if mesh is None or not place:
+        return p
+    return {k: v if k == "ffn" and ffn == MOE else _place(v, mesh)
+            for k, v in p.items()}
+
+
+def _place(tree, mesh, prefix=()):
+    """The rank's shard of every leaf of ``tree`` (whole shapes), by the
+    spec of its path, ``tree`` lying at ``prefix``."""
+    return shard_params(tree, mesh, params_lib.param_specs(tree, mesh,
+                                                           prefix))
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0,
@@ -132,28 +153,46 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     on ``device`` (the CUDA device unless "cpu" is asked for).  The
     distributions are the JAX package's; the numbers are not (the tests
     share params through convert.params_from_jax).  With a mesh every
-    rank draws the same params and keeps its shard of the experts, which
-    pad to a multiple of the model axis.  An encoder-decoder config gets
-    the decoder layers' ``cross_norm`` / ``cross`` and ``params["encoder"]
-    = {"layers": num_encoder_super_blocks (attention, dense) layers,
+    rank draws the same params and keeps its shard of each leaf
+    (runtime/params.py), a layer at a time; the experts pad to a multiple
+    of the model axis.  An encoder-decoder config gets the decoder
+    layers' ``cross_norm`` / ``cross`` and ``params["encoder"] =
+    {"layers": num_encoder_super_blocks (attention, dense) layers,
     "final_norm"}``."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    return _init(cfg, seed, resolve_device(device), mesh, True)
+
+
+def logical_params(cfg: ModelConfig, mesh=None) -> Dict:
+    """The whole params of ``cfg`` on the meta device (shapes and dtypes,
+    no numbers), the experts padded to ``mesh``'s model axis: what
+    runtime/params.py reads the specs from."""
+    check_supported(cfg)
+    return _init(cfg, 0, torch.device("meta"), mesh, False)
+
+
+def _init(cfg: ModelConfig, seed: int, dev: torch.device, mesh,
+          place: bool) -> Dict:
     dtype = torch_dtype(cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev
+                          ).manual_seed(seed)
+    cut = (lambda tree, *pre: _place(tree, mesh, pre)) \
+        if mesh is not None and place else (lambda tree, *pre: tree)
     params: Dict = {
-        "embed": embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype, dev),
+        "embed": cut(embedding_init(gen, cfg.vocab_size, cfg.d_model, dtype,
+                                    dev), "embed"),
         "final_norm": rmsnorm_init(cfg.d_model, dtype, dev),
     }
     if not cfg.tie_embeddings:
-        params["head"] = {"w": fanin_init(gen, (cfg.d_model, cfg.vocab_size),
-                                          dtype, dev)}
+        params["head"] = cut({"w": fanin_init(
+            gen, (cfg.d_model, cfg.vocab_size), dtype, dev)}, "head")
     params["layers"] = [_layer_init(gen, cfg, mixer, ffn, dtype, dev, mesh,
-                                    cross=cfg.encoder_decoder)
+                                    cross=cfg.encoder_decoder, place=place)
                         for mixer, ffn in layer_kinds(cfg)]
     if cfg.encoder_decoder:
         params["encoder"] = {
-            "layers": [_layer_init(gen, cfg, ATTN, DENSE, dtype, dev, mesh)
+            "layers": [_layer_init(gen, cfg, ATTN, DENSE, dtype, dev, mesh,
+                                   place=place)
                        for _ in range(cfg.num_encoder_super_blocks)],
             "final_norm": rmsnorm_init(cfg.d_model, dtype, dev)}
     return params
@@ -161,51 +200,107 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
 
 def _apply_mixer(p: Dict, h: torch.Tensor, cfg: ModelConfig, mixer: str,
                  mesh, causal: bool = True,
-                 enc_states: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The mixer over the normed input h; an attention layer with
+                 enc_states: Optional[torch.Tensor] = None,
+                 specs: Optional[Dict] = None) -> torch.Tensor:
+    """The mixer over the normed input h (over a mesh, ``specs`` are the
+    layer's, runtime/params.py); an attention layer with
     ``cross`` params and ``enc_states`` adds its cross-attention over them,
     whose input is ``rmsnorm(cross_norm, h + y)``: h the block's normed
     input, as in the JAX forward (its decode step norms x + y instead;
     ``decode_step`` mirrors that)."""
     if mixer == MAMBA:
         return ssm_lib.mamba_apply(p["mixer"], h, cfg.ssm, cfg.norm_eps,
-                                   mesh=mesh)
+                                   mesh=mesh, specs=_sub(specs, "mixer"))
     if mixer in (MLSTM, SLSTM):
-        if sharding.axis_size(mesh, "model") > 1:
-            raise NotImplementedError(
-                f"the {mixer} forward on a mesh whose 'model' axis is > 1: "
-                "the residual stream is sharded by sequence there, and the "
-                "port runs the xLSTM mixers mesh-free or under dp_only "
-                "(ROADMAP Queue 1 item 7)")
+        _check_xlstm_mesh(mixer, mesh)
+        mp = p["mixer"]
+        if mesh is not None:
+            # the mixer runs as on one card on the rank's rows, over its
+            # weights gathered whole (their gradients reduce-scattered back)
+            mp = gather_params(mp, mesh, specs["mixer"], grad=True)
         if mixer == MLSTM:
-            return xlstm_lib.mlstm_apply(p["mixer"], h, cfg.resolved_head_dim,
+            return xlstm_lib.mlstm_apply(mp, h, cfg.resolved_head_dim,
                                          cfg.xlstm.chunk_size, cfg.norm_eps)
-        return xlstm_lib.slstm_apply(p["mixer"], h, cfg.norm_eps)
+        return xlstm_lib.slstm_apply(mp, h, cfg.norm_eps)
     heads = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                  head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                  kv_chunk=cfg.kv_chunk, mesh=mesh)
     y = attn_lib.attention_apply(p["mixer"], h, causal=causal,
-                                 use_rope=(cfg.pos_emb == "rope"), **heads)
+                                 use_rope=(cfg.pos_emb == "rope"),
+                                 specs=_sub(specs, "mixer"), **heads)
     if enc_states is not None and "cross" in p:
         hc = rmsnorm(p["cross_norm"], h + y, cfg.norm_eps)
         y = y + attn_lib.attention_apply(p["cross"], hc, causal=False,
                                          use_rope=False, kv_x=enc_states,
-                                         **heads)
+                                         specs=_sub(specs, "cross"), **heads)
     return y
+
+
+def _check_xlstm_mesh(mixer: str, mesh) -> None:
+    if sharding.axis_size(mesh, "model") > 1:
+        raise NotImplementedError(
+            f"the {mixer} forward on a mesh whose 'model' axis is > 1: "
+            "the residual stream is sharded by sequence there, and the "
+            "port runs the xLSTM mixers mesh-free or under dp_only "
+            "(ROADMAP Queue 1 item 7)")
+
+
+def _sub(specs: Optional[Dict], key: str) -> Optional[Dict]:
+    return None if specs is None else specs[key]
+
+
+def entry_specs(cfg: ModelConfig, mesh, encoder: bool = False
+                ) -> List[Optional[Dict]]:
+    """The specs of the layers of each layout entry (of the encoder's
+    one), which are alike (runtime/params.py); None an entry without a
+    mesh."""
+    n = 1 if encoder else len(cfg.layout)
+    if mesh is None:
+        return [None] * n
+    specs = params_lib.model_specs(cfg, mesh)
+    return (specs["encoder"] if encoder else specs)["layers"][:n]
+
+
+def vocab_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether the vocabulary splits over a ``model`` axis of more than
+    one rank: the table's rows, or the untied head's columns, by their
+    specs."""
+    if sharding.axis_size(mesh, "model") == 1:
+        return False
+    specs = params_lib.model_specs(cfg, mesh)
+    return "model" in (specs["embed"]["table"][0] if cfg.tie_embeddings
+                       else specs["head"]["w"][1])
+
+
+def _dense_ffn(p: Dict, h: torch.Tensor, cfg: ModelConfig,
+               mesh, specs: Optional[Dict] = None) -> torch.Tensor:
+    """The dense FFN over the normed h; over a mesh the JAX package's:
+    w_up (and w_gate) through ``tp_in_project``, the activation on the
+    rank's hidden columns, w_down through ``tp_project`` (``specs``: the
+    FFN's)."""
+    if mesh is None:
+        return mlp_apply(p, h, cfg.mlp_act)
+    names = ["w_up"] + (["w_gate"] if cfg.mlp_act == "swiglu" else [])
+    hs = tp.tp_in_project(h, [p[k] for k in names], mesh,
+                          [specs[k] for k in names])
+    hh = activation(hs[0], hs[1] if len(hs) > 1 else None, cfg.mlp_act)
+    return tp.tp_project(hh, p["w_down"], mesh, specs["w_down"])
 
 
 def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: str,
            *, use_lsh: Optional[bool], mesh, moe_mode: str = "train",
-           causal: bool = True, enc_states: Optional[torch.Tensor] = None):
+           causal: bool = True, enc_states: Optional[torch.Tensor] = None,
+           specs: Optional[Dict] = None):
     """One (mixer, ffn) block of the training forward -> (x, aux, z,
     load, comm); aux / z / load are None without a MoE FFN, comm the MoE
-    layer's MetricBag (None unless ``ObsConfig.in_graph_metrics``)."""
+    layer's MetricBag (None unless ``ObsConfig.in_graph_metrics``).
+    ``specs``: the layer's, over a mesh."""
     h = rmsnorm(p["norm1"], x, cfg.norm_eps)
-    x = x + _apply_mixer(p, h, cfg, mixer, mesh, causal, enc_states)
+    x = x + _apply_mixer(p, h, cfg, mixer, mesh, causal, enc_states, specs)
     aux = z = load = comm = None
     if ffn == DENSE:
-        x = x + mlp_apply(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps),
-                          cfg.mlp_act)
+        x = x + _dense_ffn(p["ffn"], rmsnorm(p["norm2"], x, cfg.norm_eps),
+                           cfg, mesh, _sub(specs, "ffn"))
     elif ffn == MOE:
         y, stats = lsh_moe_apply(p["ffn"], rmsnorm(p["norm2"], x,
                                                    cfg.norm_eps),
@@ -218,15 +313,33 @@ def _block(p: Dict, x: torch.Tensor, cfg: ModelConfig, mixer: str, ffn: str,
     return x, aux, z, load, comm
 
 
-def head_logits(params: Dict, cfg: ModelConfig,
-                x: torch.Tensor) -> torch.Tensor:
+def head_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
+                mesh=None) -> torch.Tensor:
     """Final norm + (tied) unembedding -> f32 logits.  ``params`` needs
     "final_norm" and "embed" / "head" only: the last pipeline stage
-    passes its own slice."""
+    passes its own slice.  Over a mesh whose ``model`` axis splits the
+    vocabulary (runtime/params.py), the logits are the model group's
+    whole sequence on the rank's columns, [B, S, V / model] (the JAX
+    package's vocab-sharded logits; ``tp_in_project`` gathers the
+    sequence, and a head split over ``data`` is gathered over it); with a
+    vocabulary that does not split, the rank's sequence slice on the
+    whole vocabulary, [B, S / model, V]."""
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if mesh is None:
+        return unembed(params["embed"], x) if cfg.tie_embeddings \
+            else (x @ params["head"]["w"]).to(torch.float32)
+    specs = params_lib.model_specs(cfg, mesh)
+    if cfg.tie_embeddings:
+        w = params["embed"]["table"].T
+        spec = tuple(reversed(specs["embed"]["table"]))
+    else:
+        w, spec = params["head"]["w"], specs["head"]["w"]
+    if "model" in spec[1]:
+        (logits,) = tp.tp_in_project(x, [w.to(x.dtype)], mesh, [spec])
+        return logits.to(torch.float32)
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
-    return (x @ params["head"]["w"]).to(torch.float32)
+    return (x @ tp.fsdp_gather(w, spec, mesh, 0)).to(torch.float32)
 
 
 def stage_bounds(num_super_blocks: int,
@@ -274,9 +387,21 @@ def _embed_inputs(params: Dict, cfg: ModelConfig, tokens: torch.Tensor,
     """Token embeddings, after the patch embeddings (cast to the model
     dtype) when the config has the patch frontend and they are given, then
     the sinusoid for ``pos_emb="learned"``.  RoPE positions then count the
-    patch prefix."""
-    x = embed(params["embed"], tokens)
-    if cfg.frontend == "patch_stub" and patch_embeds is not None:
+    patch prefix.  Over a mesh whose vocabulary splits, the rank's tokens
+    go to the lookup behind its patch positions (as -1, which count
+    zero), so every rank hands ``layers.embed`` its whole slice."""
+    patches = cfg.frontend == "patch_stub" and patch_embeds is not None
+    npatch = patch_embeds.shape[1] if patches else 0
+    split = vocab_split(cfg, mesh)
+    if npatch and split:
+        tokens = torch.cat([torch.full((tokens.shape[0], npatch), -1,
+                                       dtype=tokens.dtype,
+                                       device=tokens.device), tokens], 1)
+    x = embed(params["embed"], tokens, mesh, None if mesh is None else
+              params_lib.model_specs(cfg, mesh)["embed"]["table"])
+    if npatch and split:
+        x = x[:, npatch:]
+    if patches:
         x = torch.cat([patch_embeds.to(x.dtype), x], dim=1)
     if cfg.pos_emb == "learned":
         x = _positions(x, mesh)
@@ -292,7 +417,8 @@ def _encode(params: Dict, cfg: ModelConfig, frames: torch.Tensor,
     x = _positions(frames.to(torch_dtype(cfg.dtype)), mesh)
     enc = params["encoder"]
     x, _ = _stack_forward(enc["layers"], x, cfg, use_lsh=None, mesh=mesh,
-                          layout=((ATTN, DENSE),), causal=False)
+                          layout=((ATTN, DENSE),), causal=False,
+                          specs=entry_specs(cfg, mesh, encoder=True))
     return rmsnorm(enc["final_norm"], x, cfg.norm_eps)
 
 
@@ -300,12 +426,15 @@ def _stack_forward(layers: List[Dict], x: torch.Tensor, cfg: ModelConfig, *,
                    use_lsh: Optional[bool], mesh, moe_mode: str = "train",
                    init_stats: Optional[Tuple] = None, layout=None,
                    causal: bool = True,
-                   enc_states: Optional[torch.Tensor] = None
+                   enc_states: Optional[torch.Tensor] = None,
+                   specs: Optional[List] = None
                    ) -> Tuple[torch.Tensor, Dict]:
     """The blocks of ``layers`` (whole super-blocks of ``layout``,
     ``cfg.layout`` unless given, in params["layers"] order) over x ->
     (x, stats); ``causal`` False for the encoder, ``enc_states`` the
-    encoder's output for the decoder's cross-attention.  ``init_stats``
+    encoder's output for the decoder's cross-attention; ``specs`` the
+    layout entries' (``entry_specs``, the decoder's unless given).
+    ``init_stats``
     is the (aux, z, load, comm) carry of the stack before
     (``stats_carry``) when the stack is cut into pipeline stages; None starts it as the whole stack does
     (aux and z zero, load and comm empty until the first MoE layer).
@@ -324,11 +453,13 @@ def _stack_forward(layers: List[Dict], x: torch.Tensor, cfg: ModelConfig, *,
     else:
         aux, z, load, comm = init_stats
     layout = cfg.layout if layout is None else layout
-    kinds = list(layout) * (len(layers) // max(1, len(layout)))
-    for (mixer, ffn), p in zip(kinds, layers):
+    specs = entry_specs(cfg, mesh) if specs is None else specs
+    reps = len(layers) // max(1, len(layout))
+    for (mixer, ffn), spec, p in zip(list(layout) * reps, specs * reps,
+                                     layers):
         fn = partial(_block, p, cfg=cfg, mixer=mixer, ffn=ffn,
                      use_lsh=use_lsh, mesh=mesh, moe_mode=moe_mode,
-                     causal=causal, enc_states=enc_states)
+                     causal=causal, enc_states=enc_states, specs=spec)
         if remat:
             x, a, zz, ld, cm = checkpoint(fn, x, use_reentrant=False)
         else:
@@ -394,11 +525,14 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
             raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
                              "forward needs frames [B, S_enc, d_model]")
         enc_states = _encode(params, cfg, frames, mesh)
+    for mixer, _ in cfg.layout:
+        if mixer in (MLSTM, SLSTM):
+            _check_xlstm_mesh(mixer, mesh)
     x = _embed_inputs(params, cfg, tokens, patch_embeds, mesh)
     x, stats = _stack_forward(params["layers"], x, cfg, use_lsh=use_lsh,
                               mesh=mesh, moe_mode=moe_mode,
                               enc_states=enc_states)
-    return head_logits(params, cfg, x), _final_stats(stats, x.device)
+    return head_logits(params, cfg, x, mesh), _final_stats(stats, x.device)
 
 
 def patch_count(cfg: ModelConfig, batch: Dict) -> Optional[int]:
@@ -427,6 +561,10 @@ def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,
     the same value as JAX's mask-and-reduce.  ``npatch`` (``patch_count``)
     drops the logits' first npatch positions, the patch prefix, so that
     the CE and the z-loss's mean run over the token positions only.
+    Vocab-split logits (``head_logits`` over a mesh whose ``model`` axis
+    splits the vocabulary, ``vocab_split``) reduce over the split
+    (``_split_vocab_terms``) to the terms of the rank's own positions;
+    whole-vocabulary logits are the rank's positions already.
 
     Over n ranks the objective returned is this rank's share of the
     global loss: its CE terms over the global label count, its z-loss
@@ -435,11 +573,14 @@ def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,
     metrics are global (summed over the ranks, no gradient)."""
     world = sharding.all_group(mesh)
     n = collectives.group_size(world)
-    if npatch:
-        logits = logits[:, npatch:]
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1,
-                      labels.clamp(min=0).long()[..., None])[..., 0]
+    if vocab_split(cfg, mesh):
+        lse, ll = _split_vocab_terms(logits, labels, mesh, npatch or 0)
+    else:
+        if npatch:
+            logits = logits[:, npatch:]
+        lse = torch.logsumexp(logits, dim=-1)
+        ll = torch.gather(logits, -1,
+                          labels.clamp(min=0).long()[..., None])[..., 0]
     mask = (labels >= 0).to(torch.float32)
     count = collectives.all_reduce_sum(mask.sum(), world)
     ce = torch.sum((lse - ll) * mask) / torch.clamp(count, min=1.0)
@@ -478,6 +619,38 @@ def loss_from_logits(cfg: ModelConfig, logits: torch.Tensor, stats: Dict,
     return total, metrics
 
 
+def _split_vocab_terms(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                       npatch: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The log-sum-exp and the label's logit of the rank's own positions
+    from vocab-split logits [B, g L, V / g] (``head_logits``: the model
+    group's whole sequence, the rank's columns): the max over the
+    vocabulary all-reduced over ``model``, the sums of exponentials and
+    the label's logit (JAX's mask-and-reduce: the rank that holds the
+    label gives it, the others zero) reduce-scattered to the rank's slice
+    of L positions (backward: the all-gather of their cotangents, so
+    each rank's columns get every position's gradient), then the slice's
+    first ``npatch`` (patch) positions dropped: [B, L - npatch] each, so
+    that each token's terms are taken once across the ranks."""
+    group = mesh.tp_group()
+    n, B = logits.shape[-1], logits.shape[0]
+    if npatch:
+        labels = torch.cat([torch.full((B, npatch), -1, dtype=labels.dtype,
+                                       device=labels.device), labels], 1)
+    ids = collectives.raw_all_gather(labels.contiguous(), group, 1) \
+        - sharding.axis_index(mesh, "model") * n
+    mx = collectives.raw_all_reduce_max(logits.detach().amax(-1), group)
+    se = torch.sum(torch.exp(logits - mx[..., None]), dim=-1)
+    mine = (ids >= 0) & (ids < n)
+    ll = torch.where(mine, torch.gather(
+        logits, -1, ids.clamp(0, n - 1).long()[..., None])[..., 0], 0.0)
+    se = collectives.ReduceScatter.apply(se, group, 1)
+    ll = collectives.ReduceScatter.apply(ll, group, 1)
+    L = se.shape[1]
+    m = sharding.axis_index(mesh, "model")
+    lse = mx[:, m * L:(m + 1) * L] + torch.log(se)
+    return lse[:, npatch:], ll[:, npatch:]
+
+
 def loss_fn(params: Dict, cfg: ModelConfig, batch: Dict, *,
             use_lsh: Optional[bool] = None,
             mesh=None) -> Tuple[torch.Tensor, Dict]:
@@ -498,9 +671,11 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
     batch["tokens"] [B, S] (and its "patch_embeds" or "frames") through
     the expert-parallel MoE path (LSH as configured), without gradients
     -> (the last position's logits [B, 1, V] f32, {"position": S}).
-    With a mesh the batch is the global one and every rank returns the global logits (gathered over ``model``,
-    which holds the sequence, and ``data``).  The serve loop keeps its
-    teacher-forced prefill, as the JAX launcher does."""
+    With a mesh the batch is the global one, the params the rank's
+    shards, and every rank returns the global logits (gathered over
+    ``model``, which holds the vocabulary columns, or the sequence where
+    the vocabulary does not split, and ``data``).  The serve loop keeps
+    its teacher-forced prefill, as the JAX launcher does."""
     tokens = batch["tokens"]
     local = sharding.shard_batch({k: v for k, v in batch.items()
                                   if k != "labels"}, mesh)
@@ -508,8 +683,10 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
                         moe_mode="prefill", **_inputs(cfg, local))
     last = logits[:, -1:, :]
     if sharding.axis_size(mesh, "model") > 1:
+        split = vocab_split(cfg, mesh)
         last = collectives.raw_all_gather(
-            last, sharding.model_group(mesh), 1)[:, -1:, :]
+            last.contiguous(), sharding.model_group(mesh), 2 if split else 1)
+        last = last if split else last[:, -1:, :]
     if sharding.axis_size(mesh, "data") > 1:
         last = collectives.raw_all_gather(last.contiguous(),
                                           sharding.group(mesh, "data"), 0)
@@ -561,18 +738,33 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
     """One decode step.  tokens: [B, 1] -> (logits [B, 1, V] f32, state).
     Every layer's state in ``state`` (KV cache, Mamba or xLSTM state) is
     updated in place; the returned state holds the same tensors and the
-    next position.  With a mesh, tokens and
-    caches are this rank's batch shard, the same on every rank of a model
-    slice (decode batches are too small to shard further), and the MoE
-    exchange runs over the model axis (``moe_dense_dispatch``)."""
+    next position.  With a mesh, tokens and caches are this rank's batch
+    shard, the same on every rank of a model slice (decode batches are
+    too small to shard further); each layer's weights other than the
+    experts, and the embedding, head and final norm, are gathered whole
+    (over ``data`` then ``model``) just before they are read and freed
+    after, so a step computes what one card computes, and the MoE
+    exchange runs over the model axis on the rank's experts
+    (``moe_dense_dispatch``)."""
     pos = int(state["position"])
-    x = embed(params["embed"], tokens)
+    specs = None if mesh is None else params_lib.model_specs(cfg, mesh)
+
+    def whole(*path):
+        """params at ``path``, gathered whole over the mesh."""
+        tree, spec = params, specs
+        for k in path:
+            tree, spec = tree[k], None if spec is None else spec[k]
+        return tree if mesh is None else gather_params(tree, mesh, spec)
+
+    x = embed(whole("embed"), tokens)
     if cfg.pos_emb == "learned":
         x = x + sinusoid_rows(pos % DECODE_TABLE, 1, cfg.d_model,
                               x.device).to(x.dtype)[None]
     dh = cfg.resolved_head_dim
-    for (mixer, ffn), p, cache in zip(layer_kinds(cfg), params["layers"],
-                                      state["layers"]):
+    for i, ((mixer, ffn), cache) in enumerate(zip(layer_kinds(cfg),
+                                                  state["layers"])):
+        p = {k: params["layers"][i][k] if k == "ffn" and ffn == MOE
+             else whole("layers", i, k) for k in params["layers"][i]}
         h = rmsnorm(p["norm1"], x, cfg.norm_eps)
         if mixer == ATTN:
             y, _ = attn_lib.decode_attention(
@@ -611,5 +803,8 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
                                                     cfg.norm_eps),
                                   cfg.moe, mlp_act=cfg.mlp_act,
                                   mode="decode", mesh=mesh)
-    return head_logits(params, cfg, x), {"layers": state["layers"],
-                                         "position": pos + 1}
+        del p
+    top = {k: whole(k) for k in ("final_norm", "embed" if cfg.tie_embeddings
+                                 else "head")}
+    return head_logits(top, cfg, x), {"layers": state["layers"],
+                                      "position": pos + 1}

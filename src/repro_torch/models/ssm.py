@@ -19,12 +19,14 @@ buffer, a different rounding from the training path's conv, as in JAX.
 On a mesh ``mamba_apply`` splits the heads over the ``model`` axis
 (runtime/tp.py), as the JAX function does: the residual stream arrives
 sharded by sequence, one all-gather gives every rank the whole sequence,
-and rank m of g computes heads [m nh / g, (m + 1) nh / g) (their columns
-of ``w_z``, ``w_x``, ``conv_w`` and the norm, their entries of ``w_dt``,
-``dt_bias``, ``a_log`` and ``d_skip``, their rows of ``w_out``), which
-the conv and the scan need whole along the sequence.  ``w_b`` and ``w_c``
-are shared by every head: each rank projects its own tokens and
-all-gathers the result, so that their gradient is counted once.  The
+and rank m of g computes heads [m nh / g, (m + 1) nh / g), which the conv
+and the scan need whole along the sequence.  Its params are its shards
+(runtime/params.py): those heads' columns of ``w_z``, ``w_x`` and
+``conv_w``, entries of ``w_dt``, ``dt_bias``, ``a_log`` and ``d_skip``
+and rows of ``w_out``, each matrix also cut over ``data`` (FSDP) and
+gathered inside the projection.  ``w_b`` and ``w_c`` are shared by every
+head: each rank projects its own tokens and all-gathers the result, so
+that their gradient is counted once.  The
 norm over d_inner sums each rank's mean of squares across the ranks
 (``tp.tp_rmsnorm``); ``w_out``'s partial products are reduce-scattered
 back to the sequence slices.
@@ -141,10 +143,11 @@ def _ssd_chunk_scan(xh: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 
 
 def mamba_apply(params: Dict, x: torch.Tensor, cfg, norm_eps: float = 1e-5,
-                mesh=None) -> torch.Tensor:
+                mesh=None, specs=None) -> torch.Tensor:
     """Full-sequence forward (train / prefill).  x: [B, S, H] -> [B, S, H];
-    with a mesh, this rank's sequence slice, and the heads split over the
-    ``model`` axis (module docstring)."""
+    with a mesh, this rank's sequence slice, the heads split over the
+    ``model`` axis and the params the rank's shards of ``specs`` (module
+    docstring)."""
     B, S, H = x.shape
     d_inner = cfg.expand * H
     nh = d_inner // cfg.head_dim
@@ -154,30 +157,29 @@ def mamba_apply(params: Dict, x: torch.Tensor, cfg, norm_eps: float = 1e-5,
         Bm = x @ params["w_b"]
         Cm = x @ params["w_c"]
         dt = x @ params["w_dt"]
-        heads = params
     else:
-        # w_dt's nh columns must split over the axis, so the slices of the
-        # d_inner columns fall on whole heads
+        # w_dt's nh columns must split over the axis, so the d_inner
+        # columns of the rank's shards fall on whole heads; the head
+        # vectors and conv_w are the rank's shards too (runtime/params.py)
         g = sharding.axis_size(mesh, "model")
+        names = ("w_z", "w_x", "w_b", "w_c", "w_dt")
         z, xr, Bm, Cm, dt = tp.tp_in_project(
-            x, [params[k] for k in ("w_z", "w_x", "w_b", "w_c", "w_dt")],
-            mesh, replicate=(False, False, True, True, False))
-        heads = {k: tp.rank_slice(params[k], mesh)
-                 for k in ("dt_bias", "a_log", "d_skip", "conv_w")}
+            x, [params[k] for k in names], mesh, [specs[k] for k in names],
+            replicate=(False, False, True, True, False))
         nh, d_inner, S = nh // g, d_inner // g, S * g
     Bm, Cm = Bm.to(torch.float32), Cm.to(torch.float32)
-    dt = softplus(dt.to(torch.float32) + heads["dt_bias"])
-    xs = _causal_conv(xr, heads["conv_w"])
+    dt = softplus(dt.to(torch.float32) + params["dt_bias"])
+    xs = _causal_conv(xr, params["conv_w"])
     xs = F.silu(xs.to(torch.float32)).to(x.dtype)
     xh = xs.reshape(B, S, nh, cfg.head_dim)
-    y, _ = _ssd_chunk_scan(xh, dt, heads["a_log"], Bm, Cm, cfg.chunk_size)
-    y = y + heads["d_skip"].to(x.dtype)[None, None, :, None] * xh
+    y, _ = _ssd_chunk_scan(xh, dt, params["a_log"], Bm, Cm, cfg.chunk_size)
+    y = y + params["d_skip"].to(x.dtype)[None, None, :, None] * xh
     y = y.reshape(B, S, d_inner)
     y = y * F.silu(z.to(torch.float32)).to(x.dtype)
     if mesh is None:
         return rmsnorm(params["norm"], y, norm_eps) @ params["w_out"]
     y = tp.tp_rmsnorm(params["norm"], y, mesh, norm_eps)
-    return tp.tp_project(y, params["w_out"], mesh)
+    return tp.tp_project(y, params["w_out"], mesh, specs["w_out"])
 
 
 # ------------------------------------------------------------------ decode --

@@ -33,8 +33,9 @@ param dtype first, as autograd sums a leaf used twice, and folded when
 stage 0's backward retires, with the loss.
 
 Placement: as in the JAX package, the pipe axis partitions the schedule,
-not the placement.  Every pipe index holds every stage's params (they
-are replicated over ``pipe``) and the same rows, and runs the whole
+not the placement.  Every pipe index holds every stage's params (their
+shards over (data, model), runtime/params.py, the same on every pipe
+index) and the same rows, and runs the whole
 grid, so the stage hand-off ``stage_transfer`` is the identity, inside
 the ``stage_transfer`` phase range; the planner records and prices it
 (``planner.plan_stage_transfers``).  The reductions of a step run over
@@ -48,7 +49,6 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.comm import collectives
 from repro_torch.comm import planner as comm_planner
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
 from repro_torch.models import model as model_lib
@@ -56,6 +56,7 @@ from repro_torch.obs import tracing as obs_tracing
 from repro_torch.obs.tracing import phase_scope
 from repro_torch.optim.adam import leaves
 from repro_torch.runtime import sharding
+from repro_torch.runtime.step import mesh_specs, reduce_grads
 
 F, B = "F", "B"
 
@@ -203,8 +204,9 @@ def make_pipeline_grad_fn(cfg: ModelConfig, mesh=None, *,
     counterpart of ``runtime/step.make_accum_grad_fn`` with microbatches
     of rows / ``cfg.pipeline_microbatches`` (the stage count when 0),
     bit for bit: the same loss, the last microbatch's metrics, one f32
-    gradient per floating leaf (None for an integer leaf), the
-    replicated params' summed over the rank's (data, model) slice."""
+    gradient per floating leaf (None for an integer leaf), each summed
+    over the axes of the rank's (data, model) slice its leaf does not
+    split over (``step.reduce_grads``)."""
     model_lib.check_supported(cfg)
     if cfg.encoder_decoder:
         raise NotImplementedError(
@@ -216,7 +218,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, mesh=None, *,
     n_mb = int(cfg.pipeline_microbatches) or stages
     sched = build_1f1b(stages, n_mb)
     last = stages - 1
-    world = sharding.all_group(mesh)
+    specs = mesh_specs(cfg, mesh)
 
     def _run(params: Dict, batch: Dict):
         rows = batch["tokens"].shape[0]
@@ -269,7 +271,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, mesh=None, *,
                     sp["layers"], x, cfg, use_lsh=use_lsh, mesh=mesh,
                     moe_mode="train", init_stats=init)
                 if s == last:
-                    logits = model_lib.head_logits(sp, cfg, x)
+                    logits = model_lib.head_logits(sp, cfg, x, mesh)
                     loss_t[mb], m = model_lib.loss_from_logits(
                         cfg, logits, model_lib._final_stats(stats, x.device),
                         b["labels"], mesh, model_lib.patch_count(cfg, b))
@@ -331,10 +333,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, mesh=None, *,
 
         grads = [None if not p.is_floating_point() else acc[i]
                  for i, p in enumerate(ps)]
-        if collectives.group_size(world) > 1:
-            expert = sharding.expert_leaf_mask(params)
-            collectives.all_reduce_sum_(
-                [g for g, e in zip(grads, expert) if not e], world)
+        reduce_grads(grads, params, specs, mesh)
         return acc_l, metrics, grads
 
     def grad_fn(params: Dict, batch: Dict):
@@ -359,7 +358,7 @@ def make_pipeline_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
     """The 1F1B train_step(state, batch) -> (state, metrics); the
     optimizer tail is ``runtime/step.apply_gradients``."""
     from repro_torch.runtime.step import (apply_chaos_scale, apply_gradients,
-                                          split_chaos_scale)
+                                          moment_specs, split_chaos_scale)
     grad_fn = make_pipeline_grad_fn(cfg, mesh, use_lsh=use_lsh,
                                     stages=stages)
 
@@ -368,6 +367,7 @@ def make_pipeline_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         loss, metrics, grads = grad_fn(state.params, batch)
         loss = apply_chaos_scale(loss, chaos_scale)
         return apply_gradients(state, opt_cfg, loss, metrics, grads,
-                               mesh=mesh)
+                               mesh=mesh, specs=mesh_specs(cfg, mesh),
+                               mspecs=moment_specs(cfg, opt_cfg, mesh))
 
     return train_step

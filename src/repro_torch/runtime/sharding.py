@@ -1,22 +1,24 @@
 """Mesh axes and the port's layout of tensors over them (counterpart of
-part of ``repro/runtime/sharding.py``).
+``repro/runtime/sharding.py``).
 
-The JAX package maps logical axes to mesh axes by rules and lets GSPMD
-place every tensor.  The port places them itself, in one layout:
+The JAX package maps logical axes to mesh axes by rules (``RULES``,
+``resolve``) and lets GSPMD place every tensor.  The port places them
+itself, by the same rules:
 
   tokens         batch over the dp axes, sequence over ``model``: rank
                  (d, m) holds [B / n_dp, S / model] (the JAX residual
                  stream's ("batch", "seq") sharding); with a patch prefix
                  the combined P + S sequence splits (``shard_batch``);
-  expert weights w_gate / w_up / w_down [E_pad, X, Y] split E_pad over
-                 ``model`` and X over ``data`` (the JAX package's
-                 ``P("model", "data", None)``): [E_pad / model, X / data, Y];
-  everything else replicated on every rank, over ``pipe`` too.
+  params         every leaf by its spec (runtime/params.py): FSDP over
+                 ``data`` and heads / FFN hidden / vocabulary / experts
+                 over ``model`` where the dimension divides, whole where
+                 the rules say so or it does not divide; the same on
+                 every pipe index.
 
 A pipe axis (the 1F1B schedule, runtime/pipeline_schedule.py) partitions
 the schedule, not the placement: every pipe index holds the same params
 and the same rows (the batch shards over the dp axes only), so its ranks
-compute the same thing.  A step's reductions (the gradient sum, the loss
+compute the same thing.  A step's reductions (the gradient sums, the loss
 and metrics, the MoE stats, the clip norm) therefore run over the
 (data, model) slice of the rank's pipe index, ``all_group``; without a
 pipe axis that is the whole mesh.
@@ -26,9 +28,35 @@ pipe axis that is the whole mesh.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
-EXPERT_KEYS = ("w_gate", "w_up", "w_down")
+RULES = {
+    "batch": ("pod", "data"),
+    "seq": ("model",),
+    "heads": ("model",),
+    "mlp": ("model",),
+    "vocab": ("model",),
+    "experts": ("model",),
+    "fsdp": ("data",),
+    "kv_seq": ("data",),
+    None: (),
+}
+
+
+def resolve(mesh, *logical) -> Tuple[Tuple[str, ...], ...]:
+    """Logical axis names (a name, a tuple of names or None a dimension)
+    -> one tuple of the mesh's axes a dimension, by ``RULES``."""
+    names = () if mesh is None else tuple(mesh.axis_names)
+    out = []
+    for name in logical:
+        phys: List[str] = []
+        for n in ((name,) if name is None or isinstance(name, str)
+                  else name):
+            for ax in RULES.get(n, ()):
+                if ax in names and ax not in phys:
+                    phys.append(ax)
+        out.append(tuple(phys))
+    return tuple(out)
 
 
 def dp_axes(mesh) -> Tuple[str, ...]:
@@ -79,43 +107,6 @@ def world_group(mesh):
 
 def pipe_group(mesh):
     return group(mesh, "pipe")
-
-
-# ---------------------------------------------------------- the layout --
-
-def _walk(tree: Any, path: Tuple = ()):
-    """(path, leaf) of a dict / list tree, in insertion order (the order
-    of optim.adam.leaves)."""
-    if isinstance(tree, dict):
-        for k, v in tree.items():
-            yield from _walk(v, path + (k,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _walk(v, path + (i,))
-    else:
-        yield path, tree
-
-
-def expert_leaf_mask(params: Any) -> List[bool]:
-    """One bool per leaf of ``params`` (optim.adam.leaves order): True for
-    the sharded expert weights, the w_gate / w_up / w_down of a dict that
-    also holds a ``router_w`` (a MoE layer's params)."""
-    moe = {path[:-1] for path, _ in _walk(params)
-           if path and path[-1] == "router_w"}
-    return [bool(path) and path[-1] in EXPERT_KEYS and path[:-1] in moe
-            for path, _ in _walk(params)]
-
-
-def expert_slices(mesh, shape) -> Tuple[slice, slice]:
-    """This rank's (dim 0, dim 1) slices of a full expert weight."""
-    m, mr = axis_index(mesh, "model"), axis_size(mesh, "model")
-    d, dr = axis_index(mesh, "data"), axis_size(mesh, "data")
-    e, x = int(shape[0]), int(shape[1])
-    if e % mr or x % dr:
-        raise ValueError(f"expert weight {tuple(shape)} does not split over "
-                         f"model {mr} x data {dr}")
-    el, xl = e // mr, x // dr
-    return slice(m * el, (m + 1) * el), slice(d * xl, (d + 1) * xl)
 
 
 def token_slices(mesh, batch: int, seq: int) -> Tuple[slice, slice]:

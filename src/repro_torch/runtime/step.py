@@ -9,16 +9,18 @@ updated in place (optim/adam.py); the returned state holds the same
 tensors.
 
 Over a (data, model) mesh (launch/mesh.py) every rank is handed the same
-global batch and keeps its [B / data, S / model] part.  Its loss is its
-share of the global loss, so after autograd the gradients of the
-replicated params are summed over every rank (one all-reduce a bucket);
-on a (data, pipe, model) mesh, over the (data, model) slice of the
-rank's pipe index (``sharding.all_group``), since the pipe indices
-compute the same thing.
-The expert weights' gradients are complete already: the all-to-all's
-backward brought them the other model ranks' tokens, and the FSDP
-gather's reduce-scatter summed them over ``data``; they are not summed
-again.  The clip norm is the logical gradient's (``adam.global_norm``).
+global batch and keeps its [B / data, S / model] part, and holds its
+shard of every param (runtime/params.py).  Its loss is its share of the
+global loss.  After autograd a gradient is complete over the axes its
+leaf splits over: the FSDP gathers' reduce-scatters summed it over
+``data``, and a leaf split over ``model`` read the whole sequence (or,
+an expert, got the other model ranks' tokens through the all-to-all's
+backward).  Over the axes it does not split over it holds the terms of
+the rank's own tokens, so it is summed over those (``reduce_grads``: one
+all-reduce a bucket for each set of axes); on a (data, pipe, model)
+mesh the axes are those of the rank's pipe index, whose pipe indices
+compute the same thing.  The clip norm is the logical gradient's
+(``adam.global_norm``).
 ``cfg.dp_only`` is the pure data-parallel profile: the batch over every
 rank, the whole model on each, the gradients averaged over all ranks.
 
@@ -52,6 +54,7 @@ from repro_torch.models import model as model_lib
 from repro_torch.optim.adam import (OptState, adamw_init, adamw_update,
                                     global_norm, leaves)
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.runtime import params as params_lib
 from repro_torch.runtime import sharding
 
 
@@ -89,31 +92,86 @@ def apply_chaos_scale(loss: torch.Tensor, scale) -> torch.Tensor:
 def init_train_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                      seed: int = 0, device: DeviceLike = None,
                      mesh=None) -> TrainState:
-    """With a mesh: this rank's shard of the params (``init_params``);
-    under ``cfg.dp_only`` every rank holds all of them."""
+    """With a mesh: this rank's shard of every param (``init_params``,
+    runtime/params.py) and of its moments; under ``cfg.dp_only`` every
+    rank holds all of them."""
     params = model_lib.init_params(cfg, seed=seed, device=device,
                                    mesh=None if cfg.dp_only else mesh)
-    return TrainState(params, adamw_init(params, opt_cfg))
+    return TrainState(params, adamw_init(params, opt_cfg, _int8_splits(
+        params, opt_cfg, mesh, mesh_specs(cfg, mesh),
+        moment_specs(cfg, opt_cfg, mesh))))
+
+
+def _int8_splits(params, opt_cfg: OptimizerConfig, mesh, specs, mspecs):
+    """``params.int8_splits`` where the moments are int8 and the params
+    split over a mesh, else None."""
+    if opt_cfg.moment_dtype != "int8" or specs is None \
+            or sharding.num_ranks(mesh) == 1:
+        return None
+    if mspecs is None:
+        raise ValueError("int8 moments over a mesh need their specs "
+                         "(moment_specs)")
+    return params_lib.int8_splits(params, specs, mspecs, mesh)
 
 
 def apply_gradients(state: TrainState, opt_cfg: OptimizerConfig,
                     loss: torch.Tensor, metrics: Dict, grads, *,
-                    mesh=None) -> Tuple[TrainState, Dict]:
+                    mesh=None, specs=None, mspecs=None
+                    ) -> Tuple[TrainState, Dict]:
     """Shared optimizer tail of the whole-batch, accumulated and 1F1B
     steps: lr schedule, non-finite skip, AdamW; the metrics gain the clip
     norm ``grad_norm``.  With a mesh, ``loss`` is the global loss and the
-    norm counts the expert shards of every rank of the (data, model)
-    slice."""
+    norm counts every rank's shard of a split leaf once (``specs``: the
+    params' specs, ``mesh_specs`` of the config; None when nothing is
+    split); int8 moments need theirs too (``mspecs``,
+    ``moment_specs``)."""
+    if specs is None and sharding.num_ranks(mesh) > 1:
+        raise ValueError("apply_gradients over a mesh needs the params' "
+                         "specs (mesh_specs) for the clip norm")
     lr = warmup_cosine(state.opt.step, opt_cfg.lr, opt_cfg.warmup_steps,
                        opt_cfg.total_steps)
     skip = ~torch.isfinite(loss)
-    gn = global_norm(grads, sharding.expert_leaf_mask(state.params),
-                     sharding.all_group(mesh))
+    split = None if specs is None else [
+        params_lib.split_axes(s, mesh)
+        for s in params_lib.spec_leaves(state.params, specs)]
+    gn = global_norm(grads, split, mesh)
     new_opt = adamw_update(state.params, grads, state.opt, opt_cfg, lr,
-                           skip=skip, grad_norm=gn)
+                           skip=skip, grad_norm=gn, splits=_int8_splits(
+                               state.params, opt_cfg, mesh, specs, mspecs))
     metrics = dict(metrics, lr=lr, grad_norm=gn,
                    grad_skips=new_opt.grad_skips)
     return TrainState(state.params, new_opt), metrics
+
+
+def mesh_specs(cfg: ModelConfig, mesh):
+    """The params' specs over ``mesh`` (None without a mesh or under
+    ``dp_only``, whose ranks hold every param whole)."""
+    if mesh is None or cfg.dp_only:
+        return None
+    return params_lib.model_specs(cfg, mesh)
+
+
+def moment_specs(cfg: ModelConfig, opt_cfg: OptimizerConfig, mesh):
+    """The moments' specs over ``mesh`` (``params.model_moment_specs``;
+    None where ``mesh_specs`` is None)."""
+    if mesh is None or cfg.dp_only:
+        return None
+    return params_lib.model_moment_specs(cfg, mesh, opt_cfg.moment_dtype)
+
+
+def reduce_grads(grads, params, specs, mesh) -> None:
+    """Sum each gradient (one a leaf of ``params``), IN PLACE, over the
+    (data, model) axes its leaf does not split over (``params.sum_axes``;
+    module docstring), one bucketed all-reduce for each set of axes."""
+    if specs is None:
+        return
+    by_axes: Dict[Tuple[str, ...], list] = {}
+    for g, s in zip(grads, params_lib.spec_leaves(params, specs)):
+        axes = params_lib.sum_axes(s, mesh)
+        if g is not None and axes:
+            by_axes.setdefault(axes, []).append(g)
+    for axes, gs in by_axes.items():
+        collectives.all_reduce_sum_(gs, mesh.group(axes))
 
 
 def _grads(params, loss: torch.Tensor):
@@ -151,7 +209,7 @@ def make_accum_grad_fn(cfg: ModelConfig, *, use_lsh: Optional[bool] = None,
     an integer leaf), the replicated params' summed over the ranks.
     ``microbatch`` k > 0 accumulates over the batch in rows of k (the
     gradients then come in f32)."""
-    world = sharding.all_group(mesh)
+    specs = mesh_specs(cfg, mesh)
 
     def one(params, rows: Dict):
         local = sharding.shard_batch(rows, mesh)
@@ -183,10 +241,7 @@ def make_accum_grad_fn(cfg: ModelConfig, *, use_lsh: Optional[bool] = None,
                     if x is not None:
                         a.add_(x.to(torch.float32) / n)
                 del g         # free them before the next backward's
-        if collectives.group_size(world) > 1:
-            expert = sharding.expert_leaf_mask(params)
-            collectives.all_reduce_sum_(
-                [g for g, e in zip(grads, expert) if not e], world)
+        reduce_grads(grads, params, specs, mesh)
         return loss, metrics, grads
 
     return accum_grads
@@ -214,13 +269,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
         return _make_dp_only_train_step(cfg, opt_cfg, mesh, use_lsh=use_lsh)
     accum_grads = make_accum_grad_fn(cfg, use_lsh=use_lsh,
                                      microbatch=microbatch, mesh=mesh)
+    specs = mesh_specs(cfg, mesh)
+    mspecs = moment_specs(cfg, opt_cfg, mesh)
 
     def train_step(state: TrainState, batch: Dict) -> Tuple[TrainState, Dict]:
         batch, chaos_scale = split_chaos_scale(batch)
         loss, metrics, grads = accum_grads(state.params, batch)
         loss = apply_chaos_scale(loss, chaos_scale)
         return apply_gradients(state, opt_cfg, loss, metrics, grads,
-                               mesh=mesh)
+                               mesh=mesh, specs=specs, mspecs=mspecs)
 
     return train_step
 

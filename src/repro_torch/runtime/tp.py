@@ -1,33 +1,40 @@
-"""Tensor parallelism over the ``model`` axis (counterpart of
-``repro/runtime/tp.py``): the sequence-parallel residual stream meets a
-mixer whose heads are split over the axis.
+"""Tensor parallelism over ``model`` and FSDP over ``data``
+(counterpart of ``repro/runtime/tp.py``): the sequence-parallel residual
+stream meets a mixer or FFN whose heads / hidden columns are split over
+``model``, with weights that are the rank's shards (runtime/params.py).
 
   sp_gather      the rank's sequence slice [B, S / g, H] -> the whole
                  sequence [B, S, H] (all-gather; backward: the
                  reduce-scatter of the cotangents);
-  tp_in_project  SP -> TP: one all-gather of the activations, then this
-                 rank's column slice of each weight, [B, S, D_i / g];
-                 a projection marked ``replicate`` is instead computed
-                 whole on the rank's own sequence slice and all-gathered
-                 (the K / V of models/attention.py);
-  tp_project     TP -> SP: this rank's row slice of the weight, the
-                 partial product in the model dtype, and a
+  tp_in_project  SP -> TP: one all-gather of the activations, each weight
+                 [H / data, D_i / g] all-gathered over ``data`` (FSDP),
+                 then [B, S, D_i / g]; a projection marked ``replicate``
+                 also gathers its columns over ``model`` and is computed
+                 whole on the rank's own sequence slice, then
+                 all-gathered (the K / V of models/attention.py);
+  tp_project     TP -> SP: the weight [D / g, H / data] all-gathered over
+                 ``data``, the partial product in the model dtype, and a
                  reduce-scatter of it back to the rank's sequence slice.
 
 The collectives are comm/collectives.py's ``AllGather`` / ``ReduceScatter``
 (each the other's backward, as the JAX package's ``all_gather_bf16`` /
 ``reduce_scatter_bf16`` VJPs) and ``AllReduceSum`` (``tp_rmsnorm``'s
-cross-rank sum of squares, which GSPMD inserts in JAX).  They are called
-on every mesh, over a one-rank group where the model axis has one rank
-(``Mesh.tp_group``), so one card runs the code that four do.
+cross-rank sum of squares, which GSPMD inserts in JAX).  The model-axis
+ones are called on every mesh, over a one-rank group where the model
+axis has one rank (``Mesh.tp_group``), so one card runs the code that
+four do; the FSDP gather is made only where the weight is split over
+``data``.  Each weight comes with its spec (runtime/params.py), which
+says where it splits: the helpers gather by it.
 
-The weights stay replicated, as runtime/sharding.py places them: this
-module shards the compute, not the placement.  A replicated leaf read
-through a slice gets a gradient of zeros outside it, and a projection
-marked ``replicate`` reads only the rank's own tokens, so the step's sum
-of the replicated gradients over the ranks (runtime/step.py) counts every
-term once.  JAX's ``REPRO_DISABLE_TP_OPT`` switch and its GSPMD fallback
-have no counterpart: a width that does not split over the axis raises.
+Gradients: the FSDP gather's backward reduce-scatters a weight's
+gradient over ``data``, and a weight whose columns (rows) split over
+``model`` reads the whole sequence, so its gradient leaves complete; a
+weight the rules keep whole over ``model`` (a ``replicate`` projection
+of uncut columns, the norm scale ``tp_rmsnorm`` reads in slices) gets
+the terms of the rank's own tokens, or zeros outside its slice, and the
+step sums it over the axes it does not split over (runtime/step.py).
+JAX's ``REPRO_DISABLE_TP_OPT`` switch and its GSPMD fallback have no
+counterpart: a width that does not split over the axis raises.
 """
 from __future__ import annotations
 
@@ -59,40 +66,66 @@ def sp_gather(x: torch.Tensor, mesh) -> torch.Tensor:
     return collectives.AllGather.apply(x, mesh.tp_group(), 1)
 
 
+def fsdp_gather(w: torch.Tensor, spec, mesh, dim: int) -> torch.Tensor:
+    """The weight whole along ``dim``: all-gathered over ``data`` where
+    its spec splits ``dim`` over it (backward: the reduce-scatter of its
+    gradient), else ``w`` itself."""
+    if "data" in spec[dim] and sharding.axis_size(mesh, "data") > 1:
+        return collectives.AllGather.apply(w, sharding.group(mesh, "data"),
+                                           dim)
+    return w
+
+
 def tp_in_project(x: torch.Tensor, ws: Sequence[torch.Tensor], mesh,
-                  replicate: Sequence[bool] = ()) -> Tuple[torch.Tensor, ...]:
-    """x: [B, S / g, H], this rank's sequence slice; each w: [H, D_i],
-    replicated.  Returns, for each w, [B, S, D_i / g]: the whole sequence
-    times this rank's column slice of w.  ``replicate[i]`` True gives
-    [B, S, D_i] instead: x @ w on the rank's own slice, all-gathered, for
-    a small projection every rank needs whole (its gradient then comes
-    from the rank's own tokens only)."""
+                  specs: Sequence, replicate: Sequence[bool] = ()
+                  ) -> Tuple[torch.Tensor, ...]:
+    """x: [B, S / g, H], this rank's sequence slice; each w the rank's
+    shard of an [H, D_i] weight of spec ``specs[i]``: [H / data or H,
+    D_i / g] (or [., D_i] for a replicated projection whose columns the
+    rules keep whole).  Returns, for each w, [B, S, D_i / g]: the whole
+    sequence times the rank's columns.  ``replicate[i]`` True gives
+    [B, S, D_i] instead: x @ (the whole w) on the rank's own slice,
+    all-gathered, for a small projection every rank needs whole (its
+    gradient then comes from the rank's own tokens only, summed over
+    ``model`` by the columns' gather or by the step)."""
     g = sharding.axis_size(mesh, "model")
     rep = tuple(replicate) + (False,) * (len(ws) - len(replicate))
-    for w, r in zip(ws, rep):
-        if not r:
-            _split(w.shape[1], g, f"a [{w.shape[0]}, {w.shape[1]}] "
-                   f"projection of x {tuple(x.shape)}")
+    for w, spec, r in zip(ws, specs, rep):
+        if not r and g > 1 and "model" not in spec[1]:
+            raise ValueError(f"a [{w.shape[0]}, {w.shape[1]}] projection "
+                             f"of spec {spec} does not split its columns "
+                             f"over a model axis of {g}")
     xg = sp_gather(x, mesh)
+    outs = []
     # a replicated projection reads the rank's own slice of the gathered
     # x (the values of x): every projection then reads x through the one
     # gather, in the order of ws, as the mesh-free products read x, so
     # that x's gradient sums its terms in the mesh-free order
-    return tuple(sp_gather(rank_slice(xg, mesh, 1) @ w, mesh) if r
-                 else xg @ rank_slice(w, mesh) for w, r in zip(ws, rep))
+    for w, spec, r in zip(ws, specs, rep):
+        w = fsdp_gather(w, spec, mesh, 0)
+        if r:
+            if g > 1 and "model" in spec[1]:
+                w = collectives.AllGather.apply(w, sharding.model_group(mesh),
+                                                1)
+            outs.append(sp_gather(rank_slice(xg, mesh, 1) @ w, mesh))
+        else:
+            outs.append(xg @ w)
+    return tuple(outs)
 
 
-def tp_project(y: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
-    """y: [B, S, D / g], this rank's column slice; w: [D, H], replicated
-    -> [B, S / g, H]: the sum over the ranks of y @ (this rank's rows of
+def tp_project(y: torch.Tensor, w: torch.Tensor, mesh,
+               spec) -> torch.Tensor:
+    """y: [B, S, D / g], this rank's column slice; w the rank's shard of
+    a [D, out] weight of ``spec``, [D / g, out / data or out] ->
+    [B, S / g, out]: the sum over the ranks of y @ (the rank's rows of
     w), in the model dtype, scattered by sequence."""
     g = sharding.axis_size(mesh, "model")
-    if w.shape[0] != y.shape[-1] * g:
+    if w.shape[0] != y.shape[-1]:
         raise ValueError(f"y {tuple(y.shape)} holds {y.shape[-1]} of the "
-                         f"{w.shape[0]} rows of w {tuple(w.shape)} over a "
-                         f"model axis of {g}")
+                         f"rows of w {tuple(w.shape)} (the rank's shard) "
+                         f"over a model axis of {g}")
     _split(y.shape[1], g, f"the sequence of y {tuple(y.shape)}")
-    part = y @ rank_slice(w, mesh, 0)
+    part = y @ fsdp_gather(w, spec, mesh, 1)
     return collectives.ReduceScatter.apply(part, mesh.tp_group(), 1)
 
 

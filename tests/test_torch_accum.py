@@ -248,11 +248,13 @@ def _port_main(rank, world, args):
     from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.optim.adam import adamw_init
     from repro_torch.runtime import step as tstep
+    from repro_torch.runtime.params import param_specs
 
     mesh = tmesh.make_mesh(2, 2)
     cpu = torch.device("cpu")
-    params = shard_params(params_from_jax(_unflat(dict(np.load(inp_path))),
-                                          device=cpu), mesh)
+    whole = params_from_jax(_unflat(dict(np.load(inp_path))), device=cpu)
+    specs = param_specs(whole, mesh)
+    params = shard_params(whole, mesh, specs)
     opt = tbase.OptimizerConfig(**OPT)
     state = tstep.TrainState(params, adamw_init(params, opt))
     batch = tstep.batch_to_device(
@@ -263,8 +265,9 @@ def _port_main(rank, world, args):
     accum = tstep.make_accum_grad_fn(_cfg(treg), microbatch=MESH_MICRO,
                                      mesh=mesh)
     loss, m, grads = accum(state.params, batch)
-    state, m = tstep.apply_gradients(state, opt, loss, m, grads, mesh=mesh)
-    full = gather_params(state.params, mesh)
+    state, m = tstep.apply_gradients(state, opt, loss, m, grads, mesh=mesh,
+                                     specs=specs)
+    full = gather_params(state.params, mesh, specs)
     if rank == 0:
         np.savez(out_path, loss=loss.numpy(), prefill=pre.numpy(),
                  gn=m["grad_norm"].numpy(),

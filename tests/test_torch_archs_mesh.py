@@ -14,6 +14,13 @@ the port's ranks, both started together), on the CPU:
   relative, every rank's the same; every gradient leaf within 1e-4
   relative L2) and prefill's last logits within 1e-5 relative L2.
   Measured: loss 7.3e-8, gradients 1.4e-6, prefill 9.6e-7.
+- Every leaf placed by its spec (runtime/params.py: FSDP over ``data``,
+  heads / FFN hidden / vocabulary over ``model``) on four gloo ranks
+  against JAX on 4 forced host devices, with the same bounds:
+  granite-8b at (2, 2) and (1, 4) and granite-moe-3b-a800m at (2, 2) in
+  its check config (LSH off, a capacity that drops no token, no router
+  losses: tests/test_torch_tp.py), the loss, every gradient leaf
+  (gathered whole over the mesh) and prefill's last logits.
 """
 import os
 import subprocess
@@ -42,6 +49,8 @@ if __name__ != "__main__":
 
 DP_ARCHS = ("whisper-base", "smollm-360m")
 MESH_ARCHS = ("granite-8b", "internvl2-26b")
+FSDP_CASES = (("granite-8b", (2, 2)), ("granite-8b", (1, 4)),
+              ("granite-moe-3b-a800m", (2, 2)))
 DP_BATCH, DP_STEPS = 4, 2
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 RTOL = 1e-5
@@ -87,6 +96,22 @@ def _rel_l2(a, b):
 
 def _np(x):
     return np.asarray(x.detach() if torch.is_tensor(x) else x, np.float32)
+
+
+def _check_config(cfg):
+    """LSH off, a capacity that drops no token, no router losses (either
+    package's config)."""
+    if not cfg.has_moe():
+        return cfg
+    import dataclasses
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts),
+        router_aux_weight=0.0, router_z_weight=0.0,
+        lsh=dataclasses.replace(cfg.moe.lsh, enabled=False)))
+
+
+def _case(arch, shape):
+    return f"fsdp/{arch}/{shape[0]}x{shape[1]}"
 
 
 def _batch(arch, seed, batch):
@@ -148,6 +173,22 @@ def _jax_main(inp_path, out_path):
         out[f"{arch}/prefill"] = np.asarray(logits)
         out.update({f"{arch}/g/{k}": np.asarray(v)
                     for k, v in _flat(grads).items()})
+    for arch, shape in FSDP_CASES:
+        cfg = _check_config(jsc(arch).replace(dtype="float32"))
+        params = jax.tree.map(jnp.asarray, _unflat(_sub(inp, f"{arch}/")))
+        batch = {k: jnp.asarray(v) for k, v in _batch(arch, 1, 4).items()}
+        mesh = make_host_mesh(shape[0], 1, shape[1])
+        with set_mesh(mesh):
+            loss, _, grads = jax.jit(js.make_accum_grad_fn(cfg, mesh))(
+                params, batch)
+            logits, _ = jax.jit(lambda p, b: jm.prefill(p, cfg, mesh, b))(
+                params, {k: v for k, v in batch.items() if k != "labels"})
+        key = _case(arch, shape)
+        out[f"{key}/loss"] = np.asarray(loss)
+        out[f"{key}/prefill"] = np.asarray(logits)
+        out.update({f"{key}/g/{k}": np.asarray(v)     # not the placement's
+                    for k, v in _flat(grads).items()
+                    if np.asarray(v).dtype.kind != "V"})
     np.savez(out_path, **out)
 
 
@@ -155,8 +196,7 @@ def _port_main(rank, world, args):
     from repro_torch.configs import base as tbase
     from repro_torch.configs.registry import get_smoke_config as tsc
     from repro_torch.convert import params_from_jax
-    from repro_torch.models import model as tm
-    from repro_torch.optim.adam import _map, adamw_init, leaves
+    from repro_torch.optim.adam import adamw_init
     from repro_torch.runtime import step as ts
     inp_path, out_path = args
     inp = dict(np.load(inp_path))
@@ -178,17 +218,53 @@ def _port_main(rank, world, args):
     mesh = tmesh.make_mesh(1, 2)
     for arch in MESH_ARCHS:
         cfg = tsc(arch).replace(dtype="float32")
-        params = params_from_jax(_unflat(_sub(inp, f"{arch}/")), device=cpu)
-        batch = ts.batch_to_device(_batch(arch, 0, 2), cpu)
-        loss, _, grads = ts.make_accum_grad_fn(cfg, mesh=mesh)(params, batch)
-        it = iter(grads)
-        gt = _flat(_map(lambda p: next(it), params))
-        out[f"{arch}/loss"] = _np(loss)
-        out.update({f"{arch}/g/{k}": _np(v) for k, v in gt.items()})
-        logits, _ = tm.prefill(params, cfg, {k: v for k, v in batch.items()
-                                             if k != "labels"}, mesh=mesh)
-        out[f"{arch}/prefill"] = _np(logits)
+        out.update(_mesh_case(cfg, _unflat(_sub(inp, f"{arch}/")),
+                              _batch(arch, 0, 2), mesh, arch))
+    np.savez(out_path.format(rank=rank), **out)
+    return 0
+
+
+def _mesh_case(cfg, flat_params, batch, mesh, key):
+    """The gradient half of the step and prefill over ``mesh``, the
+    params cut by their specs, the gradients gathered whole."""
+    from repro_torch.convert import gather_params, params_from_jax, \
+        shard_params
+    from repro_torch.models import model as tm
+    from repro_torch.optim.adam import _map, leaves
+    from repro_torch.runtime import params as tparams
+    from repro_torch.runtime import step as ts
+    cpu = torch.device("cpu")
+    full = params_from_jax(flat_params, device=cpu)
+    specs = tparams.model_specs(cfg, mesh)
+    params = shard_params(full, mesh, specs)
+    batch = ts.batch_to_device(batch, cpu)
+    loss, _, grads = ts.make_accum_grad_fn(cfg, mesh=mesh)(params, batch)
     assert len(leaves(params)) == len(grads)
+    it = iter(grads)
+    gt = _flat(gather_params(_map(lambda p: next(it), params), mesh, specs))
+    out = {f"{key}/loss": _np(loss)}
+    out.update({f"{key}/g/{k}": _np(v) for k, v in gt.items()
+                if v is not None})
+    logits, _ = tm.prefill(params, cfg, {k: v for k, v in batch.items()
+                                         if k != "labels"}, mesh=mesh)
+    out[f"{key}/prefill"] = _np(logits)
+    return out
+
+
+def _port4_main(rank, world, args):
+    """The FSDP / tensor-parallel cases on four ranks."""
+    from repro_torch.configs.registry import get_smoke_config as tsc
+    inp_path, out_path = args
+    inp = dict(np.load(inp_path))
+    out = {}
+    meshes = {}
+    for arch, shape in FSDP_CASES:
+        if shape not in meshes:
+            meshes[shape] = tmesh.make_mesh(*shape)
+        cfg = _check_config(tsc(arch).replace(dtype="float32"))
+        out.update(_mesh_case(cfg, _unflat(_sub(inp, f"{arch}/")),
+                              _batch(arch, 1, 4), meshes[shape],
+                              _case(arch, shape)))
     np.savez(out_path.format(rank=rank), **out)
     return 0
 
@@ -197,7 +273,7 @@ def _port_main(rank, world, args):
 def runs(tmp_path_factory, mesh):
     tmp = tmp_path_factory.mktemp("encdec")
     inp = {}
-    for arch in DP_ARCHS + MESH_ARCHS:
+    for arch in DP_ARCHS + MESH_ARCHS + ("granite-moe-3b-a800m",):
         cfg = j_smoke(arch).replace(dtype="float32")
         with set_mesh(mesh):
             p = jmodel.init_params(jax.random.PRNGKey(0), cfg, mesh)
@@ -205,23 +281,27 @@ def runs(tmp_path_factory, mesh):
                     for k, v in _flat(jax.tree.map(np.asarray, p)).items()})
     np.savez(tmp / "inputs.npz", **inp)
     env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=2")
+               XLA_FLAGS="--xla_force_host_platform_device_count=4")
     jax_proc = subprocess.Popen(
         [sys.executable, str(HERE), "jax", str(tmp / "inputs.npz"),
          str(tmp / "jax.npz")], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
     try:
-        tmesh.spawn_cpu_ranks(
-            str(HERE), 2, [str(tmp / "inputs.npz"),
-                           str(tmp / "port_{rank}.npz")],
-            store=str(tmp / "store"),
-            env=dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1"),
-            timeout_s=300)
+        for world in (2, 4):
+            tmesh.spawn_cpu_ranks(
+                str(HERE), world, [str(tmp / "inputs.npz"),
+                                   str(tmp / f"port{world}_{{rank}}.npz")],
+                store=str(tmp / f"store{world}"),
+                env=dict(os.environ, PYTHONPATH=str(SRC),
+                         OMP_NUM_THREADS="1"),
+                timeout_s=300)
     finally:
         _, err = jax_proc.communicate(timeout=600)
     assert jax_proc.returncode == 0, err[-4000:]
     return {"inputs": inp, "jax": dict(np.load(tmp / "jax.npz")),
-            "port": [dict(np.load(tmp / f"port_{r}.npz")) for r in range(2)]}
+            "port": [dict(np.load(tmp / f"port2_{r}.npz")) for r in range(2)],
+            "port4": [dict(np.load(tmp / f"port4_{r}.npz"))
+                      for r in range(4)]}
 
 
 def _port_layout(flat_jax):
@@ -269,8 +349,34 @@ def test_mesh_of_two_matches_jax(runs, arch):
     assert loss_rel <= RTOL and worst <= 1e-4 and pre <= RTOL
 
 
+@pytest.mark.parametrize("arch,shape", FSDP_CASES,
+                         ids=[_case(a, s) for a, s in FSDP_CASES])
+def test_placed_mesh_step_matches_jax(runs, arch, shape):
+    """Every leaf placed by its spec over four ranks: the loss (every
+    rank's the same) within 1e-5 relative of JAX's on the same mesh,
+    every gradient leaf within 1e-4 relative L2, prefill's last logits
+    within 1e-5 relative L2."""
+    ref, port = runs["jax"], runs["port4"]
+    key = _case(arch, shape)
+    for p in port[1:]:
+        np.testing.assert_array_equal(p[f"{key}/loss"], port[0][f"{key}/loss"])
+    loss_rel = abs(float(port[0][f"{key}/loss"]) - float(
+        ref[f"{key}/loss"])) / abs(float(ref[f"{key}/loss"]))
+    want = _port_layout(_sub(ref, f"{key}/g/"))
+    got = _sub(port[0], f"{key}/g/")
+    assert set(got) == set(want)
+    worst = max(_rel_l2(got[k], w) for k, w in want.items())
+    pre = max(_rel_l2(p[f"{key}/prefill"], ref[f"{key}/prefill"])
+              for p in port)
+    print(f"{key}: loss rel {loss_rel:.3g}, worst gradient rel L2 "
+          f"{worst:.3g}, prefill rel L2 {pre:.3g}")
+    assert loss_rel <= RTOL and worst <= 1e-4 and pre <= RTOL
+
+
 if __name__ == "__main__":
     if sys.argv[1] == "jax":
         _jax_main(*sys.argv[2:])
     else:                                   # RANK WORLD STORE args...
-        sys.exit(tmesh.run_cpu_rank(sys.argv[1:], _port_main))
+        world = int(sys.argv[2])
+        sys.exit(tmesh.run_cpu_rank(
+            sys.argv[1:], _port_main if world == 2 else _port4_main))

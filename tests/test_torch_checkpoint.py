@@ -83,8 +83,8 @@ def _bits(x):
 
 def _assert_trees_equal(a, b):
     """Leaf for leaf by key (JAX's dicts come in sorted key order)."""
-    fa = {k: x for k, x, _ in ck._flatten(a)}
-    fb = {k: x for k, x, _ in ck._flatten(b)}
+    fa = {k: x for k, x in ck._flatten(a)}
+    fb = {k: x for k, x in ck._flatten(b)}
     assert set(fa) == set(fb)
     for k, x in fa.items():
         y = fb[k]
@@ -117,7 +117,7 @@ def test_state_round_trip_is_bitwise(tmp_path, moment_dtype):
     assert isinstance(got, tstep.TrainState)
     _assert_trees_equal(got, state)
     assert got.opt.step.device == CPU and int(got.opt.step) == 1
-    names = {ck.dtype_name(x) for _, x, _ in ck._flatten(got)}
+    names = {ck.dtype_name(x) for _, x in ck._flatten(got)}
     assert {"bfloat16", "float32", "int32"} <= names
     if moment_dtype == "int8":
         assert "int8" in names and set(got.opt.m["embed"]["table"]) == \
@@ -178,7 +178,7 @@ def test_jax_reads_a_port_checkpoint(tmp_path, monkeypatch):
     tpl = _numpy_template(state)
     got, step, _ = jck.load_checkpoint(str(tmp_path), tpl)
     assert step == 2
-    want = {k: _bits(x) for k, x, _ in ck._flatten(state)}
+    want = {k: _bits(x) for k, x in ck._flatten(state)}
     flat = jck._flatten(got)
     assert set(flat) == set(want)
     for k, v in flat.items():
@@ -280,10 +280,10 @@ def test_a_jax_run_resumes_on_the_port(tmp_path, monkeypatch, mesh):
     np.testing.assert_allclose(float(tm["loss"]), float(jm["loss"]),
                                rtol=1e-5)
     from repro_torch.convert import params_from_jax
-    want = {k: x for k, x, _ in ck._flatten(params_from_jax(jparams,
+    want = {k: x for k, x in ck._flatten(params_from_jax(jparams,
                                                             device="cpu"))}
     worst = 0.0
-    for k, p, _ in ck._flatten(tstate.params):
+    for k, p in ck._flatten(tstate.params):
         w = want[k]
         if p.is_floating_point():
             a, b = p.detach().double().numpy(), w.double().numpy()

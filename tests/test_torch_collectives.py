@@ -1,7 +1,7 @@
 """The port's collectives (comm/collectives.py) over 2 and 4 CPU ranks
 (gloo), the planner's resolutions (comm/planner.py), the clip norm over
-sharded gradients (optim/adam.py) and ``shard_params`` /
-``gather_params`` (convert.py).
+sharded gradients (optim/adam.py), ``shard_params`` / ``gather_params``
+(convert.py) and the vocab-split loss (models/model.py).
 
 Each rank's inputs come from numpy with a seed of its own.  The forward
 of ``all_to_all`` must be bitwise the numpy block transpose of the ranks'
@@ -131,7 +131,8 @@ def _port_main(rank, world, args):
     out["mean/fwd"], out["mean/bwd"] = y.detach().numpy(), dx.numpy()
 
     if world == 4:
-        # the clip norm of sharded expert grads = the norm of the gathered
+        # the clip norm of sharded grads = the norm of the gathered
+        from repro_torch.runtime import params as tparams
         rng = np.random.default_rng(5)
         full = {"router_w": torch.from_numpy(
                     rng.standard_normal((4, 6)).astype(np.float32)),
@@ -139,14 +140,26 @@ def _port_main(rank, world, args):
                     rng.standard_normal((6, 4, 5)).astype(np.float32)),
                 "w_down": torch.from_numpy(
                     rng.standard_normal((6, 4, 4)).astype(np.float32))}
+        specs = tparams.param_specs(full, mesh)
         mine = shard_params(full, mesh)
         leaves = [mine["router_w"], mine["w_up"], mine["w_down"]]
-        out["norm"] = global_norm(leaves, [False, True, True],
-                                  group).numpy()
-        back = gather_params(mine, mesh)
+        out["norm"] = global_norm(
+            leaves, [tparams.split_axes(specs[k], mesh) for k in
+                     ("router_w", "w_up", "w_down")], mesh).numpy()
+        back = gather_params(mine, mesh, specs)
         for k in full:
             out[f"roundtrip/{k}"] = np.asarray(torch.equal(back[k], full[k]))
         out["shard/w_up"] = mine["w_up"].numpy()
+        for shape in ((2, 2), (1, 4)):
+            m2 = mesh if shape == (2, 2) else tmesh.make_mesh(*shape)
+            key = "x".join(map(str, shape))
+            out.update({f"{key}/{k}": v
+                        for k, v in _placed_round_trip(m2).items()})
+            out.update({f"{key}/{k}": v
+                        for k, v in _vocab_split_loss(m2).items()})
+            out.update({f"{key}/{k}": v
+                        for k, v in _int8_moments(m2).items()})
+        out.update(_xlstm_over_data(tmesh.make_mesh(4, 1)))
     if world == 4:
         # the (data, pipe, model) layouts: each group's ranks, by gathering
         # the rank numbers over it (a group of one rank: this rank)
@@ -166,6 +179,178 @@ def _port_main(rank, world, args):
                     else me.numpy()
     np.savez(out_path.format(rank=rank), **out)
     return 0
+
+
+ROUND_TRIP_ARCHS = ("granite-8b", "granite-moe-3b-a800m",
+                    "jamba-1.5-large-398b")
+
+
+def _placed_round_trip(mesh):
+    """The smoke configs' params cut by their specs and gathered again
+    (bit for bit), and the clip norm of the shards of a gradient-shaped
+    tree (the params themselves) against the norm of the whole tree."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.models import model as tm
+    from repro_torch.optim.adam import global_norm, leaves
+    from repro_torch.runtime import params as tparams
+    out = {}
+    for arch in ROUND_TRIP_ARCHS:
+        cfg = get_smoke_config(arch)
+        full = tm._init(cfg, 3, torch.device("cpu"), mesh, False)
+        specs = tparams.model_specs(cfg, mesh)
+        mine = shard_params(full, mesh, specs)
+        assert tparams.param_specs(full, mesh) == specs
+        back = gather_params(mine, mesh, specs)
+        out[f"{arch}/round_trip"] = np.asarray(all(
+            torch.equal(a, b) for a, b in zip(leaves(back), leaves(full))))
+        out[f"{arch}/split"] = np.asarray(sum(
+            a.numel() != b.numel() for a, b in zip(leaves(mine),
+                                                   leaves(full))))
+        fl = [t for t in leaves(full) if t.is_floating_point()]
+        ml = [t for t in leaves(mine) if t.is_floating_point()]
+        sl = [tparams.split_axes(s, mesh) for s, t in zip(
+            leaves(specs, spec=True), leaves(full)) if t.is_floating_point()]
+        out[f"{arch}/norm"] = global_norm(ml, sl, mesh).numpy()
+        out[f"{arch}/norm_whole"] = global_norm(fl).numpy()
+    return out
+
+
+def _vocab_logits(P, S, B=4, V=32):
+    """Logits [B, P + S, V] f32 and labels [B, S]: a label on each rank's
+    columns, the max of position 0 on another rank's columns than its
+    label, labels of -1."""
+    rng = np.random.default_rng(11)
+    logits = (3.0 * rng.standard_normal((B, P + S, V))).astype(np.float32)
+    labels = rng.integers(0, V, (B, S)).astype(np.int64)
+    labels[:, :4] = np.arange(4) * (V // 4) + 1      # each quarter
+    labels[0, 5] = labels[1, 7] = -1
+    logits[:, P, V - 2] = 25.0                       # max on the last rank
+    labels[:, 0] = 0
+    return logits, labels
+
+
+def _vocab_split_loss(mesh):
+    """loss_from_logits of vocab-split logits over ``mesh`` (each rank:
+    its rows, the whole sequence, its vocabulary columns; its labels of
+    its sequence slice) and its gradient of those logits, beside the
+    one-rank loss and gradient on the whole logits, with and without a
+    patch prefix."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.models import model as tm
+    from repro_torch.runtime import sharding
+    cfg = get_smoke_config("granite-8b").replace(vocab_size=32,
+                                                 z_loss_weight=1e-2)
+    stats = {"aux_loss": torch.zeros(()), "z_loss": torch.zeros(()),
+             "expert_load": torch.zeros((1,))}
+    out = {}
+    for P in (0, 4):
+        logits, labels = _vocab_logits(P, 12)
+        whole = torch.from_numpy(logits).requires_grad_(True)
+        loss1, _ = tm.loss_from_logits(cfg, whole, stats,
+                                       torch.from_numpy(labels), None,
+                                       P if P else None)
+        (g1,) = torch.autograd.grad(loss1, whole)
+        B, L = logits.shape[0], logits.shape[1]
+        bs, cs = sharding.token_slices(mesh, B, L)
+        n = 32 // sharding.axis_size(mesh, "model")
+        m = sharding.axis_index(mesh, "model")
+        cols = slice(m * n, (m + 1) * n)
+        mine = torch.from_numpy(np.ascontiguousarray(
+            logits[bs, :, cols])).requires_grad_(True)
+        toks = slice(max(cs.start - P, 0), max(cs.stop - P, 0))
+        npatch = min(cs.stop, P) - min(cs.start, P) if P else None
+        share, met = tm.loss_from_logits(
+            cfg, mine, stats, torch.from_numpy(labels[bs, toks]), mesh,
+            npatch)
+        (g,) = torch.autograd.grad(share, mine)
+        out[f"P{P}/loss"] = met["loss"].numpy()
+        out[f"P{P}/loss1"] = loss1.detach().numpy()
+        out[f"P{P}/grad"] = g.numpy()
+        out[f"P{P}/grad1"] = g1.numpy()[bs, :, cols]
+    return out
+
+
+# leaves whose last dimension splits over the mesh: over (2, 2) and (1, 4)
+# it spans whole blocks of 128 (w_up), blocks crossing the shards (wo,
+# wq, head), q split where the param is whole (head, 250 over 4) and a
+# vector (dt_bias); "scale" is whole
+INT8_LEAVES = {"wq": (6, 200), "wo": (8, 384), "w_up": (4, 1024),
+               "head": (6, 250), "dt_bias": (8,), "scale": (6,)}
+
+
+def _int8_moments(mesh):
+    """Two AdamW steps with int8 moments over the rank's shards of
+    ``INT8_LEAVES`` (placed by the JAX rules; no clipping, so the steps
+    are elementwise), beside the steps on the whole leaves: the params
+    and the moments gathered by ``moment_specs``, bit for bit."""
+    from repro_torch.configs.base import OptimizerConfig
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.optim import adam
+    from repro_torch.runtime import params as tparams
+    rng = np.random.default_rng(17)
+
+    def tree(scale):
+        out = {k: torch.from_numpy((scale * rng.standard_normal(s)).astype(
+            np.float32)) for k, s in INT8_LEAVES.items()}
+        out["head"] = {"w": out["head"]}          # the head's rule
+        return out
+    whole = tree(1.0)
+    grads = [tree(1e-2), tree(1e-2)]
+    cfg = OptimizerConfig(lr=1e-2, clip_norm=1e9, moment_dtype="int8")
+    specs = tparams.param_specs(whole, mesh)
+    mspecs = tparams.moment_specs(whole, mesh, "int8")
+    mine = shard_params(adam._map(torch.clone, whole), mesh, specs)
+    splits = tparams.int8_splits(mine, specs, mspecs, mesh)
+    st1 = adam.adamw_init(whole, cfg)
+    st = adam.adamw_init(mine, cfg, splits)
+    for g in grads:
+        st1 = adam.adamw_update(whole, adam.leaves(g), st1, cfg,
+                                torch.tensor(1e-2))
+        st = adam.adamw_update(
+            mine, adam.leaves(shard_params(g, mesh, specs)), st, cfg,
+            torch.tensor(1e-2), grad_norm=torch.tensor(1.0), splits=splits)
+    back = gather_params(mine, mesh, specs)
+    same = all(torch.equal(a, b) for a, b in zip(adam.leaves(back),
+                                                 adam.leaves(whole)))
+    for m, m1 in ((st.m, st1.m), (st.v, st1.v)):
+        got = gather_params(m, mesh, mspecs)
+        same = same and all(torch.equal(a, b) for a, b in zip(
+            adam.leaves(got), adam.leaves(m1)))
+    return {"int8/same": np.asarray(same),
+            "int8/split": np.asarray(sum(s is not None for s in splits))}
+
+
+def _xlstm_over_data(mesh):
+    """xlstm-350m's smoke config outside ``dp_only`` (f32) over (4, 1):
+    its mixers' weights FSDP-split over data and gathered whole in the
+    forward; the loss and the gathered gradients beside one rank's."""
+    from repro_torch.configs.registry import get_smoke_config
+    from repro_torch.convert import gather_params, shard_params
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.models import model as tm
+    from repro_torch.optim.adam import _map, leaves
+    from repro_torch.runtime import params as tparams
+    from repro_torch.runtime import step as ts
+    cfg = get_smoke_config("xlstm-350m").replace(dtype="float32",
+                                                 dp_only=False)
+    full = tm.init_params(cfg, seed=2, device="cpu")
+    specs = tparams.model_specs(cfg, mesh)
+    batch = {k: torch.from_numpy(v) for k, v in SyntheticLMDataset(
+        cfg.vocab_size, 16, 4).batch_at(0).items()}
+    l1, _, g1 = ts.make_accum_grad_fn(cfg)(full, batch)
+    mine = shard_params(full, mesh, specs)
+    loss, _, grads = ts.make_accum_grad_fn(cfg, mesh=mesh)(mine, batch)
+    it = iter(grads)
+    whole = leaves(gather_params(_map(lambda p: next(it), mine), mesh,
+                                 specs))
+    worst = max(float((a - b).norm() / b.norm().clamp_min(1e-30))
+                for a, b in zip(whole, g1) if b is not None)
+    return {"xlstm/loss": loss.numpy(), "xlstm/loss1": l1.numpy(),
+            "xlstm/grad_rel": np.asarray(worst),
+            "xlstm/split": np.asarray(sum(
+                bool(tparams.split_axes(s, mesh))
+                for s in leaves(specs, spec=True)))}
 
 
 # ------------------------------------------------------------- tests --
@@ -217,6 +402,60 @@ def test_global_norm_over_sharded_leaves(runs):
                        for a in full))
     for got in runs[4]:
         np.testing.assert_allclose(got["norm"], want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape", ["2x2", "1x4"])
+def test_placed_params_round_trip_and_norm(runs, shape):
+    """Every leaf of three smoke configs cut by its spec and gathered
+    back bit for bit on four ranks; some leaves really split; the clip
+    norm of the shards is the norm of the whole tree (within the f32
+    sums' order)."""
+    for got in runs[4]:
+        for arch in ROUND_TRIP_ARCHS:
+            assert bool(got[f"{shape}/{arch}/round_trip"]), arch
+            assert int(got[f"{shape}/{arch}/split"]) > 0, arch
+            np.testing.assert_allclose(got[f"{shape}/{arch}/norm"],
+                                       got[f"{shape}/{arch}/norm_whole"],
+                                       rtol=1e-6)
+
+
+@pytest.mark.parametrize("patches", [0, 4])
+@pytest.mark.parametrize("shape", ["2x2", "1x4"])
+def test_vocab_split_loss_matches_one_rank(runs, shape, patches):
+    """The loss over a vocabulary split over model 2 and 4 (labels on
+    each rank's columns, a max on another rank than the label's, labels
+    of -1, the z-loss; with and without a patch prefix on the first
+    ranks) within 1e-6 relative of the one-rank loss, and each rank's
+    gradient of its logits the one-rank gradient's block."""
+    for got in runs[4]:
+        np.testing.assert_allclose(got[f"{shape}/P{patches}/loss"],
+                                   got[f"{shape}/P{patches}/loss1"],
+                                   rtol=1e-6)
+        g, g1 = got[f"{shape}/P{patches}/grad"], \
+            got[f"{shape}/P{patches}/grad1"]
+        assert np.linalg.norm(g - g1) <= 1e-6 * np.linalg.norm(g1)
+
+
+@pytest.mark.parametrize("shape", ["2x2", "1x4"])
+def test_int8_moments_over_a_split_last_dimension(runs, shape):
+    """Int8 moments quantized along a logical last dimension that splits
+    over the mesh (blocks of 128 crossing the shards, q padded and laid
+    by the JAX ``moment_specs``): two AdamW steps on four ranks give the
+    one-rank params and moments bit for bit."""
+    for got in runs[4]:
+        assert bool(got[f"{shape}/int8/same"])
+        assert int(got[f"{shape}/int8/split"]) >= 4
+
+
+def test_xlstm_mixers_over_a_data_axis(runs):
+    """The xLSTM mixers outside dp_only over (4, 1): their weights split
+    over data and gathered in the forward; the loss within 1e-6 and
+    every gradient within 1e-5 relative L2 of one rank's."""
+    for got in runs[4]:
+        np.testing.assert_allclose(got["xlstm/loss"], got["xlstm/loss1"],
+                                   rtol=1e-6)
+        assert float(got["xlstm/grad_rel"]) <= 1e-5
+        assert int(got["xlstm/split"]) > 10
 
 
 def test_shard_gather_params_round_trip(runs):

@@ -578,8 +578,8 @@ def test_cuda_checkpoint_manager_round_trip_bitwise(h100, tmp_path):
     fresh = init_train_state(cfg, opt, seed=1, device=h100)
     got, step, _ = load_checkpoint(str(tmp_path), fresh)
     assert step == 1
-    want = {k: v for k, v, _ in _flatten(state)}
-    for k, v, _ in _flatten(got):
+    want = {k: v for k, v in _flatten(state)}
+    for k, v in _flatten(got):
         w = want.pop(k)
         assert v.device == w.device and v.dtype == w.dtype, k
         if v.dtype == torch.bfloat16:

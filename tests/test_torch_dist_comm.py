@@ -205,6 +205,7 @@ def _port_main(rank, world, args):
     from repro_torch.data.synthetic import SyntheticLMDataset
     from repro_torch.optim.adam import adamw_init
     from repro_torch.runtime import step as tstep
+    from repro_torch.runtime.params import param_specs
 
     cpu = torch.device("cpu")
     ms = RUNS[run][0]
@@ -216,7 +217,9 @@ def _port_main(rank, world, args):
     out = {}
     for wire in WIRES:
         cfg = _cfg(tbase, treg, run, wire)
-        params = shard_params(params_from_jax(jparams, device=cpu), mesh)
+        whole = params_from_jax(jparams, device=cpu)
+        specs = param_specs(whole, mesh)
+        params = shard_params(whole, mesh, specs)
         state = tstep.TrainState(params, adamw_init(params, opt))
         step = tstep.make_train_step(cfg, opt, mesh=mesh)
         for s in range(STEPS):
@@ -228,7 +231,7 @@ def _port_main(rank, world, args):
         plan = tplanner.last_plan("model")
         out[f"{wire}/plan"] = np.array(
             f"{plan.algorithm}/{plan.intra}/{plan.chunks}")
-        full = gather_params(state.params, mesh)
+        full = gather_params(state.params, mesh, specs)
         out.update({f"{wire}/p/{k}": v for k, v in _flat(full).items()})
     dinp = _decode_inputs()
     for drun, dms in DECODES:

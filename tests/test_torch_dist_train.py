@@ -217,6 +217,7 @@ def _port_main(rank, world, args):
                                                  init_error_state)
     from repro_torch.runtime import sharding
     from repro_torch.runtime import step as tstep
+    from repro_torch.runtime.params import param_specs
 
     cpu = torch.device("cpu")
     mesh = tmesh.make_mesh(*MESH)
@@ -242,9 +243,10 @@ def _port_main(rank, world, args):
 
     for wire in WIRES:
         cfg = _cfg(tbase, treg, wire)
-        full = run(wire, cfg, shard_params(
-            params_from_jax(jparams, device=cpu), mesh))
-        full = gather_params(full, mesh)
+        whole = params_from_jax(jparams, device=cpu)
+        specs = param_specs(whole, mesh)
+        full = run(wire, cfg, shard_params(whole, mesh, specs))
+        full = gather_params(full, mesh, specs)
         out.update({f"{wire}/p/{k}": v for k, v in _flat(full).items()})
     full = run("dp", _cfg(tbase, treg, None, dp_only=True),
                params_from_jax(jdense, device=cpu))

@@ -65,6 +65,7 @@ from repro_torch.configs import base as tbase  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.convert import gather_params, shard_params  # noqa: E402
+from repro_torch.runtime.params import param_specs  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLMDataset  # noqa: E402
 from repro_torch.launch import mesh as tmesh  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
@@ -463,7 +464,7 @@ def _rank_main(rank, world, args):
     cfg = get_smoke_config(ARCH).replace(dtype="float32")
     full = tmodel.init_params(cfg, seed=0, device="cpu")
     local = shard_params(full, mesh)
-    back = gather_params(local, mesh)
+    back = gather_params(local, mesh, param_specs(full, mesh))
     for x, y in zip(tadam.leaves(back), tadam.leaves(full)):
         assert x.dtype == y.dtype and torch.equal(x, y)
     for m in _mamba_layers(local):
@@ -472,14 +473,16 @@ def _rank_main(rank, world, args):
         0, cfg.vocab_size, size=(2, 16))).long()
     # the forward, LSH off (with LSH on a mesh hashes each rank's tokens
     # apart: another function), the heads split over the model axis
-    # (runtime/tp.py): this rank's sequence slice of the mesh-free logits
+    # (runtime/tp.py): the mesh-free logits of the whole sequence on this
+    # rank's vocabulary columns (the head splits the vocabulary)
     seq = slice(rank * 8, (rank + 1) * 8)
+    cols = slice(rank * cfg.vocab_size // 2, (rank + 1) * cfg.vocab_size // 2)
     with torch.no_grad():
         got, _ = tmodel.forward(local, cfg, tokens[:, seq], mesh=mesh,
                                 use_lsh=False)
         want, _ = tmodel.forward(full, cfg, tokens, use_lsh=False)
-    fwd = float(torch.linalg.norm(got - want[:, seq])
-                / torch.linalg.norm(want[:, seq]))
+    fwd = float(torch.linalg.norm(got - want[:, :, cols])
+                / torch.linalg.norm(want[:, :, cols]))
     assert fwd < 1e-5, fwd
     tokens = tokens[:, :4]
     outs = {}

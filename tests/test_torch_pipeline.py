@@ -371,7 +371,8 @@ def _rank_main(rank, world, args):
         step = tstep.make_train_step(cfg, opt, use_lsh=lsh, mesh=mesh)
         s_p, m_p = step(fresh(), batch)
         s_a, m_a = tstep.apply_gradients(fresh(), opt, la, ma, ga,
-                                         mesh=mesh)
+                                         mesh=mesh,
+                                         specs=tstep.mesh_specs(cfg, mesh))
         same["train step params"] = all(
             _same(a, b) for a, b in zip(leaves(s_p.params),
                                         leaves(s_a.params)))
