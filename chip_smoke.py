@@ -62,6 +62,23 @@ Phases, each of which raises (and so exits non-zero) on failure:
               the empty kernel timed as the kernels are (one block, and
               a cooperative launch of the training shape's blocks), the
               floor under any launch.
+              Each kernel's host microseconds a call at the training
+              shape, through its registered op (kernels/build.register_op)
+              and its CUDA implementation called directly, and
+              dispatch_scatter's through a torch.library.custom_op too.
+  3b. dryrun  launch/dryrun.py's count (meta tensors) of granite-moe-3b-a800m
+              at the phase-train size (4 x 1024, bf16 wire, LSH on, one
+              rank), then one measured step of the same on the card:
+              each kernel's launches equal the count of its op, the
+              state and batch's allocations asked the caching allocator
+              for the counted arg bytes exactly (their requested sizes
+              in torch.cuda.memory_snapshot(), rounded to its 512-byte
+              blocks; the blocks it gave sum to their memory_allocated()),
+              arg_bytes + temp_bytes within 10% of the step's
+              max_memory_allocated(); and the full-size train_4k cell on
+              the 16 x 16 mesh traced by a process of its own (started
+              at the script's start, no card), its roofline line
+              printed.
   4. serve    repro_torch.launch.serve.main at the full granite-moe-3b-a800m
               config (bf16, random weights from a seeded torch.Generator):
               8 requests, 4 slots, 16 prompt + 16 generated tokens; each
@@ -1412,6 +1429,7 @@ def phase_kernels(torch, mods, ref, moe_lib, hashing):
     check_dequantize_coded_shape(torch, mods["wire_quant"], ref)
     check_subnormal_rows(torch, mods, ref)
     measure_launch_floor(torch, mods["build"])
+    op_host_us(torch, mods, train, q)
     return res
 
 
@@ -4442,6 +4460,218 @@ def phase_archs(torch, model_lib, step_lib, data_lib, serve, train,
 
 # -------------------------------------------------------------- main --
 
+# ------------------------------------------------------------ dryrun --
+
+DRYRUN_CELL = (ARCH, "train_4k", "single")
+DRYRUN_PEAK_TOL = 0.10
+
+
+def dryrun_cell_start():
+    """The full-size granite-moe-3b-a800m / train_4k / single cell of
+    launch/dryrun.py (a fake group of 256 ranks, meta tensors: no card),
+    in a process of its own started now and read by ``phase_dryrun``;
+    returns (process, its output file, its directory).  The process is
+    stopped and the directory removed when this script exits, whatever
+    way it does."""
+    import atexit
+    import shutil
+    import tempfile
+    d = tempfile.mkdtemp(prefix=".dryrun-", dir=ROOT)
+    out = os.path.join(d, "cell.json")
+    arch, shape, mesh = DRYRUN_CELL
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+         "--shape", shape, "--mesh", mesh, "--workers", "1", "--out", out],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env=dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1"))
+
+    def stop():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    atexit.register(stop)
+    return proc, out, d
+
+
+def _active_blocks(torch):
+    """{address: block} of the caching allocator's allocated blocks."""
+    return {b["address"]: b for seg in torch.cuda.memory_snapshot()
+            for b in seg["blocks"] if b["state"] == "active_allocated"}
+
+
+def phase_dryrun(torch, dryrun, step_lib, data_lib, kernels, cell):
+    """launch/dryrun.py's count of granite-moe-3b-a800m at the phase-train
+    size (4 x 1024, the bf16 wire, LSH on, one rank: no group) on meta
+    tensors, then one measured step of the same on the card: each
+    kernel's launches equal the count of its op, the state and batch's
+    bytes (``arg_alloc_bytes``: each rounded to the allocator's 512-byte
+    blocks) equal what their allocations asked the caching allocator for
+    (``torch.cuda.memory_snapshot``'s requested sizes, so rounded; the
+    blocks it gave them sum to their ``memory_allocated()``, which
+    holds besides the rest of each segment it did not split), and
+    arg_bytes + temp_bytes within 10% of the step's
+    ``max_memory_allocated()``.  Then the full-size cell's roofline line,
+    as traced by its own process under this torch."""
+    import shutil
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(ARCH)
+    shape = ShapeSpec("phase_train", 1024, 4, "train")
+    t0 = time.time()
+    art = dryrun.lower_cell(ARCH, shape.name, None, shape=shape,
+                            use_lsh=True)
+    log(f"[dryrun] counted {ARCH} 4 x 1024 (one rank) in "
+        f"{time.time() - t0:.1f} s: flops={art['flops_per_device']:.6g} "
+        f"bytes={art['bytes_per_device']:.6g} arg_bytes={art['arg_bytes']} "
+        f"arg_alloc_bytes={art['arg_alloc_bytes']} "
+        f"temp_bytes={art['temp_bytes']} kernels="
+        + json.dumps({k: v["calls"] for k, v in art["kernels"].items()}))
+    opt = dryrun.opt_cfg_for(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    before = _active_blocks(torch)
+    state = step_lib.init_train_state(cfg, opt, seed=0, device="cuda")
+    batch = step_lib.batch_to_device(data_lib.SyntheticLMDataset(
+        cfg.vocab_size, 1024, 4).batch_at(0), torch.device("cuda"))
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    new = [b for a, b in _active_blocks(torch).items() if a not in before]
+    # the allocator's blocks of the state and batch: what each asked for,
+    # in 512-byte units, and what it was given (a block the allocator did
+    # not split keeps the rest of its segment)
+    asked = sum(-(-b["requested_size"] // 512) * 512 for b in new)
+    given = sum(b["size"] for b in new)
+    step_fn = step_lib.make_train_step(cfg, opt, use_lsh=True)
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    state, m = step_fn(state, batch)
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    step_s = time.time() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    launches = {k.name: k.launches for k in kernels}
+    counted = {k.name: art["kernels"].get(k.name, {}).get("calls", 0)
+               for k in kernels}
+    want = art["arg_bytes"] + art["temp_bytes"]
+    log(f"[dryrun] measured step ({step_s:.2f} s, loss {loss:.4f}): "
+        f"launches {json.dumps(launches)}; the state and batch: "
+        f"{len(new)} blocks asked for {asked} bytes (counted "
+        f"{art['arg_alloc_bytes']}), were given {given}, "
+        f"memory_allocated {held}; peak {peak} against arg_bytes + "
+        f"temp_bytes {want} (ratio {want / peak:.4f})")
+    del state, batch, m, step_fn
+    torch.cuda.empty_cache()
+    if launches != counted:
+        raise AssertionError(f"[dryrun] launches {launches} differ from the "
+                             f"counted ops {counted}")
+    if not any(launches.values()):
+        raise AssertionError("[dryrun] the measured step launched no kernel")
+    if asked != art["arg_alloc_bytes"] or given != held:
+        raise AssertionError(f"[dryrun] the state and batch asked for "
+                             f"{asked} bytes (given {given}, allocated "
+                             f"{held}), counted {art['arg_alloc_bytes']}")
+    if abs(want - peak) > DRYRUN_PEAK_TOL * peak:
+        raise AssertionError(f"[dryrun] peak {peak} and arg_bytes + "
+                             f"temp_bytes {want} differ by more than "
+                             f"{DRYRUN_PEAK_TOL:.0%}")
+    proc, out, d = cell
+    try:
+        _, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"[dryrun] the full-size cell exited "
+                                 f"{proc.returncode}: {err[-2000:]}")
+        with open(out) as f:
+            (full,) = json.load(f)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(d, ignore_errors=True)
+    log(f"[dryrun] {'/'.join(DRYRUN_CELL)} traced under torch "
+        f"{torch.__version__} in {full['compile_s']} s: "
+        + json.dumps({k: full[k] for k in (
+            "mesh", "flops_per_device", "bytes_per_device",
+            "wire_bytes_per_device", "collective_counts", "arg_bytes",
+            "temp_bytes", "compute_s", "memory_s", "collective_s",
+            "dominant", "model_flops_ratio", "roofline_fraction")}))
+    return art, full
+
+
+def op_host_us(torch, mods, p, q, n=100):
+    """Host microseconds a call of each kernel at the training shape:
+    through its registered op (the public wrapper), and its CUDA
+    implementation called directly; dispatch_scatter also through a
+    ``torch.library.custom_op`` around the same implementation."""
+    sg, tp, lh = mods["scatter_gather"], mods["token_position"], \
+        mods["lsh_hash"]
+    scm, ram = mods["segment_centroid"], mods["residual_apply"]
+    wq, fw = mods["wire_quant"], mods["fused_wire"]
+    flat, pos, src, buf, w = p["flat"], p["pos"], p["src"], p["buf"], p["w"]
+    E, C = p["E"], p["C"]
+    S = q["S"]
+    slots = torch.clamp(q["slots"], max=S - 1).contiguous()
+    qb, sb = wq.wire_quantize(buf, "int8")
+    qe, se = wq.wire_quantize(q["eout"], "int8")
+    cases = {
+        "positions_in_expert": (tp.positions_in_expert, tp._launch,
+                                (p["ids"], E)),
+        "dispatch_scatter": (sg.dispatch_scatter, sg._scatter_launch,
+                             (flat, pos, src, E, C)),
+        "combine_gather": (sg.combine_gather, sg._gather_launch,
+                           (flat, pos, buf, w)),
+        "lsh_hash": (lh.lsh_hash, lh._launch, (q["x"], q["rot"])),
+        "segment_centroid": (scm.segment_centroid, scm._launch,
+                             (slots, q["disp"], S)),
+        "residual_apply": (ram.residual_apply, ram._launch,
+                           (slots, q["eout"], q["resid"])),
+        "wire_quantize": (wq.wire_quantize, wq._quantize_launch,
+                          (q["eout"], "int8")),
+        "wire_dequantize": (wq.wire_dequantize, wq._dequantize_launch,
+                            (qe, se)),
+        "dispatch_scatter_quantize": (fw.dispatch_scatter_quantize,
+                                      fw._scatter_quantize_launch,
+                                      (flat, pos, src, E, C, "int8")),
+        "dequantize_combine_gather": (fw.dequantize_combine_gather,
+                                      fw._dequantize_gather_launch,
+                                      (flat, pos, qb, sb, w)),
+        "dequantize_residual_apply": (fw.dequantize_residual_apply,
+                                      fw._dequantize_residual_launch,
+                                      (slots, qe, se, q["resid"], None)),
+    }
+
+    @torch.library.custom_op(
+        "repro_smoke::dispatch_scatter", mutates_args=(),
+        schema="(Tensor ids, Tensor pos, Tensor src, int e, int c) "
+               "-> Tensor")
+    def custom(ids, pos, src, e, c):
+        return sg._scatter_launch(ids, pos, src, e, c)
+
+    def host_us(fn, args):
+        fn(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*args)
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    out = {}
+    for name, (op, direct, args) in cases.items():
+        out[name] = {"op_us": host_us(op, args),
+                     "direct_us": host_us(direct, args)}
+    out["dispatch_scatter"]["custom_op_us"] = host_us(
+        custom, (flat, pos, src, E, C))
+    for name, r in out.items():
+        log(f"[kernels] host us a call {name}: "
+            + " ".join(f"{k}={v:.2f}" for k, v in r.items()))
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4467,7 +4697,7 @@ def main() -> int:
                                      ref, residual_apply, scatter_gather,
                                      segment_centroid, token_position,
                                      wire_quant)
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import dryrun, serve, train
     from repro_torch.launch.profiling import summarize
     from repro_torch.models import model as model_lib
     from repro_torch.runtime import step as step_lib
@@ -4475,6 +4705,7 @@ def main() -> int:
     t_start = time.time()
     kernels = list(dispatch.KERNELS)
     smi = phase_device(torch)
+    cell = dryrun_cell_start()
     # every comparison with a plain version runs in full f32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4492,6 +4723,8 @@ def main() -> int:
                 wire_quant=wire_quant, fused_wire=fused_wire, build=build)
     res = phase_kernels(torch, mods, ref, moe_lib, hashing)
     log(f"[time] kernels done at {time.time() - t_start:.1f} s")
+    phase_dryrun(torch, dryrun, step_lib, synthetic, kernels, cell)
+    log(f"[time] dryrun done at {time.time() - t_start:.1f} s")
     cfg = get_config(ARCH)
     _, serve_launches = phase_serve(serve, kernels, routing_k, cfg)
     phase_parity(torch, model_lib, kernels, routing_k, cfg)

@@ -43,8 +43,8 @@ reads the same files and cuts its part by the specs of the mesh it runs
 on (``convert.shard_params``' rule), so a checkpoint restores on another
 mesh, on one card, or in the JAX package, with the same padded expert
 count; another ``E_pad`` is template drift.  Over a mesh of more than
-one rank the specs are required (the ``dp_only`` profile's, whose ranks
-hold every leaf, are all whole); ``specs=None`` is for one rank.
+one rank the specs are required (the ``dp_only`` profile's cut over
+``data`` only); ``specs=None`` is for one rank.
 """
 from __future__ import annotations
 

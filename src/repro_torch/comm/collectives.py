@@ -24,6 +24,10 @@ hops are ``raw_all_to_all`` over a rank's subgroups (comm/hierarchical.py).
 ``ppermute`` ring over ``pipe``): point-to-point sends and receives over
 the group (tune/probe.py).
 
+The reduce-scatter's all-to-all runs under the label "reduce-scatter"
+(``current_label``), so that the dry run's counter (launch/
+cost_analysis.py) counts it as the collective it stands for.
+
 A group of one rank (``None``, or a group of size 1) is the identity
 with no call, as XLA drops a collective over one device.  The
 ``AllToAll``, ``AllGather`` and ``ReduceScatter`` classes always call
@@ -31,6 +35,7 @@ the backend; the functions below them take the shortcut.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import List, Optional
 
 import torch
@@ -38,6 +43,24 @@ import torch.distributed as dist
 
 _BYTES = (torch.bfloat16, torch.float16, torch.float8_e4m3fn,
           torch.float8_e5m2)
+
+
+_LABELS: List[str] = []
+
+
+@contextlib.contextmanager
+def _labelled(kind: str):
+    _LABELS.append(kind)
+    try:
+        yield
+    finally:
+        _LABELS.pop()
+
+
+def current_label() -> Optional[str]:
+    """The collective the backend call in flight stands for, where it
+    runs as another (None: itself)."""
+    return _LABELS[-1] if _LABELS else None
 
 
 def group_size(group) -> int:
@@ -120,7 +143,8 @@ def raw_reduce_scatter(x: torch.Tensor, group, axis: int) -> torch.Tensor:
                          f"over {g} ranks")
     parts = x.reshape(shape[:axis] + [g, shape[axis] // g]
                       + shape[axis + 1:]).movedim(axis, 0)
-    got = raw_all_to_all(parts, group)
+    with _labelled("reduce-scatter"):
+        got = raw_all_to_all(parts, group)
     acc = got[0].to(torch.float32)
     for r in range(1, g):
         acc = acc + got[r].to(torch.float32)

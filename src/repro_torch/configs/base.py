@@ -148,6 +148,11 @@ class ModelConfig:
     def has_attention(self) -> bool:
         return ATTN in {m for m, _ in self.layout}
 
+    def is_subquadratic(self) -> bool:
+        """True where every mixer is O(seq) at decode and the family runs
+        500k-token contexts (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -214,6 +219,35 @@ def active_param_count(cfg: ModelConfig) -> int:
     inactive = n_moe_layers * (cfg.moe.num_experts - cfg.moe.top_k) \
         * per_expert
     return param_count(cfg) - inactive
+
+
+# ---------------------------------------------------------------------------
+# The dry run's shape grid (launch/dryrun.py): every arch with these four.
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                            # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether a dry-run cell applies: long_500k only for sub-quadratic
+    mixers."""
+    if shape.name == "long_500k" and not cfg.is_subquadratic():
+        return False, ("long_500k needs sub-quadratic attention; %s is "
+                       "full-attention" % cfg.family)
+    return True, ""
 
 
 @dataclass(frozen=True)

@@ -138,7 +138,7 @@ def moe_dense_dispatch(x: torch.Tensor, params: Dict, cfg: MoEConfig, *,
     y = routing.combine_tokens(plan, eo.to(torch.float32))
     y = y.reshape(B, S, H).to(x.dtype)
     if n_dp > 1:
-        d = sharding.axis_index(mesh, "data")
+        d = sharding.dp_index(mesh)
         y = y[d * B_loc:(d + 1) * B_loc]
     return y
 

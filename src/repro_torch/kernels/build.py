@@ -10,6 +10,19 @@ rebuilt.  Nothing here runs at import.
 A ``CudaKernel`` is one C entry point plus what the port reports about it:
 the TPU kernel it replaces and ``launches``, the number of times its wrapper
 has launched it in this process.
+
+Each public kernel function is a ``torch.library`` op of the ``repro_torch``
+namespace (``register_op``): its CUDA implementation launches the kernel,
+its CPU implementation is the plain version of ``kernels/ref.py``, and its
+fake implementation gives the output shapes and dtypes only, for tracing
+without a card: under ``FakeTensorMode``, and as the op's Meta kernel on
+meta tensors (launch/dryrun.py).  The dispatcher picks one by the inputs
+(a fake or meta tensor takes the fake one), so there is still no switch
+that sends a CUDA tensor to the plain version.  The ops are defined with
+the low-level ``torch.library.Library`` API; ``chip_smoke.py`` phase
+``kernels`` times a call through each op against its launch called
+directly, and through a ``torch.library.custom_op`` around the same
+launch.
 """
 from __future__ import annotations
 
@@ -21,7 +34,9 @@ import subprocess
 import threading
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Dict, Iterable, Sequence
+from typing import Callable, Dict, Iterable, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -137,3 +152,20 @@ class CudaKernel:
 def source_path(kernel: CudaKernel) -> str:
     """The kernel's source, relative to the repository root."""
     return str((CSRC / kernel.source).relative_to(CSRC.parents[3]))
+
+
+NAMESPACE = "repro_torch"
+_LIB = torch.library.Library(NAMESPACE, "DEF")
+
+
+def register_op(schema: str, *, cuda: Callable, cpu: Callable,
+                fake: Callable):
+    """Define the op ``repro_torch::<name>`` of ``schema`` with its three
+    implementations and return its ``OpOverload`` (module docstring).  An
+    implementation returns new tensors, never an input or a view of one."""
+    name = schema.split("(", 1)[0]
+    _LIB.define(schema)
+    _LIB.impl(name, cuda, "CUDA")
+    _LIB.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"{NAMESPACE}::{name}", fake, lib=_LIB)
+    return getattr(getattr(torch.ops, NAMESPACE), name).default

@@ -8,9 +8,11 @@
   dequantize_residual_apply   residual_apply(slots, wire_dequantize(q, s)
                               - base, residual), base optional
 
-Each is bitwise its composition of the unfused ops.  A CUDA tensor
-launches the kernel; a CPU tensor takes the plain version in
-``kernels/ref.py`` (the composition itself).  Anything else raises.
+Each is bitwise its composition of the unfused ops, and an op of
+``repro_torch`` (kernels/build.register_op): a CUDA tensor launches the
+kernel, a CPU tensor takes the plain version in ``kernels/ref.py`` (the
+composition itself), a fake tensor gives the output shapes.  Anything
+else raises.
 Forward only: the differentiable transfers around them are in
 ``comm/wire.py``.
 """
@@ -22,7 +24,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, register_op
 from repro_torch.kernels.scatter_gather import _check_routing, check_cuda
 from repro_torch.kernels.wire_quant import (FP8, check_scales, payload_format,
                                             quant_dtype)
@@ -58,16 +60,21 @@ def dispatch_scatter_quantize(expert_ids: torch.Tensor, pos: torch.Tensor,
     card one launch runs a memset and two kernels: the row index (into a
     [2, E * C] int32 scratch) and the per-row scatter-quantize."""
     F = _check_routing(expert_ids, pos)
-    dt = quant_dtype(fmt)
+    quant_dtype(fmt)
     if src.dim() != 2 or src.shape[0] != F:
         raise ValueError(f"src must be [F={F}, H], got {tuple(src.shape)}")
     if src.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"src must be bfloat16 or float32, got {src.dtype}")
-    if expert_ids.device.type == "cpu" and src.device.type == "cpu":
-        return ref.dispatch_scatter_quantize_ref(expert_ids, pos, src,
-                                                 num_experts, capacity, fmt)
+    return SCATTER_QUANTIZE_OP(expert_ids, pos, src, num_experts, capacity,
+                               fmt)
+
+
+def _scatter_quantize_launch(expert_ids, pos, src, num_experts: int,
+                             capacity: int, fmt: str
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     check_cuda(expert_ids, pos, src)
-    H = src.shape[1]
+    dt = quant_dtype(fmt)
+    F, H = src.shape
     q = torch.empty(num_experts, capacity, H, dtype=dt, device=src.device)
     scales = torch.empty(num_experts, capacity, dtype=torch.float32,
                          device=src.device)
@@ -97,11 +104,14 @@ def dequantize_combine_gather(expert_ids: torch.Tensor, pos: torch.Tensor,
     if weights.shape != (F,) or weights.dtype != torch.float32:
         raise ValueError(f"weights must be [F={F}] float32, got "
                          f"{tuple(weights.shape)} {weights.dtype}")
-    tensors = (expert_ids, pos, q, scales, weights)
-    if all(t.device.type == "cpu" for t in tensors):
-        return ref.dequantize_combine_gather_ref(expert_ids, pos, q, scales,
-                                                 weights)
-    check_cuda(*tensors)
+    return DEQUANTIZE_GATHER_OP(expert_ids, pos, q, scales, weights)
+
+
+def _dequantize_gather_launch(expert_ids, pos, q, scales, weights
+                              ) -> torch.Tensor:
+    check_cuda(expert_ids, pos, q, scales, weights)
+    fmt = payload_format(q)
+    F = expert_ids.shape[0]
     E, C, H = q.shape
     out = torch.empty(F, H, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -130,7 +140,6 @@ def dequantize_residual_apply(slots: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"slots must be [G={G}, C] int32, got "
                          f"{tuple(slots.shape)} {slots.dtype}")
     C = slots.shape[1]
-    tensors = [slots, q, scales, residual]
     if residual.shape != (G, C, H) or residual.dtype != torch.float32:
         raise ValueError(f"residual must be [{G}, {C}, {H}] float32, got "
                          f"{tuple(residual.shape)} {residual.dtype}")
@@ -138,11 +147,16 @@ def dequantize_residual_apply(slots: torch.Tensor, q: torch.Tensor,
         if base.shape != (G, S, H) or base.dtype != torch.float32:
             raise ValueError(f"base must be [{G}, {S}, {H}] float32, got "
                              f"{tuple(base.shape)} {base.dtype}")
-        tensors.append(base)
-    if all(t.device.type == "cpu" for t in tensors):
-        return ref.dequantize_residual_apply_ref(slots, q, scales, residual,
-                                                 base)
-    check_cuda(*tensors)
+    return DEQUANTIZE_RESIDUAL_OP(slots, q, scales, residual, base)
+
+
+def _dequantize_residual_launch(slots, q, scales, residual, base
+                                ) -> torch.Tensor:
+    check_cuda(*[t for t in (slots, q, scales, residual, base)
+                 if t is not None])
+    fmt = payload_format(q)
+    G, S, H = q.shape
+    C = slots.shape[1]
     out = torch.empty(G, C, H, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
         return out
@@ -153,3 +167,24 @@ def dequantize_residual_apply(slots: torch.Tensor, q: torch.Tensor,
             int(fmt == FP8), G, C, S, H, out.data_ptr(),
             stream=torch.cuda.current_stream().cuda_stream)
     return out
+
+
+SCATTER_QUANTIZE_OP = register_op(
+    "dispatch_scatter_quantize(Tensor expert_ids, Tensor pos, Tensor src, "
+    "int num_experts, int capacity, str fmt) -> (Tensor, Tensor)",
+    cuda=_scatter_quantize_launch, cpu=ref.dispatch_scatter_quantize_ref,
+    fake=lambda ids, pos, src, e, c, fmt: (
+        src.new_empty((e, c, src.shape[1]), dtype=quant_dtype(fmt)),
+        src.new_empty((e, c), dtype=torch.float32)))
+
+DEQUANTIZE_GATHER_OP = register_op(
+    "dequantize_combine_gather(Tensor expert_ids, Tensor pos, Tensor q, "
+    "Tensor scales, Tensor weights) -> Tensor",
+    cuda=_dequantize_gather_launch, cpu=ref.dequantize_combine_gather_ref,
+    fake=lambda ids, pos, q, s, w: w.new_empty((ids.shape[0], q.shape[2])))
+
+DEQUANTIZE_RESIDUAL_OP = register_op(
+    "dequantize_residual_apply(Tensor slots, Tensor q, Tensor scales, "
+    "Tensor residual, Tensor? base) -> Tensor",
+    cuda=_dequantize_residual_launch, cpu=ref.dequantize_residual_apply_ref,
+    fake=lambda slots, q, s, r, b: r.new_empty(r.shape))

@@ -1,8 +1,10 @@
 """``lsh_hash``: CUDA kernel wrapper (counterpart of
 ``repro/kernels/lsh_hash.py``; source ``csrc/lsh_hash.cu``).
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version in
-``kernels/ref.py``.  Anything else raises.
+The op ``repro_torch::lsh_hash`` (kernels/build.register_op): a CUDA
+tensor launches the kernel, a CPU tensor takes the plain version in
+``kernels/ref.py``, a fake tensor gives the output shape.  Anything else
+raises.
 """
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, register_op
 from repro_torch.kernels.scatter_gather import check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -53,8 +55,10 @@ def lsh_hash(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)} and {tuple(rotations.shape)}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
-    if x.device.type == "cpu" and rotations.device.type == "cpu":
-        return ref.lsh_hash_ref(x, rotations)
+    return OP(x, rotations)
+
+
+def _launch(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
     check_cuda(x, rotations.contiguous())
     T, H = x.shape
     L, _, Dr = rotations.shape
@@ -72,6 +76,12 @@ def lsh_hash(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
                       out.data_ptr(),
                       stream=torch.cuda.current_stream().cuda_stream)
     return out
+
+
+OP = register_op("lsh_hash(Tensor x, Tensor rotations) -> Tensor",
+                 cuda=_launch, cpu=ref.lsh_hash_ref,
+                 fake=lambda x, r: x.new_empty((x.shape[0], r.shape[0]),
+                                               dtype=torch.int32))
 
 
 def near_tie_margin(x: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:

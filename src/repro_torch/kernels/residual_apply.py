@@ -1,8 +1,10 @@
 """``residual_apply``: CUDA kernel wrapper (counterpart of
 ``repro/kernels/residual_apply.py``; source ``csrc/residual_apply.cu``).
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version in
-``kernels/ref.py``.  Anything else raises.  No autograd here: the
+The op ``repro_torch::residual_apply`` (kernels/build.register_op): a
+CUDA tensor launches the kernel, a CPU tensor takes the plain version in
+``kernels/ref.py``, a fake tensor gives the output shape.  Anything else
+raises.  No autograd here: the
 differentiable op is ``kernels/dispatch.residual_apply``.
 """
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, register_op
 from repro_torch.kernels.scatter_gather import check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -47,9 +49,14 @@ def residual_apply(slots: torch.Tensor, expert_out: torch.Tensor,
         tensors.append(residual)
     if any(t.dtype != torch.float32 for t in tensors[1:]):
         raise ValueError("expert_out and residual must be float32")
-    if all(t.device.type == "cpu" for t in tensors):
-        return ref.residual_apply_ref(slots, expert_out, residual)
-    check_cuda(*tensors)
+    return OP(slots, expert_out, residual)
+
+
+def _launch(slots: torch.Tensor, expert_out: torch.Tensor,
+            residual: Optional[torch.Tensor]) -> torch.Tensor:
+    check_cuda(*[t for t in (slots, expert_out, residual) if t is not None])
+    G, C = slots.shape
+    H = expert_out.shape[2]
     out = torch.empty(G, C, H, dtype=torch.float32, device=slots.device)
     if out.numel() == 0:
         return out
@@ -59,3 +66,10 @@ def residual_apply(slots: torch.Tensor, expert_out: torch.Tensor,
                       G, C, expert_out.shape[1], H, out.data_ptr(),
                       stream=torch.cuda.current_stream().cuda_stream)
     return out
+
+
+OP = register_op(
+    "residual_apply(Tensor slots, Tensor expert_out, Tensor? residual) "
+    "-> Tensor", cuda=_launch, cpu=ref.residual_apply_ref,
+    fake=lambda slots, eo, r: eo.new_empty(
+        (slots.shape[0], slots.shape[1], eo.shape[2])))

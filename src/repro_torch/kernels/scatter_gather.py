@@ -2,8 +2,10 @@
 (counterpart of ``repro/kernels/scatter_gather.py``; source
 ``csrc/scatter_gather.cu``).
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version in
-``kernels/ref.py``.  Anything else raises.  No autograd here: the
+Each is an op of ``repro_torch`` (kernels/build.register_op): a CUDA
+tensor launches the kernel, a CPU tensor takes the plain version in
+``kernels/ref.py``, a fake tensor gives the output shape.  Anything else
+raises.  No autograd here: the
 differentiable pair (each op is the other's backward) is in
 ``kernels/dispatch.py``.
 """
@@ -14,7 +16,7 @@ import ctypes
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel, load_library
+from repro_torch.kernels.build import CudaKernel, load_library, register_op
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -82,11 +84,13 @@ def dispatch_scatter(expert_ids: torch.Tensor, pos: torch.Tensor,
         raise ValueError(f"src must be [F={F}, H], got {tuple(src.shape)}")
     if src.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"src must be bfloat16 or float32, got {src.dtype}")
-    if expert_ids.device.type == "cpu" and src.device.type == "cpu":
-        return ref.dispatch_scatter_ref(expert_ids, pos, src, num_experts,
-                                        capacity)
+    return SCATTER_OP(expert_ids, pos, src, num_experts, capacity)
+
+
+def _scatter_launch(expert_ids, pos, src, num_experts: int,
+                    capacity: int) -> torch.Tensor:
     check_cuda(expert_ids, pos, src)
-    H = src.shape[1]
+    F, H = src.shape
     out = torch.empty(num_experts, capacity, H, dtype=torch.float32,
                       device=src.device)
     if out.numel() == 0:
@@ -111,9 +115,12 @@ def combine_gather(expert_ids: torch.Tensor, pos: torch.Tensor,
     if weights.shape != (F,) or weights.dtype != torch.float32:
         raise ValueError(f"weights must be [F={F}] float32, got "
                          f"{tuple(weights.shape)} {weights.dtype}")
-    if all(t.device.type == "cpu" for t in (expert_ids, pos, buf, weights)):
-        return ref.combine_gather_ref(expert_ids, pos, buf, weights)
+    return GATHER_OP(expert_ids, pos, buf, weights)
+
+
+def _gather_launch(expert_ids, pos, buf, weights) -> torch.Tensor:
     check_cuda(expert_ids, pos, buf, weights)
+    F = expert_ids.shape[0]
     E, C, H = buf.shape
     out = torch.empty(F, H, dtype=torch.float32, device=buf.device)
     if out.numel() == 0:
@@ -123,3 +130,18 @@ def combine_gather(expert_ids: torch.Tensor, pos: torch.Tensor,
                       weights.data_ptr(), F, E, C, H, out.data_ptr(),
                       stream=torch.cuda.current_stream().cuda_stream)
     return out
+
+
+SCATTER_OP = register_op(
+    "dispatch_scatter(Tensor expert_ids, Tensor pos, Tensor src, "
+    "int num_experts, int capacity) -> Tensor", cuda=_scatter_launch,
+    cpu=ref.dispatch_scatter_ref,
+    fake=lambda ids, pos, src, e, c: src.new_empty(
+        (e, c, src.shape[1]), dtype=torch.float32))
+
+GATHER_OP = register_op(
+    "combine_gather(Tensor expert_ids, Tensor pos, Tensor buf, "
+    "Tensor weights) -> Tensor", cuda=_gather_launch,
+    cpu=ref.combine_gather_ref,
+    fake=lambda ids, pos, buf, w: buf.new_empty((ids.shape[0],
+                                                 buf.shape[2])))

@@ -1,8 +1,10 @@
 """``segment_centroid``: CUDA kernel wrapper (counterpart of
 ``repro/kernels/segment_centroid.py``; source ``csrc/segment_centroid.cu``).
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version in
-``kernels/ref.py``.  Anything else raises.  No autograd here: the
+The op ``repro_torch::segment_centroid`` (kernels/build.register_op): a
+CUDA tensor launches the kernel, a CPU tensor takes the plain version in
+``kernels/ref.py``, a fake tensor gives the output shapes.  Anything else
+raises.  No autograd here: the
 differentiable op is ``kernels/dispatch.segment_centroid``.
 """
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, register_op
 from repro_torch.kernels.scatter_gather import check_cuda
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -70,8 +72,11 @@ def segment_centroid(slots: torch.Tensor, x: torch.Tensor, num_slots: int
                          f"{tuple(x.shape)}")
     if x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be bfloat16 or float32, got {x.dtype}")
-    if slots.device.type == "cpu" and x.device.type == "cpu":
-        return ref.segment_centroid_ref(slots, x, num_slots)
+    return OP(slots, x, num_slots)
+
+
+def _launch(slots: torch.Tensor, x: torch.Tensor, num_slots: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     check_cuda(slots, x)
     G, C, H = x.shape
     if num_slots > MAX_SLOTS:
@@ -92,3 +97,11 @@ def segment_centroid(slots: torch.Tensor, x: torch.Tensor, num_slots: int
                       *work_bounds(C, num_slots),
                       stream=torch.cuda.current_stream().cuda_stream)
     return cent, counts
+
+
+OP = register_op(
+    "segment_centroid(Tensor slots, Tensor x, int num_slots) "
+    "-> (Tensor, Tensor)", cuda=_launch, cpu=ref.segment_centroid_ref,
+    fake=lambda slots, x, s: (
+        x.new_empty((x.shape[0], s, x.shape[2]), dtype=torch.float32),
+        x.new_empty((x.shape[0], s), dtype=torch.float32)))

@@ -1,8 +1,10 @@
 """``positions_in_expert``: CUDA kernel wrapper (counterpart of
 ``repro/kernels/token_position.py``; source ``csrc/token_position.cu``).
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version in
-``kernels/ref.py``.  Anything else raises.
+The op ``repro_torch::positions_in_expert`` (kernels/build.register_op):
+a CUDA tensor launches the kernel, a CPU tensor takes the plain version in
+``kernels/ref.py``, a fake tensor gives the output shapes.  Anything else
+raises.
 """
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, register_op
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -60,10 +62,11 @@ def positions_in_expert(expert_ids: torch.Tensor, num_experts: int
     if expert_ids.dim() != 1 or expert_ids.dtype != torch.int32:
         raise ValueError("expert_ids must be a 1-D int32 tensor, got "
                          f"{tuple(expert_ids.shape)} {expert_ids.dtype}")
-    if expert_ids.device.type == "cpu":
-        return ref.positions_in_expert_ref(expert_ids, num_experts)
-    if expert_ids.device.type != "cuda":
-        raise ValueError(f"unsupported device {expert_ids.device}")
+    return OP(expert_ids, num_experts)
+
+
+def _launch(expert_ids: torch.Tensor, num_experts: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     if not expert_ids.is_contiguous():
         raise ValueError("expert_ids must be contiguous")
     if not 0 < num_experts <= MAX_EXPERTS:
@@ -83,3 +86,13 @@ def positions_in_expert(expert_ids: torch.Tensor, num_experts: int
                       pos.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
                       stream=stream)
     return pos, counts
+
+
+def _fake(expert_ids: torch.Tensor, num_experts: int
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return torch.empty_like(expert_ids), expert_ids.new_empty(num_experts)
+
+
+OP = register_op("positions_in_expert(Tensor expert_ids, int num_experts) "
+                 "-> (Tensor, Tensor)", cuda=_launch,
+                 cpu=ref.positions_in_expert_ref, fake=_fake)

@@ -8,8 +8,10 @@ slot) row.  Power-of-two scales make the pair idempotent on its own
 output: quantize(dequantize(quantize(x))) gives the same int8 payload, and
 for fp8 the same dequantized values (kernels/ref.py, ``po2_scale``).
 
-A CUDA tensor launches the kernel; a CPU tensor takes the plain version in
-``kernels/ref.py``.  Anything else raises.  No autograd here: the
+Each is an op of ``repro_torch`` (kernels/build.register_op): a CUDA
+tensor launches the kernel, a CPU tensor takes the plain version in
+``kernels/ref.py``, a fake tensor gives the output shapes.  Anything else
+raises.  No autograd here: the
 straight-through pair is ``kernels/dispatch.wire_roundtrip``.
 """
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.build import CudaKernel
+from repro_torch.kernels.build import CudaKernel, register_op
 from repro_torch.kernels.scatter_gather import check_cuda
 
 INT8 = "int8"
@@ -86,13 +88,17 @@ def wire_quantize(x: torch.Tensor, fmt: str
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [G, S, H] f32 / bf16 -> (q [G, S, H] int8 | float8_e4m3fn,
     scales [G, S] f32); empty rows get scale 1 and a zero payload."""
-    dt = quant_dtype(fmt)
+    quant_dtype(fmt)
     if x.dim() != 3 or x.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"x must be [G, S, H] bfloat16 or float32, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
-        return ref.wire_quantize_ref(x, fmt)
+    return QUANTIZE_OP(x, fmt)
+
+
+def _quantize_launch(x: torch.Tensor, fmt: str
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     check_cuda(x)
+    dt = quant_dtype(fmt)
     G, S, H = x.shape
     q = torch.empty(G, S, H, dtype=dt, device=x.device)
     scales = torch.empty(G, S, dtype=torch.float32, device=x.device)
@@ -109,11 +115,15 @@ def wire_quantize(x: torch.Tensor, fmt: str
 def wire_dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     """(q [G, S, H] int8 | float8_e4m3fn, scales [G, S] f32) -> [G, S, H]
     f32 = q * scale."""
-    fmt = payload_format(q)
+    payload_format(q)
     check_scales(q, scales)
-    if q.device.type == "cpu" and scales.device.type == "cpu":
-        return ref.wire_dequantize_ref(q, scales)
+    return DEQUANTIZE_OP(q, scales)
+
+
+def _dequantize_launch(q: torch.Tensor, scales: torch.Tensor
+                       ) -> torch.Tensor:
     check_cuda(q, scales)
+    fmt = payload_format(q)
     G, S, H = q.shape
     out = torch.empty(G, S, H, dtype=torch.float32, device=q.device)
     if out.numel() == 0:
@@ -123,3 +133,15 @@ def wire_dequantize(q: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
                           G * S, H, out.data_ptr(),
                           stream=torch.cuda.current_stream().cuda_stream)
     return out
+
+
+QUANTIZE_OP = register_op(
+    "wire_quantize(Tensor x, str fmt) -> (Tensor, Tensor)",
+    cuda=_quantize_launch, cpu=ref.wire_quantize_ref,
+    fake=lambda x, fmt: (x.new_empty(x.shape, dtype=quant_dtype(fmt)),
+                         x.new_empty(x.shape[:2], dtype=torch.float32)))
+
+DEQUANTIZE_OP = register_op(
+    "wire_dequantize(Tensor q, Tensor scales) -> Tensor",
+    cuda=_dequantize_launch, cpu=ref.wire_dequantize_ref,
+    fake=lambda q, s: q.new_empty(q.shape, dtype=torch.float32))

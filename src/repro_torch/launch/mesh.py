@@ -1,7 +1,10 @@
-"""A (data, model) or (data, pipe, model) mesh of ``torch.distributed``
-process groups (counterpart of ``repro/launch/mesh.py``).
+"""A ([pod,] data, [pipe,] model) mesh of ``torch.distributed`` process
+groups (counterpart of ``repro/launch/mesh.py``).
 
 Axes, as in the JAX package:
+  pod    data parallelism across pods (the 512-rank production mesh):
+         the batch splits over (pod, data), the params are whole over it;
+         left out when it has one rank;
   data   data parallelism and FSDP of every split weight
          (runtime/params.py);
   pipe   the 1F1B pipeline's stage axis (runtime/pipeline_schedule.py),
@@ -12,12 +15,14 @@ Axes, as in the JAX package:
          residual stream between blocks is sharded over it by sequence.
 
 Ranks are laid out row-major over the mesh shape, as the JAX package's
-``devs.reshape(shape)`` lays out devices: rank = (d * pipe + p) * model
-+ m.  A group is made for every slice of every axis of more than one
-rank, on every rank in the same order (``dist.new_group`` is
-collective), one for the (data, model) slice of each pipe index, and one
-for the whole mesh; an axis of one rank has no group, and the
-collectives treat a missing group as the identity (comm/collectives.py).
+``devs.reshape(shape)`` lays out devices: rank = ((o * data + d) * pipe
++ p) * model + m.  A group is made for every slice of every axis of more
+than one rank, on every rank in the same order (``dist.new_group`` is
+collective), one for each slice of every other set of the non-pipe axes
+(the (data, model) slice of each pipe index; with a pod axis, the sets
+a gradient is summed over, runtime/step.py), and one for the whole mesh;
+an axis of one rank has no group, and the collectives treat a missing
+group as the identity (comm/collectives.py).
 The pipe axis partitions the schedule, not the placement: the ranks of
 one pipe column hold the same params and the same rows and compute the
 same thing, so a step's reductions run over its (data, model) slice
@@ -43,6 +48,7 @@ tests do.
 from __future__ import annotations
 
 import datetime
+import itertools
 import math
 import os
 import subprocess
@@ -60,14 +66,22 @@ from repro_torch.comm.topology import factor
 AXES = ("data", "model")
 PIPE_AXES = ("data", "pipe", "model")
 
+# An HGX H100 host holds 8 cards on NVLink: the fast intra-node domain the
+# 2-hop all-to-all exploits (the JAX package's v5e host holds 4 chips).
+H100_GPUS_PER_HOST = 8
 
-def mesh_dims(data: int, pipe: int, model: int):
+
+def mesh_dims(data: int, pipe: int, model: int, pod: int = 1):
     """(shape, axes) with the pipe axis left out at pipe == 1 (the JAX
-    ``_mesh_dims``)."""
-    pipe = max(1, int(pipe))
+    ``_mesh_dims``) and the pod axis in front where pod > 1."""
+    pipe, pod = max(1, int(pipe)), max(1, int(pod))
     if pipe > 1:
-        return (int(data), pipe, int(model)), PIPE_AXES
-    return (int(data), int(model)), AXES
+        shape, axes = (int(data), pipe, int(model)), PIPE_AXES
+    else:
+        shape, axes = (int(data), int(model)), AXES
+    if pod > 1:
+        shape, axes = (pod,) + shape, ("pod",) + axes
+    return shape, axes
 
 
 def backend_for(device: torch.device) -> str:
@@ -115,13 +129,14 @@ class Mesh:
 
     ``Mesh(shape)`` alone describes a mesh without groups (what the
     planner and the shape checks read); a shape of three sizes has a pipe
-    axis.  ``make_mesh`` builds the groups of a started default group."""
+    axis unless ``axes`` names them.  ``make_mesh`` builds the groups of
+    a started default group."""
 
     def __init__(self, shape: Tuple[int, ...], *, rank: int = 0,
                  groups: Optional[Dict[Tuple[str, ...], object]] = None,
-                 node_size: int = 0):
+                 node_size: int = 0, axes: Optional[Tuple[str, ...]] = None):
         shape = tuple(int(s) for s in shape)
-        self.axis_names: Tuple[str, ...] = \
+        self.axis_names: Tuple[str, ...] = tuple(axes) if axes else \
             PIPE_AXES if len(shape) == 3 else AXES
         self.shape = dict(zip(self.axis_names, shape))
         self.size = math.prod(self.shape.values())
@@ -234,7 +249,7 @@ def _new_hop_groups(shape: Dict[str, int], rank: int, intra: int
         raise ValueError(f"{intra} ranks a node do not factor a model "
                          f"axis of {m}")
     mine = [None, None]
-    for column in _slices(shape, ("model",)):   # one a (data, pipe) index
+    for column in _slices(shape, ("model",)):   # one a (pod, data, pipe)
         for hop, lists in enumerate((intra_groups(m, intra),
                                      inter_groups(m, intra))):
             for local in lists:
@@ -245,15 +260,28 @@ def _new_hop_groups(shape: Dict[str, int], rank: int, intra: int
     return mine[0], mine[1]
 
 
+def _axis_sets(names: Tuple[str, ...]) -> List[Tuple[str, ...]]:
+    """The sets of axes that get groups, in the order they are made: each
+    axis, then every other set of the non-pipe axes (larger first), then
+    the whole mesh."""
+    flat = [a for a in names if a != "pipe"]
+    sets = [(a,) for a in names]
+    for k in range(len(flat), 1, -1):
+        for combo in itertools.combinations(flat, k):
+            if combo != names:
+                sets.append(combo)
+    return sets + [names]
+
+
 def make_mesh(data: int = 1, model: int = 1, pipe: int = 1, *,
-              node_size: int = 0) -> Mesh:
+              pod: int = 1, node_size: int = 0) -> Mesh:
     """The mesh over the started default group, whose size must be
-    data * pipe * model: (data, model), or (data, pipe, model) when
-    ``pipe`` > 1.  ``node_size`` is the ranks a node holds (0: torchrun's
-    LOCAL_WORLD_SIZE when the mesh spans several hosts), for the planner;
-    where it factors the model axis, the 2-hop's subgroups are built
-    too."""
-    dims, names = mesh_dims(data, pipe, model)
+    pod * data * pipe * model: (data, model), with ``pipe`` > 1 (data,
+    pipe, model), with ``pod`` > 1 the pod axis in front.  ``node_size``
+    is the ranks a node holds (0: torchrun's LOCAL_WORLD_SIZE when the
+    mesh spans several hosts), for the planner; where it factors the
+    model axis, the 2-hop's subgroups are built too."""
+    dims, names = mesh_dims(data, pipe, model, pod)
     shape = dict(zip(names, dims))
     world = dist.get_world_size() if dist.is_initialized() else 1
     if math.prod(dims) != world:
@@ -261,10 +289,7 @@ def make_mesh(data: int = 1, model: int = 1, pipe: int = 1, *,
                          f"default group has {world}")
     rank = dist.get_rank() if dist.is_initialized() else 0
     groups: Dict[Tuple[str, ...], object] = {}
-    axis_sets = [(a,) for a in names]
-    if "pipe" in names:
-        axis_sets.append(("data", "model"))
-    for axes in axis_sets + [names]:
+    for axes in _axis_sets(names):
         if math.prod(shape[a] for a in axes) == 1:
             continue
         if axes == names:
@@ -278,10 +303,25 @@ def make_mesh(data: int = 1, model: int = 1, pipe: int = 1, *,
         # ranks a host holds, when the mesh spans several hosts
         local = int(os.environ.get("LOCAL_WORLD_SIZE", "0") or 0)
         node_size = local if 0 < local < world else 0
-    mesh = Mesh(dims, rank=rank, groups=groups, node_size=node_size)
+    mesh = Mesh(dims, rank=rank, groups=groups, node_size=node_size,
+                axes=names)
     if factor(shape["model"], node_size)[0] > 1:
         mesh.hop_groups(node_size)
     return mesh
+
+
+def make_production_mesh(*, multi_pod: bool = False, pipe: int = 1,
+                         node_size: int = H100_GPUS_PER_HOST) -> Mesh:
+    """The JAX package's production mesh over the started default group:
+    one pod is 16 x 16 = 256 ranks (data, model), two are 2 x 16 x 16 =
+    512 (pod, data, model); ``pipe`` > 1 carves the stage axis out of
+    ``data``, (16 / pipe, pipe, 16).  ``node_size`` ranks a host (an HGX
+    H100 holds 8) factor the model axis for the 2-hop all-to-all."""
+    pipe = max(1, int(pipe))
+    if 16 % pipe:
+        raise ValueError(f"pipe={pipe} must divide the data dimension (16)")
+    return make_mesh(16 // pipe, 16, pipe, pod=2 if multi_pod else 1,
+                     node_size=node_size)
 
 
 # ------------------------------------------------- local CPU ranks --

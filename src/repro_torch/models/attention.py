@@ -12,7 +12,10 @@ rank's heads of q, k and v over all of it (K and V whole, on every rank,
 where the kv heads are fewer than the model ranks), and ``tp_project``
 reduce-scatters the output projection back to the rank's sequence slice;
 attention itself runs over the whole sequence on the rank's heads, whose
-kv chunks are then the one-device ones."""
+kv chunks are then the one-device ones.  Query (or kv) heads that do not
+split over ``model`` take runtime/tp.py's replicated fallback: every head
+on every rank, and the output projection sliced back to the rank's
+sequence."""
 from __future__ import annotations
 
 import math
@@ -102,19 +105,23 @@ def attention_apply(params: Dict, x: torch.Tensor, *, num_heads: int,
         sq, sk, sv = specs["wq"], specs["wk"], specs["wv"]
         # kv heads fewer than the model ranks: K and V whole on every rank
         rep = num_kv_heads < g
-        if num_heads % g or not rep and num_kv_heads % g:
-            raise ValueError(f"{num_heads} query and {num_kv_heads} kv "
-                             f"heads do not split over a model axis of {g}")
+        # heads that do not split: every head on every rank (runtime/tp.py)
+        whole = bool(num_heads % g or not rep and num_kv_heads % g) \
+            or tp.projects_whole(mesh, (sq, sk, sv), (False, rep, rep))
         if kv_x is None:
             q, k, v = tp.tp_in_project(
                 x, (params["wq"], params["wk"], params["wv"]), mesh,
-                (sq, sk, sv), replicate=(False, rep, rep))
+                (sq, sk, sv), replicate=(False, rep, rep), whole=whole)
         else:
-            (q,) = tp.tp_in_project(x, (params["wq"],), mesh, (sq,))
+            (q,) = tp.tp_in_project(x, (params["wq"],), mesh, (sq,),
+                                    whole=whole)
             k, v = tp.tp_in_project(src, (params["wk"], params["wv"]), mesh,
-                                    (sk, sv), replicate=(rep, rep))
+                                    (sk, sv), replicate=(rep, rep),
+                                    whole=whole)
         S, nh = q.shape[1], num_heads // g
-        if rep:
+        if whole:
+            nh, nkv = num_heads, num_kv_heads
+        elif rep:
             # each rank's query heads read their kv heads of the whole K / V
             m, grp = sharding.axis_index(mesh, "model"), \
                 num_heads // num_kv_heads

@@ -102,6 +102,12 @@ def sinusoid_rows(start: int, n: int, d: int, device) -> torch.Tensor:
     return table[start:start + n]
 
 
+def clear_sinusoid_tables() -> None:
+    """Forget the kept tables, so that each cell of the dry run counts a
+    table's build, as a fresh process does."""
+    _SINUSOID_TABLES.clear()
+
+
 # ------------------------------------------------------------------ MLPs --
 
 def activation(h: torch.Tensor, g: torch.Tensor, act: str) -> torch.Tensor:

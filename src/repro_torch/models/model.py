@@ -160,7 +160,8 @@ def init_params(cfg: ModelConfig, *, seed: int = 0,
     {"layers": num_encoder_super_blocks (attention, dense) layers,
     "final_norm"}``."""
     check_supported(cfg)
-    return _init(cfg, seed, resolve_device(device), mesh, True)
+    with sharding.parallelism_profile(cfg.dp_only):
+        return _init(cfg, seed, resolve_device(device), mesh, True)
 
 
 def logical_params(cfg: ModelConfig, mesh=None) -> Dict:
@@ -335,7 +336,8 @@ def head_logits(params: Dict, cfg: ModelConfig, x: torch.Tensor,
     else:
         w, spec = params["head"]["w"], specs["head"]["w"]
     if "model" in spec[1]:
-        (logits,) = tp.tp_in_project(x, [w.to(x.dtype)], mesh, [spec])
+        (logits,) = tp.tp_in_project(x, [w.to(x.dtype)], mesh, [spec],
+                                     whole=False)
         return logits.to(torch.float32)
     if cfg.tie_embeddings:
         return unembed(params["embed"], x)
@@ -674,9 +676,26 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
     With a mesh the batch is the global one, the params the rank's
     shards, and every rank returns the global logits (gathered over
     ``model``, which holds the vocabulary columns, or the sequence where
-    the vocabulary does not split, and ``data``).  The serve loop keeps
-    its teacher-forced prefill, as the JAX launcher does."""
+    the vocabulary does not split, and the dp axes).  Under
+    ``cfg.dp_only`` every rank gathers the params whole and runs the
+    mesh-free forward on its rows of the batch
+    (``sharding.dp_only_batch_axes``), and the logits are gathered over
+    those axes.  The serve loop keeps its teacher-forced prefill, as the
+    JAX launcher does."""
     tokens = batch["tokens"]
+    if cfg.dp_only and sharding.num_ranks(mesh) > 1:
+        axes = sharding.dp_only_batch_axes(mesh, tokens.shape[0])
+        rows = sharding.dp_only_batch_slice(mesh, tokens.shape[0])
+        local = {k: v[rows] for k, v in batch.items() if k != "labels"}
+        whole = gather_params(params, mesh,
+                              params_lib.model_specs(cfg, mesh))
+        logits, _ = forward(whole, cfg, local["tokens"], moe_mode="prefill",
+                            **_inputs(cfg, local))
+        last = logits[:, -1:, :].contiguous()
+        if axes:
+            last = collectives.raw_all_gather(last, sharding.group(mesh,
+                                                                   axes), 0)
+        return last, {"position": int(tokens.shape[1])}
     local = sharding.shard_batch({k: v for k, v in batch.items()
                                   if k != "labels"}, mesh)
     logits, _ = forward(params, cfg, local["tokens"], mesh=mesh,
@@ -687,9 +706,9 @@ def prefill(params: Dict, cfg: ModelConfig, batch: Dict,
         last = collectives.raw_all_gather(
             last.contiguous(), sharding.model_group(mesh), 2 if split else 1)
         last = last if split else last[:, -1:, :]
-    if sharding.axis_size(mesh, "data") > 1:
+    if sharding.dp_size(mesh) > 1:
         last = collectives.raw_all_gather(last.contiguous(),
-                                          sharding.group(mesh, "data"), 0)
+                                          sharding.dp_group(mesh), 0)
     return last, {"position": int(tokens.shape[1])}
 
 

@@ -163,9 +163,14 @@ def mamba_apply(params: Dict, x: torch.Tensor, cfg, norm_eps: float = 1e-5,
         # vectors and conv_w are the rank's shards too (runtime/params.py)
         g = sharding.axis_size(mesh, "model")
         names = ("w_z", "w_x", "w_b", "w_c", "w_dt")
+        rep = (False, False, True, True, False)
+        if tp.projects_whole(mesh, [specs[k] for k in names], rep):
+            raise ValueError(
+                f"Mamba projections of {nh} heads that do not split over a "
+                f"model axis of {g} (or rows over data)")
         z, xr, Bm, Cm, dt = tp.tp_in_project(
             x, [params[k] for k in names], mesh, [specs[k] for k in names],
-            replicate=(False, False, True, True, False))
+            replicate=rep, whole=False)
         nh, d_inner, S = nh // g, d_inner // g, S * g
     Bm, Cm = Bm.to(torch.float32), Cm.to(torch.float32)
     dt = softplus(dt.to(torch.float32) + params["dt_bias"])

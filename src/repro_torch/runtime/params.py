@@ -159,19 +159,12 @@ def moment_specs(params: Any, mesh, moment_dtype: str) -> Any:
 def train_state_specs(cfg, mesh, moment_dtype: str):
     """The spec tree of ``cfg``'s ``TrainState`` over ``mesh``: the
     params' ``model_specs``, each moment's ``model_moment_specs``, the
-    step and skip count whole.  Under ``dp_only`` every rank holds every
-    leaf: every spec whole.  None without a mesh."""
+    step and skip count whole (``dp_only``: the pure data-parallel
+    profile's specs, FSDP over ``data``).  None without a mesh."""
     from repro_torch.optim.adam import OptState
     from repro_torch.runtime.step import TrainState
     if mesh is None:
         return None
-    if cfg.dp_only:
-        meta = _meta_params(cfg, mesh)
-        whole = _walk(meta, lambda n, t: ((),) * t.dim())
-        m = _walk(meta, lambda n, t: None if not t.is_floating_point()
-                  else {"q": ((),) * t.dim(), "scale": ((),) * t.dim()}
-                  if moment_dtype == "int8" else ((),) * t.dim())
-        return TrainState(whole, OptState((), m, m, ()))
     m = model_moment_specs(cfg, mesh, moment_dtype)
     return TrainState(model_specs(cfg, mesh), OptState((), m, m, ()))
 
@@ -181,25 +174,31 @@ def _meta_params(cfg, mesh):
     return model_lib.logical_params(cfg, mesh)
 
 
+def _shape_mesh(shape: Tuple[Tuple[str, int], ...]):
+    from repro_torch.launch.mesh import Mesh
+    return Mesh(tuple(s for _, s in shape), axes=tuple(a for a, _ in shape))
+
+
 @functools.lru_cache(maxsize=32)
 def _model_specs(cfg, shape: Tuple[Tuple[str, int], ...]):
-    from repro_torch.launch.mesh import Mesh
-    mesh = Mesh(tuple(s for _, s in shape))
-    return param_specs(_meta_params(cfg, mesh), mesh)
+    mesh = _shape_mesh(shape)
+    with sharding.parallelism_profile(cfg.dp_only):
+        return param_specs(_meta_params(cfg, mesh), mesh)
 
 
 def model_specs(cfg, mesh) -> Any:
     """``param_specs`` of ``cfg``'s params over ``mesh``, from their
-    shapes on the meta device; cached."""
+    shapes on the meta device, under the profile of ``cfg.dp_only``;
+    cached."""
     return _model_specs(cfg, tuple(mesh.shape.items()))
 
 
 @functools.lru_cache(maxsize=32)
 def _model_moment_specs(cfg, shape: Tuple[Tuple[str, int], ...],
                         moment_dtype: str):
-    from repro_torch.launch.mesh import Mesh
-    mesh = Mesh(tuple(s for _, s in shape))
-    return moment_specs(_meta_params(cfg, mesh), mesh, moment_dtype)
+    mesh = _shape_mesh(shape)
+    with sharding.parallelism_profile(cfg.dp_only):
+        return moment_specs(_meta_params(cfg, mesh), mesh, moment_dtype)
 
 
 def model_moment_specs(cfg, mesh, moment_dtype: str) -> Any:
@@ -352,19 +351,22 @@ def flat_specs(specs: Any, prefix: str = "") -> Dict[str, Spec]:
     return out
 
 
+_STEP_AXES = ("pod", "data", "model")
+
+
 def sum_axes(spec: Spec, mesh) -> Tuple[str, ...]:
-    """The (data, model) axes a gradient of ``spec`` is still summed
+    """The (pod, data, model) axes a gradient of ``spec`` is still summed
     over after autograd: those it does not split over (over the ones it
     splits over, the gathers' reduce-scatters summed it)."""
     split = {a for axes in spec for a in axes}
-    return tuple(a for a in ("data", "model")
+    return tuple(a for a in _STEP_AXES
                  if a not in split and sharding.axis_size(mesh, a) > 1)
 
 
 def split_axes(spec: Spec, mesh) -> Tuple[str, ...]:
     """The axes of more than one rank that ``spec`` splits over."""
     split = {a for axes in spec for a in axes}
-    return tuple(a for a in ("data", "model")
+    return tuple(a for a in _STEP_AXES
                  if a in split and sharding.axis_size(mesh, a) > 1)
 
 
@@ -381,3 +383,83 @@ def local_bytes(params: Any, specs: Any, mesh) -> int:
     map_specs(add, params, specs)
     return total
 
+
+# ---------------------------------------------- batches and decode state --
+
+def batch_specs(cfg, mesh) -> Dict[str, Spec]:
+    """The JAX package's ``batch_specs``: "tokens" and "labels" [B, S] by
+    batch, "frames" [B, S_enc, H] by batch and sequence, "patch_embeds"
+    [B, P, H] by batch, under the active profile's rules (a dimension
+    that does not divide stays whole: ``_divisible`` on the shapes)."""
+    tok = sharding.resolve(mesh, "batch", None)
+    out = {"tokens": tok, "labels": tok}
+    if cfg.encoder_decoder:
+        out["frames"] = sharding.resolve(mesh, "batch", "seq", None)
+    if cfg.frontend == "patch_stub":
+        out["patch_embeds"] = sharding.resolve(mesh, "batch", None, None)
+    return out
+
+
+def decode_state_specs(cfg, batch: int, mesh, max_len: int = 0) -> Dict:
+    """The JAX package's ``decode_state_specs``: how it lays out the
+    decode state, one dict of specs a layout entry (a layer's state,
+    without JAX's stacked leading dimension) and the position.  Big-batch
+    decode (the batch divides over the dp axes): batch over them, the
+    cache's sequence over ``model``; batch 1: the sequence over (dp axes,
+    model).  The port's decode keeps each rank's rows with the whole
+    sequence (models/model.decode_step); launch/dryrun.py reports the
+    bytes this layout would give beside the port's."""
+    dp = sharding.dp_axes(mesh)
+    n_dp = sharding.dp_size(mesh)
+    n_model = sharding.axis_size(mesh, "model")
+
+    def ok(n, size):
+        return size > 0 and n > 0 and size % n == 0
+
+    big_batch = ok(n_dp, batch)
+    bspec = dp if big_batch else ()
+    if big_batch:
+        seq = ("model",) if ok(n_model, max_len) else ()
+    elif ok(n_dp * n_model, max_len):
+        seq = dp + ("model",)
+    elif ok(n_dp, max_len):
+        seq = dp
+    else:
+        seq = ()
+
+    def maybe(dim):
+        return ("model",) if ok(n_model, dim) else ()
+
+    dh = cfg.resolved_head_dim
+    d_inner = cfg.ssm.expand * cfg.d_model
+    nh_m = d_inner // cfg.ssm.head_dim
+    d_in_x = int(cfg.xlstm.mlstm_proj_factor * cfg.d_model)
+    d_in_x -= d_in_x % dh
+    nh_x = d_in_x // dh
+    entries = []
+    for mixer, _ in cfg.layout:
+        if mixer == "attn":
+            if "model" in seq:
+                head, dhs = (), ()          # model already on the sequence
+            else:
+                head = maybe(cfg.num_kv_heads)
+                dhs = () if head else maybe(dh)
+            kv = (bspec, seq, head, dhs)
+            st = {"k": kv, "v": kv}
+            if cfg.encoder_decoder:
+                st.update(cross_k=kv, cross_v=kv)
+        elif mixer == "mamba":
+            st = {"h": (bspec, maybe(nh_m), (), ()),
+                  "conv": (bspec, (), maybe(d_inner))}
+        elif mixer == "mlstm":
+            hs = maybe(nh_x)
+            ds = () if hs else maybe(dh)
+            st = {"C": (bspec, hs, ds, ()), "n": (bspec, hs, ds),
+                  "m": (bspec, hs)}
+        elif mixer == "slstm":
+            st = {n: (bspec, maybe(cfg.d_model)) for n in ("c", "n", "h",
+                                                          "m")}
+        else:
+            st = {}
+        entries.append(st)
+    return {"entries": entries, "position": ()}

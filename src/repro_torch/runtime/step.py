@@ -21,8 +21,14 @@ all-reduce a bucket for each set of axes); on a (data, pipe, model)
 mesh the axes are those of the rank's pipe index, whose pipe indices
 compute the same thing.  The clip norm is the logical gradient's
 (``adam.global_norm``).
-``cfg.dp_only`` is the pure data-parallel profile: the batch over every
-rank, the whole model on each, the gradients averaged over all ranks.
+A ``pod`` axis is data parallelism as ``data`` is: every param is whole
+over it, so every gradient is summed over it too.
+``cfg.dp_only`` is the pure data-parallel profile (the JAX
+``_DP_ONLY_RULES``): the batch over every rank, params and moments FSDP
+over ``data`` only (``params.model_specs`` under the profile); each rank
+gathers every leaf whole over ``data``, runs the mesh-free loss on its
+rows, and the gradients are averaged over all ranks, reduce-scattered
+over ``data`` to the rank's shards.
 
 ``microbatch=k`` accumulates gradients over the global batch's rows
 [b * k, (b + 1) * k) in turn (cut over the mesh by ``shard_batch``), as
@@ -49,6 +55,7 @@ import torch
 from repro_torch import DeviceLike
 from repro_torch.comm import collectives
 from repro_torch.configs.base import ModelConfig, OptimizerConfig
+from repro_torch.convert import gather_params
 from repro_torch.data.pipeline import place as batch_to_device  # noqa: F401
 from repro_torch.models import model as model_lib
 from repro_torch.optim.adam import (OptState, adamw_init, adamw_update,
@@ -93,10 +100,9 @@ def init_train_state(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
                      seed: int = 0, device: DeviceLike = None,
                      mesh=None) -> TrainState:
     """With a mesh: this rank's shard of every param (``init_params``,
-    runtime/params.py) and of its moments; under ``cfg.dp_only`` every
-    rank holds all of them."""
-    params = model_lib.init_params(cfg, seed=seed, device=device,
-                                   mesh=None if cfg.dp_only else mesh)
+    runtime/params.py, by ``cfg.dp_only``'s profile) and of its
+    moments."""
+    params = model_lib.init_params(cfg, seed=seed, device=device, mesh=mesh)
     return TrainState(params, adamw_init(params, opt_cfg, _int8_splits(
         params, opt_cfg, mesh, mesh_specs(cfg, mesh),
         moment_specs(cfg, opt_cfg, mesh))))
@@ -144,17 +150,16 @@ def apply_gradients(state: TrainState, opt_cfg: OptimizerConfig,
 
 
 def mesh_specs(cfg: ModelConfig, mesh):
-    """The params' specs over ``mesh`` (None without a mesh or under
-    ``dp_only``, whose ranks hold every param whole)."""
-    if mesh is None or cfg.dp_only:
+    """The params' specs over ``mesh`` (None without a mesh)."""
+    if mesh is None:
         return None
     return params_lib.model_specs(cfg, mesh)
 
 
 def moment_specs(cfg: ModelConfig, opt_cfg: OptimizerConfig, mesh):
     """The moments' specs over ``mesh`` (``params.model_moment_specs``;
-    None where ``mesh_specs`` is None)."""
-    if mesh is None or cfg.dp_only:
+    None without a mesh)."""
+    if mesh is None:
         return None
     return params_lib.model_moment_specs(cfg, mesh, opt_cfg.moment_dtype)
 
@@ -282,14 +287,40 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig, *,
     return train_step
 
 
+def _dp_only_grads(grads, specs, mesh, n: int) -> list:
+    """Whole gradients -> the rank's shards of their mean over every rank:
+    a leaf split over ``data`` reduce-scattered over it, then summed over
+    the other axes; a whole leaf summed over every rank (one bucketed
+    all-reduce a set of axes)."""
+    world = sharding.all_group(mesh)
+    rest = tuple(a for a in mesh.axis_names if a not in ("data", "pipe"))
+    out, by_group = [], {}
+    for g, spec in zip(grads, specs):
+        dims = [d for d, axes in enumerate(spec) if "data" in axes]
+        if g is not None and dims:
+            g = collectives.raw_reduce_scatter(
+                g, sharding.group(mesh, "data"), dims[0])
+            by_group.setdefault(rest, []).append(g)
+        elif g is not None:
+            by_group.setdefault(None, []).append(g)
+        out.append(g)
+    for axes, gs in by_group.items():
+        collectives.all_reduce_sum_(
+            gs, world if axes is None else sharding.group(mesh, axes))
+    return [None if g is None else g / n for g in out]
+
+
 def _make_dp_only_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
                              mesh, *, use_lsh: Optional[bool]):
-    """The JAX ``_make_dp_only_train_step``: each rank runs the mesh-free
-    loss on its rows of the batch (over as many axes as divide it,
-    ``sharding.dp_only_batch_slice``), then the gradients, the loss and
-    the metrics are averaged over every rank."""
+    """The JAX ``_make_dp_only_train_step``: each rank gathers its params
+    whole over ``data``, runs the mesh-free loss on its rows of the batch
+    (over as many axes as divide it, ``sharding.dp_only_batch_slice``),
+    then the gradients (to the rank's shards, ``_dp_only_grads``), the
+    loss and the metrics are averaged over every rank."""
     world = sharding.all_group(mesh)
     n = collectives.group_size(world)
+    specs = mesh_specs(cfg, mesh)
+    mspecs = moment_specs(cfg, opt_cfg, mesh)
 
     def mean(t: torch.Tensor) -> torch.Tensor:
         return collectives.all_reduce_sum(t, world) / n
@@ -298,13 +329,16 @@ def _make_dp_only_train_step(cfg: ModelConfig, opt_cfg: OptimizerConfig,
         batch, chaos_scale = split_chaos_scale(batch)
         rows = sharding.dp_only_batch_slice(mesh, batch["tokens"].shape[0])
         local = {k: v[rows] for k, v in batch.items()}
-        loss, metrics, grads = _loss_and_grads(state.params, cfg, local,
-                                               use_lsh, None)
-        collectives.all_reduce_sum_(grads, world)
-        grads = [None if g is None else g / n for g in grads]
+        whole = gather_params(state.params, mesh, specs)
+        loss, metrics, grads = _loss_and_grads(whole, cfg, local, use_lsh,
+                                               None)
+        del whole
+        grads = _dp_only_grads(grads, params_lib.spec_leaves(
+            state.params, specs), mesh, n)
         metrics = {k: mean(v) for k, v in metrics.items()}
         loss = apply_chaos_scale(mean(loss), chaos_scale)
-        return apply_gradients(state, opt_cfg, loss, metrics, grads)
+        return apply_gradients(state, opt_cfg, loss, metrics, grads,
+                               mesh=mesh, specs=specs, mspecs=mspecs)
 
     return train_step
 

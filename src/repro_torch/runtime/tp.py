@@ -33,31 +33,37 @@ weight the rules keep whole over ``model`` (a ``replicate`` projection
 of uncut columns, the norm scale ``tp_rmsnorm`` reads in slices) gets
 the terms of the rank's own tokens, or zeros outside its slice, and the
 step sums it over the axes it does not split over (runtime/step.py).
-JAX's ``REPRO_DISABLE_TP_OPT`` switch and its GSPMD fallback have no
-counterpart: a width that does not split over the axis raises.
+
+Widths that do not split take the JAX package's fallback
+(``repro/runtime/tp.py:99-108``): where a projection's columns do not
+split over ``model``, or its rows over ``data`` (``projects_whole``), or
+the caller asks for it (attention whose query heads do not split),
+``tp_in_project`` computes every projection of the call replicated over
+``model``: every rank takes the whole sequence and the whole weights
+(gathered by their specs) and gets the whole [B, S, D_i].  ``tp_project``
+then multiplies the whole [B, S, D] by the whole weight and keeps the
+rank's sequence slice.  The slice makes the cotangents that flow back
+into the replicated region the rank's own tokens' terms, so every
+gather's backward (a reduce-scatter) sums them over the ranks as on the
+split path.  JAX's ``REPRO_DISABLE_TP_OPT`` switch has no counterpart.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch.comm import collectives
+from repro_torch.runtime import params as params_lib
 from repro_torch.runtime import sharding
-
-
-def _split(n: int, g: int, what: str) -> int:
-    if n % g:
-        raise ValueError(f"{what} does not split over a model axis of {g}")
-    return n // g
 
 
 def rank_slice(t: torch.Tensor, mesh, dim: int = -1) -> torch.Tensor:
     """This rank's block of ``dim`` of a replicated tensor (a view): block
-    m of g along ``dim`` on model rank m."""
+    m of g along ``dim`` on model rank m (``dim`` a multiple of g)."""
     g, m = sharding.axis_size(mesh, "model"), sharding.axis_index(mesh,
                                                                   "model")
-    n = _split(t.shape[dim], g, f"dim {dim} of {tuple(t.shape)}")
+    n = t.shape[dim] // g
     return t.narrow(dim, m * n, n)
 
 
@@ -76,9 +82,25 @@ def fsdp_gather(w: torch.Tensor, spec, mesh, dim: int) -> torch.Tensor:
     return w
 
 
+def projects_whole(mesh, specs: Sequence,
+                   replicate: Sequence[bool] = ()) -> bool:
+    """Whether ``tp_in_project`` takes the replicated fallback for weights
+    of ``specs``: a ``model`` axis of more than one rank, and a projection
+    (not marked ``replicate``) whose columns do not split over it, or a
+    weight whose rows do not split over a ``data`` axis of more than one
+    rank (the JAX package's divisibility test)."""
+    if sharding.axis_size(mesh, "model") == 1:
+        return False
+    rep = tuple(replicate) + (False,) * (len(specs) - len(replicate))
+    d = sharding.axis_size(mesh, "data")
+    return any(not r and "model" not in spec[1]
+               or d > 1 and "data" not in spec[0]
+               for spec, r in zip(specs, rep))
+
+
 def tp_in_project(x: torch.Tensor, ws: Sequence[torch.Tensor], mesh,
-                  specs: Sequence, replicate: Sequence[bool] = ()
-                  ) -> Tuple[torch.Tensor, ...]:
+                  specs: Sequence, replicate: Sequence[bool] = (),
+                  whole: Optional[bool] = None) -> Tuple[torch.Tensor, ...]:
     """x: [B, S / g, H], this rank's sequence slice; each w the rank's
     shard of an [H, D_i] weight of spec ``specs[i]``: [H / data or H,
     D_i / g] (or [., D_i] for a replicated projection whose columns the
@@ -87,15 +109,17 @@ def tp_in_project(x: torch.Tensor, ws: Sequence[torch.Tensor], mesh,
     [B, S, D_i] instead: x @ (the whole w) on the rank's own slice,
     all-gathered, for a small projection every rank needs whole (its
     gradient then comes from the rank's own tokens only, summed over
-    ``model`` by the columns' gather or by the step)."""
+    ``model`` by the columns' gather or by the step).  ``whole`` (None:
+    ``projects_whole``) computes every projection replicated over
+    ``model``, [B, S, D_i] each (module docstring)."""
     g = sharding.axis_size(mesh, "model")
     rep = tuple(replicate) + (False,) * (len(ws) - len(replicate))
-    for w, spec, r in zip(ws, specs, rep):
-        if not r and g > 1 and "model" not in spec[1]:
-            raise ValueError(f"a [{w.shape[0]}, {w.shape[1]}] projection "
-                             f"of spec {spec} does not split its columns "
-                             f"over a model axis of {g}")
+    if whole is None:
+        whole = projects_whole(mesh, specs, rep)
     xg = sp_gather(x, mesh)
+    if whole:
+        return tuple(xg @ params_lib.gather(w, spec, mesh, grad=True)
+                     for w, spec in zip(ws, specs))
     outs = []
     # a replicated projection reads the rank's own slice of the gathered
     # x (the values of x): every projection then reads x through the one
@@ -118,13 +142,13 @@ def tp_project(y: torch.Tensor, w: torch.Tensor, mesh,
     """y: [B, S, D / g], this rank's column slice; w the rank's shard of
     a [D, out] weight of ``spec``, [D / g, out / data or out] ->
     [B, S / g, out]: the sum over the ranks of y @ (the rank's rows of
-    w), in the model dtype, scattered by sequence."""
+    w), in the model dtype, scattered by sequence.  A whole y [B, S, D]
+    (``tp_in_project``'s fallback) is multiplied by the whole w, and the
+    rank keeps its sequence slice."""
     g = sharding.axis_size(mesh, "model")
-    if w.shape[0] != y.shape[-1]:
-        raise ValueError(f"y {tuple(y.shape)} holds {y.shape[-1]} of the "
-                         f"rows of w {tuple(w.shape)} (the rank's shard) "
-                         f"over a model axis of {g}")
-    _split(y.shape[1], g, f"the sequence of y {tuple(y.shape)}")
+    if g > 1 and (y.shape[-1] != w.shape[0] or "model" not in spec[0]):
+        return rank_slice(y @ params_lib.gather(w, spec, mesh, grad=True),
+                          mesh, 1)
     part = y @ fsdp_gather(w, spec, mesh, 1)
     return collectives.ReduceScatter.apply(part, mesh.tp_group(), 1)
 

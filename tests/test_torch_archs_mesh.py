@@ -13,7 +13,10 @@ the port's ranks, both started together), on the CPU:
   a (1, 2) mesh: the gradient half of the step (the loss within 1e-5
   relative, every rank's the same; every gradient leaf within 1e-4
   relative L2) and prefill's last logits within 1e-5 relative L2.
-  Measured: loss 7.3e-8, gradients 1.4e-6, prefill 9.6e-7.
+  Measured: loss 7.3e-8, gradients 1.4e-6, prefill 9.6e-7.  With the
+  same bounds smollm-360m outside ``dp_only`` ("smollm-360m-tp"): its 3
+  query heads and 1 kv head do not split over 2 model ranks, so the port
+  takes the replicated fallback (runtime/tp.py).
 - Every leaf placed by its spec (runtime/params.py: FSDP over ``data``,
   heads / FFN hidden / vocabulary over ``model``) on four gloo ranks
   against JAX on 4 forced host devices, with the same bounds:
@@ -48,7 +51,7 @@ if __name__ != "__main__":
     from repro_torch.convert import params_from_jax
 
 DP_ARCHS = ("whisper-base", "smollm-360m")
-MESH_ARCHS = ("granite-8b", "internvl2-26b")
+MESH_ARCHS = ("granite-8b", "internvl2-26b", "smollm-360m-tp")
 FSDP_CASES = (("granite-8b", (2, 2)), ("granite-8b", (1, 4)),
               ("granite-moe-3b-a800m", (2, 2)))
 DP_BATCH, DP_STEPS = 4, 2
@@ -110,13 +113,20 @@ def _check_config(cfg):
         lsh=dataclasses.replace(cfg.moe.lsh, enabled=False)))
 
 
+def _mesh_cfg(get_smoke, key):
+    """A MESH_ARCHS entry's f32 smoke config: "<arch>-tp" is the arch
+    outside ``dp_only``."""
+    cfg = get_smoke(key.removesuffix("-tp")).replace(dtype="float32")
+    return cfg.replace(dp_only=False) if key.endswith("-tp") else cfg
+
+
 def _case(arch, shape):
     return f"fsdp/{arch}/{shape[0]}x{shape[1]}"
 
 
 def _batch(arch, seed, batch):
     from repro_torch.configs.registry import get_smoke_config as tsc
-    cfg = tsc(arch)
+    cfg = tsc(arch.removesuffix("-tp"))
     rng = np.random.default_rng(seed)
     P = cfg.num_patches if cfg.frontend == "patch_stub" else 0
     out = {"tokens": rng.integers(0, cfg.vocab_size, (batch, 16 - P))
@@ -160,7 +170,7 @@ def _jax_main(inp_path, out_path):
         out.update({f"{arch}/p/{k}": np.asarray(v)
                     for k, v in _flat(state.params).items()})
     for arch in MESH_ARCHS:
-        cfg = jsc(arch).replace(dtype="float32")
+        cfg = _mesh_cfg(jsc, arch)
         params = jax.tree.map(jnp.asarray, _unflat(_sub(inp, f"{arch}/")))
         batch = {k: jnp.asarray(v) for k, v in _batch(arch, 0, 2).items()}
         mesh = make_host_mesh(1, 1, 2)
@@ -195,8 +205,10 @@ def _jax_main(inp_path, out_path):
 def _port_main(rank, world, args):
     from repro_torch.configs import base as tbase
     from repro_torch.configs.registry import get_smoke_config as tsc
-    from repro_torch.convert import params_from_jax
+    from repro_torch.convert import gather_params, params_from_jax, \
+        shard_params
     from repro_torch.optim.adam import adamw_init
+    from repro_torch.runtime import params as tparams
     from repro_torch.runtime import step as ts
     inp_path, out_path = args
     inp = dict(np.load(inp_path))
@@ -207,17 +219,20 @@ def _port_main(rank, world, args):
     for arch in DP_ARCHS:
         cfg = tsc(arch).replace(dtype="float32")
         params = params_from_jax(_unflat(_sub(inp, f"{arch}/")), device=cpu)
+        # the rank's FSDP shards over data (the dp_only profile's specs)
+        specs = tparams.model_specs(cfg, mesh)
+        params = shard_params(params, mesh, specs)
         state = ts.TrainState(params, adamw_init(params, opt))
         step = ts.make_train_step(cfg, opt, mesh=mesh)
         for s in range(DP_STEPS):
             state, m = step(state, ts.batch_to_device(
                 _batch(arch, s, DP_BATCH), cpu))
             out[f"{arch}/loss{s}"] = _np(m["loss"])
-        out.update({f"{arch}/p/{k}": _np(v)
-                    for k, v in _flat(state.params).items()})
+        out.update({f"{arch}/p/{k}": _np(v) for k, v in _flat(
+            gather_params(state.params, mesh, specs)).items()})
     mesh = tmesh.make_mesh(1, 2)
     for arch in MESH_ARCHS:
-        cfg = tsc(arch).replace(dtype="float32")
+        cfg = _mesh_cfg(tsc, arch)
         out.update(_mesh_case(cfg, _unflat(_sub(inp, f"{arch}/")),
                               _batch(arch, 0, 2), mesh, arch))
     np.savez(out_path.format(rank=rank), **out)
@@ -274,7 +289,7 @@ def runs(tmp_path_factory, mesh):
     tmp = tmp_path_factory.mktemp("encdec")
     inp = {}
     for arch in DP_ARCHS + MESH_ARCHS + ("granite-moe-3b-a800m",):
-        cfg = j_smoke(arch).replace(dtype="float32")
+        cfg = _mesh_cfg(j_smoke, arch)
         with set_mesh(mesh):
             p = jmodel.init_params(jax.random.PRNGKey(0), cfg, mesh)
         inp.update({f"{arch}/{k}": np.asarray(v)

@@ -217,7 +217,7 @@ def _port_main(rank, world, args):
                                                  init_error_state)
     from repro_torch.runtime import sharding
     from repro_torch.runtime import step as tstep
-    from repro_torch.runtime.params import param_specs
+    from repro_torch.runtime.params import model_specs, param_specs
 
     cpu = torch.device("cpu")
     mesh = tmesh.make_mesh(*MESH)
@@ -248,8 +248,12 @@ def _port_main(rank, world, args):
         full = run(wire, cfg, shard_params(whole, mesh, specs))
         full = gather_params(full, mesh, specs)
         out.update({f"{wire}/p/{k}": v for k, v in _flat(full).items()})
-    full = run("dp", _cfg(tbase, treg, None, dp_only=True),
-               params_from_jax(jdense, device=cpu))
+    dcfg = _cfg(tbase, treg, None, dp_only=True)
+    # the rank's FSDP shards over data (the dp_only profile's specs)
+    dspecs = model_specs(dcfg, mesh)
+    full = run("dp", dcfg, shard_params(params_from_jax(jdense, device=cpu),
+                                        mesh, dspecs))
+    full = gather_params(full, mesh, dspecs)
     out.update({f"dp/p/{k}": v for k, v in _flat(full).items()})
 
     group = sharding.all_group(mesh)

@@ -34,6 +34,7 @@ from jax.sharding import AbstractMesh, PartitionSpec  # noqa: E402
 from repro.configs import registry as jreg  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.runtime import params as jparams  # noqa: E402
+from repro.runtime import sharding as jsharding  # noqa: E402
 from repro_torch.configs import registry as treg  # noqa: E402
 from repro_torch.launch.mesh import Mesh  # noqa: E402
 from repro_torch.models import model as tmodel  # noqa: E402
@@ -133,18 +134,22 @@ def test_specs_equal_jax(arch, smoke):
         jcfg, tcfg, amesh, tree, mesh = _both(arch, smoke, shape)
         n = {(): len(jcfg.layout), ("encoder",): 1}
         what = f"{arch} {'smoke' if smoke else 'full'} {shape}"
-        _equal(_jax_flat(tree, jparams.param_specs(tree, amesh), n),
+        # a dp_only config's specs are those of its own profile, as the
+        # JAX dry run and trainer take them
+        with jsharding.parallelism_profile(jcfg.dp_only):
+            jspecs = jparams.param_specs(tree, amesh)
+            jmoments = {d: jparams.moment_specs(tree, amesh, d)
+                        for d in ("float32", "int8")}
+        _equal(_jax_flat(tree, jspecs, n),
                _port_flat(tparams.model_specs(tcfg, mesh)), what)
         for dtype in ("float32", "int8"):
             got = tparams.model_moment_specs(tcfg, mesh, dtype)
-            _equal(_jax_flat(tree, jparams.moment_specs(tree, amesh, dtype),
-                             n),
+            _equal(_jax_flat(tree, jmoments[dtype], n),
                    _port_flat(got), f"{what} {dtype} moments")
-            if not tcfg.dp_only:
-                # what the state is laid out and checkpointed by
-                state = tparams.train_state_specs(tcfg, mesh, dtype)
-                assert state.params is tparams.model_specs(tcfg, mesh)
-                assert state.opt.m is got and state.opt.v is got
+            # what the state is laid out and checkpointed by
+            state = tparams.train_state_specs(tcfg, mesh, dtype)
+            assert state.params is tparams.model_specs(tcfg, mesh)
+            assert state.opt.m is got and state.opt.v is got
 
 
 def _elements(specs, params, mesh):

@@ -508,6 +508,11 @@ def test_prefill_matches_jax(runs):
 
 
 def test_a_width_that_does_not_split_raises():
+    """Mamba heads that do not split over ``model`` raise.  Attention and
+    the dense FFN take the replicated fallback instead (runtime/tp.py;
+    tests/test_torch_dryrun.py holds it against JAX): ``projects_whole``
+    says so for a projection whose columns, or rows over ``data``, do not
+    split."""
     from repro_torch.configs import base as tbase
     from repro_torch.configs import registry as treg
     from repro_torch.models import ssm as tssm
@@ -515,13 +520,11 @@ def test_a_width_that_does_not_split_raises():
     from repro_torch.runtime import params as tparams
     from repro_torch.runtime import tp
     mesh = tmesh.Mesh((1, 4))           # shapes are checked before a call
-    x = torch.zeros((1, 2, 16))
-    with pytest.raises(ValueError, match=r"\[16, 6\] projection"):
-        tp.tp_in_project(x, [torch.zeros((16, 6))], mesh,
-                         [(("data",), ())])
-    with pytest.raises(ValueError, match=r"rows of w \(30, 16\)"):
-        tp.tp_project(torch.zeros((1, 8, 6)), torch.zeros((30, 16)), mesh,
-                      (("model",), ("data",)))
+    assert tp.projects_whole(mesh, [(("data",), ())])
+    assert tp.projects_whole(tmesh.Mesh((2, 4)), [((), ("model",))])
+    assert not tp.projects_whole(mesh, [(("data",), ("model",))])
+    assert not tp.projects_whole(mesh, [(("data",), ())], [True])
+    assert not tp.projects_whole(tmesh.Mesh((2, 1)), [((), ())])
     cfg = _cfg(treg, tbase)
     ssm = dataclasses.replace(cfg.ssm, head_dim=32)     # 8 heads of 32 ...
     cfg = cfg.replace(ssm=ssm, d_model=96)              # ... 6 at d 96
@@ -529,7 +532,7 @@ def test_a_width_that_does_not_split_raises():
                         torch.float32, "cpu")
     specs = tparams.param_specs(p, mesh)
     p = shard_params(p, mesh, specs)
-    with pytest.raises(ValueError, match=r"\[96, 6\] projection"):
+    with pytest.raises(ValueError, match=r"6 heads that do not split"):
         tssm.mamba_apply(p, torch.zeros((1, 2, 96)), ssm, mesh=mesh,
                          specs=specs)
 

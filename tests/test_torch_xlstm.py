@@ -516,8 +516,10 @@ def _jax_dp(out_path):
 
 
 def _port_dp(rank, world, args):
-    from repro_torch.convert import params_from_jax
+    from repro_torch.convert import gather_params, params_from_jax, \
+        shard_params
     from repro_torch.optim.adam import adamw_init
+    from repro_torch.runtime import params as tparams
     jax_out, out_path = args
     ref = dict(np.load(jax_out))
     cfg = get_smoke_config(ARCH).replace(dtype="float32")
@@ -525,6 +527,9 @@ def _port_dp(rank, world, args):
     mesh = tmesh.make_mesh(*DP_MESH)
     params = params_from_jax(_unflat({k[3:]: v for k, v in ref.items()
                                       if k.startswith("p0/")}), device=CPU)
+    # the rank's FSDP shards over data (the dp_only profile's specs)
+    specs = tparams.model_specs(cfg, mesh)
+    params = shard_params(params, mesh, specs)
     state = tstep.TrainState(params, adamw_init(params, opt))
     step = tstep.make_train_step(cfg, opt, mesh=mesh)
     ds = SyntheticLMDataset(cfg.vocab_size, DP_SEQ, DP_BATCH)
@@ -532,7 +537,8 @@ def _port_dp(rank, world, args):
     for s in range(DP_STEPS):
         state, m = step(state, tstep.batch_to_device(ds.batch_at(s), CPU))
         out[f"loss{s}"] = _np(m["loss"])
-    out.update({f"p/{k}": _np(v) for k, v in _flat(state.params).items()})
+    out.update({f"p/{k}": _np(v) for k, v in _flat(
+        gather_params(state.params, mesh, specs)).items()})
     np.savez(out_path.format(rank=rank), **out)
     return 0
 
