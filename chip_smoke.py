@@ -315,6 +315,22 @@ Phases, each of which raises (and so exits non-zero) on failure:
               1e-4) and 16 decode steps (1e-3); internvl2-26b at 2
               layers with 4 patches: logits (1e-3), loss and gradients
               (1e-5, 1e-4).
+ 18. seqdecode  (a) granite-moe-3b-a800m's attention at full width (24
+              heads, 8 KV heads of 64; f32 weights, a bf16 cache of 8 rows
+              x 32768): the sequence-split decode attention emulated in
+              one process (models/attention.split_decode_attention: each
+              block's partial softmax from a copy of its rows, combined in
+              block order, as the ranks of a split compute it) against the
+              whole-cache decode_attention at positions 0, 2047, 2048 and
+              32767: one block bitwise, 16 blocks within 1e-6 relative L2;
+              one block of 2048 rows timed beside the whole cache.  (b) The
+              full config, full depth, bf16: 8 teacher-forced decode steps
+              of 8 rows over a 4096-row cache through decode_step on a
+              (1, 1) NCCL mesh (a new HashStore group) with the state of
+              init_decode_state(mesh=), and mesh-free: logits and every
+              state leaf bit-equal, positions_in_expert, dispatch_scatter
+              and combine_gather launched once a MoE layer a step (counts
+              and profiler names).
 The line before the last is the kernels' JSON record (times at the
 training shape, int8 for the wire kernels; launches of the bf16-wire
 LSH-on training run for the routing and LSH kernels, of the int8 runs
@@ -1730,11 +1746,14 @@ def profile_second_step(torch, run_step):
     return prof
 
 
+TRAIN_PROFILES = 4               # profiles of the training step, at most
+
+
 def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
                         port_names, spy):
     """One steady-state training step under torch.profiler (LSH on), after
     two warm-up steps, a host-clock timing of two more and the profiler's
-    own warm-up step.  The first
+    own warm-up step; profiled again until two profiles agree.  The first
     warm-up step runs under ``spy`` (spy_centroid_slots): returns (the
     profile's record, that step's segment_centroid slot sets)."""
     from repro_torch.configs.base import OptimizerConfig
@@ -1757,16 +1776,34 @@ def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
     t0 = time.perf_counter()
     run(2, 2)
     wall_ms = (time.perf_counter() - t0) * 1e3 / 2
-    profiled = iter(range(4, 6))
-    prof = profile_second_step(torch, lambda: run(next(profiled), 1))
-    record, lines = summarize(prof, 1, wall_ms, top=15)
+    # a profile of 30 thousand device events can lose or gain some at its
+    # edges (in one run of this script 71 fewer than every other profile
+    # of this step): steps 4 and 5 are profiled again until two profiles
+    # count the same device events, and the record is the first of them
+    seen = {}
+    for _ in range(TRAIN_PROFILES):
+        profiled = iter(range(4, 6))
+        prof = profile_second_step(torch, lambda: run(next(profiled), 1))
+        record, lines = summarize(prof, 1, wall_ms, top=15)
+        n = record["device_kernels_per_step"]
+        if n in seen:
+            record, lines, prof = seen[n]
+            break
+        seen[n] = (record, lines, prof)
+        log(f"[train-profile] profile {len(seen)}: {n} device events a "
+            f"step")
+    else:
+        raise AssertionError(f"no two of {TRAIN_PROFILES} profiles of one "
+                             f"training step counted the same device "
+                             f"events: {sorted(seen)}")
+    del seen
     for line in lines:
         log(f"[train-profile] {line}")
     record["port_kernels_ms_per_step"] = _port_kernels(prof.key_averages(),
                                                        port_names)
     log("[train-profile] " + json.dumps(record, sort_keys=True))
     record["kernel_names"] = _device_names(torch, prof)   # for phase obs
-    del state
+    del state, prof
     return record, training_slot_sets(rec, cfg.num_layers)
 
 
@@ -4672,6 +4709,184 @@ def op_host_us(torch, mods, p, q, n=100):
     return out
 
 
+# ---------------------------------------------------------- 18. seqdecode --
+
+SEQ_ROWS = 8
+SEQ_LEN = 32768                  # the decode_32k cells' cache
+SEQ_BLOCKS = 16                  # the model axis of the production mesh
+SEQ_POSITIONS = (0, 2047, 2048, 32767)
+SEQ_RTOL = 1e-6
+SEQ_PATH_LEN = 4096              # the full path's cache
+SEQ_STEPS = 8
+SEQ_PATH_KERNELS = ("positions_in_expert_kernel", "dispatch_scatter_kernel",
+                    ("combine_gather_kernel", "combine_gather_scalar_kernel"))
+
+
+def seqdecode_combine(torch, attn, cfg):
+    """(a) granite-moe-3b-a800m's attention at full width (f32 weights and
+    token, a bf16 cache of SEQ_ROWS x SEQ_LEN): the sequence-split form
+    emulated in one process (``split_decode_attention``: each block's
+    partial from a copy of its rows, combined in block order, as the
+    ranks compute it) against the whole-cache ``decode_attention``, one
+    block bitwise, SEQ_BLOCKS blocks within SEQ_RTOL relative L2, at each
+    of SEQ_POSITIONS; then one block's decode attention (a rank's
+    SEQ_LEN / SEQ_BLOCKS rows) timed beside the whole cache's."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(28)
+    H, nh, nkv, dh = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.resolved_head_dim)
+
+    def rnd(*shape, scale=1.0, dtype=torch.float32):
+        return (torch.randn(*shape, generator=g, device=dev)
+                * scale).to(dtype)
+    params = {"wq": rnd(H, nh * dh, scale=H ** -0.5),
+              "wk": rnd(H, nkv * dh, scale=H ** -0.5),
+              "wv": rnd(H, nkv * dh, scale=H ** -0.5),
+              "wo": rnd(nh * dh, H, scale=(nh * dh) ** -0.5)}
+    x = rnd(SEQ_ROWS, 1, H)
+    cache = {k: rnd(SEQ_ROWS, SEQ_LEN, nkv, dh, dtype=torch.bfloat16)
+             for k in ("k", "v")}
+    kw = dict(num_heads=nh, num_kv_heads=nkv, head_dim=dh,
+              rope_theta=cfg.rope_theta)
+
+    def fresh():
+        return {k: v.clone() for k, v in cache.items()}
+    rows = []
+    for pos in SEQ_POSITIONS:
+        whole, wc = attn.decode_attention(params, x, fresh(), pos, **kw)
+        one, oc = attn.split_decode_attention(params, x, fresh(), pos, 1,
+                                              **kw)
+        split, sc = attn.split_decode_attention(params, x, fresh(), pos,
+                                                SEQ_BLOCKS, **kw)
+        written = all(torch.equal(wc[k], c[k]) for c in (oc, sc)
+                      for k in wc)
+        del wc, oc, sc
+        rel = float(torch.linalg.norm((split - whole).double())
+                    / torch.linalg.norm(whole.double()))
+        rows.append(dict(position=pos, one_block_bitwise=bool(
+            torch.equal(one, whole)), rel_l2=rel, written=written,
+            finite=bool(torch.isfinite(split).all())))
+        log(f"[seqdecode] position {pos}: 1 block bitwise "
+            f"{rows[-1]['one_block_bitwise']}, {SEQ_BLOCKS} blocks rel L2 "
+            f"{rel:.3g} (bound {SEQ_RTOL}), caches written alike {written}")
+    bad = [r for r in rows if not (r["one_block_bitwise"] and r["written"]
+                                   and r["finite"]
+                                   and r["rel_l2"] <= SEQ_RTOL)]
+    if bad:
+        raise AssertionError(f"[seqdecode] the split combine disagrees with "
+                             f"the whole cache: {bad}")
+    n = SEQ_LEN // SEQ_BLOCKS
+    block = {k: v[:, :n].contiguous() for k, v in cache.items()}
+    pos = n // 2
+    whole_ms = time_ms(torch, lambda: attn.decode_attention(
+        params, x, cache, pos, **kw))
+    block_ms = time_ms(torch, lambda: attn.decode_attention(
+        params, x, block, pos, **kw))
+    cache_bytes = 2 * SEQ_ROWS * SEQ_LEN * nkv * dh * 2
+    log(f"[seqdecode] decode attention, {SEQ_ROWS} rows, bf16 cache: whole "
+        f"{SEQ_LEN} rows {whole_ms:.4f} ms ({cache_bytes / 1e6:.1f} MB of "
+        f"cache, {cache_bytes / whole_ms / 1e6:.1f} GB/s), one block of "
+        f"{n} rows {block_ms:.4f} ms ({whole_ms / block_ms:.2f}x)")
+    del cache, block
+    torch.cuda.empty_cache()
+    return dict(rows=rows, whole_ms=whole_ms, block_ms=block_ms)
+
+
+def seqdecode_path(torch, model_lib, kernels, routing_kernels, mesh, cfg):
+    """(b) granite-moe-3b-a800m at full width and depth (bf16, seeded
+    weights): SEQ_STEPS teacher-forced ``decode_step``s of SEQ_ROWS rows
+    over a SEQ_PATH_LEN cache, mesh-free and on the (1, 1) NCCL mesh with
+    the state of ``init_decode_state(mesh=)``: logits and every state
+    leaf bit-equal, each routing kernel launched once a MoE layer a step
+    on both runs, and the mesh run's profile naming the three kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    params = model_lib.init_params(cfg, seed=0, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (SEQ_ROWS, SEQ_STEPS),
+                           generator=torch.Generator().manual_seed(28)
+                           ).to(dev)
+    want = cfg.num_layers * SEQ_STEPS
+    runs = {}
+    for tag, m in (("mesh-free", None), ("mesh (1, 1)", mesh)):
+        state = model_lib.init_decode_state(cfg, SEQ_ROWS, SEQ_PATH_LEN,
+                                            device=dev, mesh=m)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            logits = []
+            for i in range(SEQ_STEPS):
+                lg, state = model_lib.decode_step(
+                    params, cfg, state, tokens[:, i:i + 1], mesh=m)
+                logits.append(lg)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3 / SEQ_STEPS
+        names = _device_names(torch, prof)
+        launches = {k.name: k.launches for k in kernels}
+        runs[tag] = dict(logits=torch.cat(logits, 1), state=state, ms=ms,
+                         launches=launches, names=names)
+        seen = {n if isinstance(n, str) else "/".join(n): sum(
+            c for e, c in names.items()
+            if any(x in e for x in ((n,) if isinstance(n, str) else n)))
+            for n in SEQ_PATH_KERNELS}
+        runs[tag]["seen"] = seen
+        log(f"[seqdecode] {tag}: {SEQ_STEPS} steps, {ms:.2f} ms a step "
+            f"(profiled), launches {launches}, profile {seen}")
+    a, b = runs["mesh-free"], runs["mesh (1, 1)"]
+    same_logits = bool(torch.equal(a["logits"], b["logits"]))
+    same_state = all(torch.equal(x[k], y[k]) for x, y in zip(
+        a["state"]["layers"], b["state"]["layers"]) for k in x)
+    layout = {k: v for k, v in b["state"]["layout"].items()
+              if k not in ("specs", "shapes")}
+    log(f"[seqdecode] mesh (1, 1) layout {layout}: logits bit-equal "
+        f"{same_logits}, every state leaf bit-equal {same_state}")
+    bad_launch = {tag: r["launches"] for tag, r in runs.items()
+                  if any(r["launches"][k.name] != (want if k in
+                                                   routing_kernels else 0)
+                         for k in kernels)}
+    if bad_launch:
+        raise AssertionError(f"[seqdecode] launches {bad_launch}, want "
+                             f"{want} of each routing kernel, no other")
+    unseen = [n for n, c in b["seen"].items() if c < want]
+    if unseen:
+        raise AssertionError(f"[seqdecode] the mesh run's profile shows "
+                             f"too few launches of {unseen}: {b['seen']}")
+    if not (same_logits and same_state):
+        raise AssertionError("[seqdecode] the (1, 1) mesh decode is not "
+                             "bit-equal to the mesh-free decode")
+    if not bool(torch.isfinite(b["logits"]).all()):
+        raise AssertionError("[seqdecode] non-finite logits")
+    out = {tag: dict(ms=r["ms"], launches=r["launches"], seen=r["seen"])
+           for tag, r in runs.items()}
+    del params, runs, a, b
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_seqdecode(torch, model_lib, kernels, routing_kernels):
+    """Phase seqdecode: (a) the split combine at the decode_32k cache,
+    (b) the full path on a (1, 1) NCCL mesh (a HashStore, no network)
+    with the sequence-split state layout, against the mesh-free path."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.models import attention as attn
+    t0 = time.time()
+    cfg = get_config(ARCH)
+    combine = seqdecode_combine(torch, attn, cfg)
+    init_distributed(torch.device("cuda", 0), store=dist.HashStore(),
+                     rank=0, world_size=1)
+    try:
+        path = seqdecode_path(torch, model_lib, kernels, routing_kernels,
+                              make_mesh(1, 1), cfg)
+    finally:
+        dist.destroy_process_group()
+    log(f"[seqdecode] phase time {time.time() - t0:.1f} s")
+    return dict(combine=combine, path=path)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4792,6 +5007,9 @@ def main() -> int:
     phase_archs(torch, model_lib, step_lib, synthetic, serve, train,
                 clustering, kernels)
     log(f"[time] archs done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    phase_seqdecode(torch, model_lib, kernels, routing_k)
+    log(f"[time] seqdecode done at {time.time() - t_start:.1f} s")
 
     # launches of the main path's runs: the bf16 wire with LSH on for the
     # routing and LSH kernels, the int8 wire with LSH on for the kernels

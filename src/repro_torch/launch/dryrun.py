@@ -37,11 +37,14 @@ A cell's record has JAX's keys (``flops_per_device``, ...,
 ``roofline_fraction``, ``mesh_name``); ``lower_s`` is the seconds taken
 to build the state and batch and ``compile_s`` those of the traced step,
 ``xla_flops`` the FLOPs of the aten ops alone (``FlopCounterMode``'s
-count; tests/test_torch_dryrun.py holds them equal).  Decode cells also carry
-``jax_decode_state_bytes``: the bytes a rank would hold of the decode
-state by JAX's ``decode_state_specs`` (the cache's sequence over
-``model``), beside the port's own, whose decode keeps each rank's rows
-with the whole sequence.  A cell that fails is recorded with its
+count; tests/test_torch_dryrun.py holds them equal).  Decode cells
+build the rank's block of the state by JAX's ``decode_state_specs``
+(``models.model.init_decode_state(mesh=)``: the caches' sequence over
+``model``, or over (dp axes, model) at batch 1, the Mamba state by
+heads), and the rank's rows of the tokens; their ``decode_state_bytes``
+(the port's) stand beside ``jax_decode_state_bytes``, JAX's specs
+applied to every leaf, which differ only where the xLSTM states stay
+whole over ``model``.  A cell that fails is recorded with its
 ``error`` and the run exits 1; a cell ``shape_applicable`` rules out is
 ``skipped``.  ``--workers`` cells run at once, each in a process of its
 own.
@@ -157,30 +160,16 @@ def fake_params(cfg, mesh):
                            t.dtype), whole, params_lib.model_specs(cfg, mesh))
 
 
-def decode_rows(batch: int, mesh) -> int:
-    """The rows of a decode batch a rank holds: its block over the dp
-    axes where they divide it, else the whole batch."""
-    n = sharding.dp_size(mesh)
-    return batch // n if batch % n == 0 else batch
-
-
-def fake_decode_state(cfg, batch: int, max_len: int) -> Dict:
-    """``models.model.init_decode_state``'s state on the fake device."""
-    dtype, dev = model_lib.torch_dtype(cfg.dtype), torch.device(FAKE_DEVICE)
-    return {"layers": [model_lib._mixer_state(cfg, mixer, batch, max_len,
-                                              dtype, dev)
-                       for mixer, _ in model_lib.layer_kinds(cfg)],
-            "position": 0}
-
-
 def jax_decode_state_bytes(cfg, batch: int, max_len: int, mesh) -> int:
     """The bytes a rank would hold of the decode state laid out by JAX's
-    ``decode_state_specs`` (the port's per-layer state shapes)."""
+    ``decode_state_specs`` (the port's per-layer state shapes, every
+    leaf by its spec, the xLSTM leaves too): the check of the port's own
+    layout (``init_decode_state(mesh=)``)."""
     specs = params_lib.decode_state_specs(cfg, batch, mesh, max_len)
-    state = fake_decode_state(cfg, batch, max_len)
+    state = model_lib.init_decode_state(cfg, batch, max_len,
+                                        device=FAKE_DEVICE)
     total = 0
-    for i, ((mixer, _), layer) in enumerate(zip(model_lib.layer_kinds(cfg),
-                                                state["layers"])):
+    for i, layer in enumerate(state["layers"]):
         spec = specs["entries"][i % len(cfg.layout)]
         for k, t in layer.items():
             total += math.prod(params_lib.local_shape(
@@ -211,8 +200,10 @@ def _prefill(cfg, shape, mesh, use_lsh):
 
 def _decode(cfg, shape, mesh, use_lsh):
     params = fake_params(cfg, mesh)
-    rows = decode_rows(shape.global_batch, mesh)
-    state = fake_decode_state(cfg, rows, shape.seq_len)
+    state = model_lib.init_decode_state(cfg, shape.global_batch,
+                                        shape.seq_len, device=FAKE_DEVICE,
+                                        mesh=mesh)
+    rows = shape.global_batch if mesh is None else state["layout"]["rows"][1]
     tokens = _fake((rows, 1), torch.int32)
     return (params, state, tokens), \
         lambda: model_lib.decode_step(params, cfg, state, tokens, mesh=mesh)

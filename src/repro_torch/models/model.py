@@ -27,7 +27,11 @@ sequence on the rank's vocabulary columns, and the loss reduces over
 that split.  Each rank's loss is its share of the global loss; a
 gradient comes back summed over the axes its leaf splits over, and the
 step sums it over the others (runtime/step.py).  Decode reads each
-layer's weights gathered whole just before it.
+layer's weights gathered whole just before it; its state
+(``init_decode_state(mesh=)``) is the rank's block by JAX's
+``decode_state_specs``: rows over the dp axes, the caches' sequence over
+``model`` (over the dp axes and ``model`` at batch 1), where attention
+combines the ranks' partial softmax, and the Mamba state by heads.
 
 Supported: every architecture of the JAX package.  Attention, Mamba-2
 (models/ssm.py; over a mesh its heads split over ``model``,
@@ -736,19 +740,55 @@ def _mixer_state(cfg: ModelConfig, mixer: str, batch: int, max_len: int,
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
-                      device: DeviceLike = None) -> Dict:
+                      device: DeviceLike = None, mesh=None) -> Dict:
     """One state per layer, by its mixer: a KV cache {"k", "v"} for an
     attention layer (and {"cross_k", "cross_v"} of zeros [B, max_len, nkv,
     dh] in an encoder-decoder model's), {"h": f32 [B, nh, dh, N],
     "conv": [B, W - 1, d_inner]} for a Mamba layer, {"C", "n", "m"} (f32) for an mLSTM and
     {"c", "n", "h", "m"} (f32 [B, H]) for an sLSTM (the JAX state's keys);
-    and the decode position."""
+    and the decode position.
+
+    ``mesh``: ``batch`` is the global batch, and each leaf is this rank's
+    block of it by JAX's ``decode_state_specs``
+    (runtime/params.decode_layout): big-batch decode splits the rows
+    over the dp axes and the caches' sequence over ``model``, batch 1
+    the sequence over (dp axes, model), the Mamba state by heads over
+    ``model``; the xLSTM states split by rows only.  The layout goes
+    into the state as plain values under "layout", where
+    ``decode_step`` reads it.  ``device`` "meta" builds the shapes only
+    (the dry run)."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    dev = torch.device("meta") if str(device) == "meta" \
+        else resolve_device(device)
     dtype = torch_dtype(cfg.dtype)
-    caches = [_mixer_state(cfg, mixer, batch, max_len, dtype, dev)
-              for mixer, _ in layer_kinds(cfg)]
-    return {"layers": caches, "position": 0}
+    kinds = layer_kinds(cfg)
+    if mesh is None:
+        caches = [_mixer_state(cfg, mixer, batch, max_len, dtype, dev)
+                  for mixer, _ in kinds]
+        return {"layers": caches, "position": 0}
+    whole = [_mixer_state(cfg, mixer, batch, max_len, dtype,
+                          torch.device("meta")) for mixer, _ in kinds]
+    layout = params_lib.decode_layout(cfg, batch, mesh, max_len, [
+        {k: tuple(t.shape) for k, t in w.items()} for w in whole])
+    caches = [{k: torch.zeros(shapes[k], dtype=t.dtype, device=dev)
+               for k, t in w.items()}
+              for w, shapes in zip(whole, layout["shapes"])]
+    return {"layers": caches, "position": 0, "layout": layout}
+
+
+def cache_split(mesh, layout: Dict) -> attn_lib.CacheSplit:
+    """The ``CacheSplit`` of the attention caches of ``layout``
+    (runtime/params.decode_layout) on this rank of ``mesh``."""
+    n = layout["seq_blocks"]
+    feature, axes = ("heads", layout["kv_axes"]) if layout["kv_axes"] \
+        else ("dh", layout["dh_axes"]) if layout["dh_axes"] else ("", ())
+    parts = sharding.axis_size(mesh, "model") if feature else 1
+    return attn_lib.CacheSplit(
+        blocks=n, offset=layout["seq_offset"],
+        group=sharding.group(mesh, layout["seq_axes"]) if n > 1 else None,
+        feature=feature if parts > 1 else "", parts=parts,
+        index=params_lib.block(axes, mesh, parts)[0] if parts > 1 else 0,
+        fgroup=sharding.model_group(mesh) if parts > 1 else None)
 
 
 @torch.no_grad()
@@ -756,17 +796,29 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
                 tokens: torch.Tensor, mesh=None) -> Tuple[torch.Tensor, Dict]:
     """One decode step.  tokens: [B, 1] -> (logits [B, 1, V] f32, state).
     Every layer's state in ``state`` (KV cache, Mamba or xLSTM state) is
-    updated in place; the returned state holds the same tensors and the
-    next position.  With a mesh, tokens and caches are this rank's batch
-    shard, the same on every rank of a model slice (decode batches are
-    too small to shard further); each layer's weights other than the
-    experts, and the embedding, head and final norm, are gathered whole
-    (over ``data`` then ``model``) just before they are read and freed
-    after, so a step computes what one card computes, and the MoE
-    exchange runs over the model axis on the rank's experts
-    (``moe_dense_dispatch``)."""
+    updated in place; the returned state holds the same tensors, the
+    next position and the state's layout.  With a mesh, tokens are this
+    rank's rows (the same on every rank that holds them) and each
+    layer's weights other than the experts, and the embedding, head and
+    final norm, are gathered whole (over ``data`` then ``model``) just
+    before they are read and freed after; the MoE exchange runs over
+    the model axis on the rank's experts (``moe_dense_dispatch``).  A
+    state of ``init_decode_state(mesh=)`` is the rank's block by JAX's
+    ``decode_state_specs`` (its "layout"): attention combines its
+    partial softmax over the sequence split (``attention.CacheSplit``)
+    and the Mamba layers step the rank's heads.  A state without a
+    layout holds the rank's rows with the whole sequence and every head,
+    and the step computes what one card computes on them
+    (tests/test_torch_hybrid.py holds a (1, 2) mesh to that within
+    1e-5)."""
     pos = int(state["position"])
+    layout = state.get("layout")
+    if layout is not None and mesh is None:
+        raise ValueError("a decode state laid out over a mesh needs the "
+                         "mesh")
     specs = None if mesh is None else params_lib.model_specs(cfg, mesh)
+    split = None if layout is None else cache_split(mesh, layout)
+    ssm_mesh = mesh if layout is not None and layout["mamba_axes"] else None
 
     def whole(*path):
         """params at ``path``, gathered whole over the mesh."""
@@ -789,7 +841,8 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
             y, _ = attn_lib.decode_attention(
                 p["mixer"], h, cache, pos, num_heads=cfg.num_heads,
                 num_kv_heads=cfg.num_kv_heads, head_dim=dh,
-                rope_theta=cfg.rope_theta, use_rope=(cfg.pos_emb == "rope"))
+                rope_theta=cfg.rope_theta, use_rope=(cfg.pos_emb == "rope"),
+                split=split)
             if "cross" in p:
                 # the JAX decode norms the residual stream x + y here
                 # (its forward: the normed input h + y)
@@ -799,12 +852,12 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
                                      "v": cache["cross_v"]}, pos,
                     num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                     head_dim=dh, rope_theta=cfg.rope_theta, use_rope=False,
-                    cross=True)
+                    cross=True, split=split)
                 y = y + y2
         else:
             if mixer == MAMBA:
                 y, new = ssm_lib.mamba_decode(p["mixer"], h, cache, cfg.ssm,
-                                              cfg.norm_eps)
+                                              cfg.norm_eps, mesh=ssm_mesh)
             elif mixer == MLSTM:
                 y, new = xlstm_lib.mlstm_decode(p["mixer"], h, cache, dh,
                                                 cfg.norm_eps)
@@ -825,5 +878,7 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
         del p
     top = {k: whole(k) for k in ("final_norm", "embed" if cfg.tie_embeddings
                                  else "head")}
-    return head_logits(top, cfg, x), {"layers": state["layers"],
-                                      "position": pos + 1}
+    out = {"layers": state["layers"], "position": pos + 1}
+    if layout is not None:
+        out["layout"] = layout
+    return head_logits(top, cfg, x), out

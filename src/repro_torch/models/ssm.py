@@ -29,7 +29,10 @@ head: each rank projects its own tokens and all-gathers the result, so
 that their gradient is counted once.  The
 norm over d_inner sums each rank's mean of squares across the ranks
 (``tp.tp_rmsnorm``); ``w_out``'s partial products are reduce-scattered
-back to the sequence slices.
+back to the sequence slices.  In decode the token is replicated over
+``model`` and the state split by heads: ``mamba_decode(mesh=)`` steps
+the rank's heads and sums ``w_out``'s partial products over the ranks
+(``tp.decode_project``).
 """
 from __future__ import annotations
 
@@ -190,7 +193,9 @@ def mamba_apply(params: Dict, x: torch.Tensor, cfg, norm_eps: float = 1e-5,
 # ------------------------------------------------------------------ decode --
 
 def init_mamba_state(batch: int, d_model: int, cfg, dtype, device) -> Dict:
-    """{"h": f32 [B, nh, dh, N], "conv": [B, W - 1, d_inner] in ``dtype``}."""
+    """{"h": f32 [B, nh, dh, N], "conv": [B, W - 1, d_inner] in ``dtype``}
+    (over a mesh, models/model.init_decode_state allocates the rank's
+    block of these by runtime/params.decode_layout)."""
     d_inner = cfg.expand * d_model
     nh = d_inner // cfg.head_dim
     return {
@@ -202,30 +207,53 @@ def init_mamba_state(batch: int, d_model: int, cfg, dtype, device) -> Dict:
 
 
 def mamba_decode(params: Dict, x: torch.Tensor, state: Dict, cfg,
-                 norm_eps: float = 1e-5) -> Tuple[torch.Tensor, Dict]:
+                 norm_eps: float = 1e-5, mesh=None
+                 ) -> Tuple[torch.Tensor, Dict]:
     """One step of the recurrence.  x: [B, 1, H] -> ([B, 1, H], the new
-    state, new tensors).  O(1) in the sequence length."""
+    state, new tensors).  O(1) in the sequence length.
+
+    ``mesh``: the state holds this rank's heads of ``model`` (``h``
+    [B, nh / g, dh, N], ``conv`` [B, W - 1, d_inner / g]; JAX's
+    ``decode_state_specs``), and the params are whole.  The rank steps
+    its heads only: its columns of ``w_z``, ``w_x``, ``w_dt`` and
+    ``conv_w`` and its entries of ``dt_bias``, ``a_log`` and ``d_skip``
+    (``w_b`` and ``w_c`` whole), the gated norm over the split d_inner
+    (``tp.tp_rmsnorm``), and ``w_out``'s rows of its heads, summed over
+    ``model`` (``tp.decode_project``).  x is one token, the same on
+    every rank of ``model``."""
     B, _, H = x.shape
     d_inner = cfg.expand * H
     nh = d_inner // cfg.head_dim
+    p = params
+    if mesh is not None:
+        g = sharding.axis_size(mesh, "model")
+        p = dict(params)
+        for k in ("w_z", "w_x", "w_dt", "conv_w", "dt_bias", "a_log",
+                  "d_skip"):
+            p[k] = tp.rank_slice(params[k], mesh, -1)
+        nh, d_inner = nh // g, d_inner // g
     xt = x[:, 0, :]
-    z = xt @ params["w_z"]
-    xr = xt @ params["w_x"]                                   # [B, d_inner]
+    z = xt @ p["w_z"]
+    xr = xt @ p["w_x"]                                        # [B, d_inner]
     conv_buf = torch.cat([state["conv"], xr[:, None, :]], dim=1)
     xc = torch.einsum("bwd,wd->bd", conv_buf.to(torch.float32),
-                      params["conv_w"].to(torch.float32))
+                      p["conv_w"].to(torch.float32))
     xs = F.silu(xc)
-    Bm = (xt @ params["w_b"]).to(torch.float32)              # [B, N]
-    Cm = (xt @ params["w_c"]).to(torch.float32)
-    dt = softplus((xt @ params["w_dt"]).to(torch.float32)
-                  + params["dt_bias"])                        # [B, nh]
-    a = torch.exp(dt * (-torch.exp(params["a_log"]))[None, :])
+    Bm = (xt @ p["w_b"]).to(torch.float32)                   # [B, N]
+    Cm = (xt @ p["w_c"]).to(torch.float32)
+    dt = softplus((xt @ p["w_dt"]).to(torch.float32)
+                  + p["dt_bias"])                             # [B, nh]
+    a = torch.exp(dt * (-torch.exp(p["a_log"]))[None, :])
     xh = xs.reshape(B, nh, cfg.head_dim)
     h = state["h"] * a[..., None, None] + torch.einsum(
         "bhd,bn,bh->bhdn", xh, Bm, dt)
     y = torch.einsum("bhdn,bn->bhd", h, Cm) + \
-        params["d_skip"][None, :, None] * xh
+        p["d_skip"][None, :, None] * xh
     y = y.reshape(B, d_inner) * F.silu(z.to(torch.float32))
-    y = rmsnorm(params["norm"], y.to(x.dtype), norm_eps)
-    out = (y @ params["w_out"])[:, None, :]
-    return out, {"h": h, "conv": conv_buf[:, 1:, :]}
+    if mesh is None:
+        y = rmsnorm(p["norm"], y.to(x.dtype), norm_eps)
+        out = y @ p["w_out"]
+    else:
+        y = tp.tp_rmsnorm(p["norm"], y.to(x.dtype), mesh, norm_eps)
+        out = tp.decode_project(y, p["w_out"], mesh)
+    return out[:, None, :], {"h": h, "conv": conv_buf[:, 1:, :]}

@@ -290,14 +290,16 @@ def shard(t: torch.Tensor, spec: Spec, mesh) -> torch.Tensor:
 def gather(t: torch.Tensor, spec: Spec, mesh,
            grad: bool = False) -> torch.Tensor:
     """The whole leaf from this rank's block, the inverse of ``shard``: a
-    collective over every axis the leaf splits over, ``data`` first and
-    a dimension's last axis (its fastest) first.  ``grad``: each
+    collective over each dimension's axes (all of them at once), the
+    dimensions split over ``data`` first.  ``grad``: each
     all-gather's backward is its reduce-scatter, so the leaf's gradient
     comes back summed over those axes."""
-    order = [(d, a) for d, axes in enumerate(spec) for a in reversed(axes)]
-    for d, a in sorted(order, key=lambda da: da[1] != "data"):
-        if sharding.axis_size(mesh, a) > 1:
-            group = sharding.group(mesh, a)
+    order = [(d, axes) for d, axes in enumerate(spec) if axes]
+    for d, axes in sorted(order, key=lambda da: "data" not in da[1]):
+        if math.prod(sharding.axis_size(mesh, a) for a in axes) > 1:
+            # one gather over all of the dimension's axes: the group's
+            # rank order is their row-major index, ``block``'s
+            group = sharding.group(mesh, axes)
             t = collectives.AllGather.apply(t, group, d) if grad else \
                 collectives.raw_all_gather(t, group, d)
     return t
@@ -406,9 +408,8 @@ def decode_state_specs(cfg, batch: int, mesh, max_len: int = 0) -> Dict:
     without JAX's stacked leading dimension) and the position.  Big-batch
     decode (the batch divides over the dp axes): batch over them, the
     cache's sequence over ``model``; batch 1: the sequence over (dp axes,
-    model).  The port's decode keeps each rank's rows with the whole
-    sequence (models/model.decode_step); launch/dryrun.py reports the
-    bytes this layout would give beside the port's."""
+    model).  The port's decode state lies by it (``decode_layout``),
+    except the xLSTM states, which stay whole over ``model``."""
     dp = sharding.dp_axes(mesh)
     n_dp = sharding.dp_size(mesh)
     n_model = sharding.axis_size(mesh, "model")
@@ -463,3 +464,61 @@ def decode_state_specs(cfg, batch: int, mesh, max_len: int = 0) -> Dict:
             st = {}
         entries.append(st)
     return {"entries": entries, "position": ()}
+
+
+def decode_layout(cfg, batch: int, mesh, max_len: int, shapes) -> Dict:
+    """This rank's block of the decode state laid out by
+    ``decode_state_specs(cfg, batch, mesh, max_len)``, as plain Python
+    values (models/model.init_decode_state keeps it in the state).
+    ``shapes``: each layer's {leaf: whole shape} (the port's per-layer
+    state; layer i is layout entry i % len(cfg.layout)).
+
+      "specs", "shapes"  each layer's {leaf: spec} and {leaf: local
+                         shape}; the xLSTM leaves split by rows only
+                         (their mixers do not run on a model axis > 1
+                         outside ``dp_only``: ROADMAP item 7 step 5);
+      "rows"             (start, count) of the rank's batch rows;
+      "seq_axes"         the attention caches' sequence axes: ("model",),
+                         dp axes + ("model",), dp axes or ();
+      "seq_blocks", "seq_offset"  their rank count, and the global index
+                         of the rank's first cache row: block i of the
+                         axes' row-major (pod, data, model) index, so the
+                         sequence group's rank r holds JAX's shard r;
+      "kv_axes", "dh_axes"  the axes of the caches' kv heads or head
+                         dimension (``model`` where it is not on the
+                         sequence and the width divides);
+      "mamba_axes"       the axes of the Mamba heads of ``h`` and the
+                         channels of ``conv``."""
+    specs = decode_state_specs(cfg, batch, mesh, max_len)
+    out: Dict[str, Any] = {"specs": [], "shapes": [], "rows": (0, batch),
+                           "seq_axes": (), "kv_axes": (), "dh_axes": (),
+                           "mamba_axes": ()}
+    for i, leaves in enumerate(shapes):
+        mixer = cfg.layout[i % len(cfg.layout)][0]
+        entry = specs["entries"][i % len(cfg.layout)]
+        lspecs = {}
+        for k, shape in leaves.items():
+            spec = _divisible(entry[k], tuple(shape), mesh)
+            if mixer in ("mlstm", "slstm"):
+                spec = spec[:1] + ((),) * (len(spec) - 1)
+            lspecs[k] = spec
+        if mixer == "attn":
+            rows, seq, kv, dh = lspecs["k"]
+            out.update(seq_axes=seq, kv_axes=kv, dh_axes=dh)
+        elif mixer == "mamba":
+            rows = lspecs["h"][0]
+            if lspecs["h"][1] != lspecs["conv"][2]:
+                raise ValueError(
+                    f"Mamba decode state: {cfg.ssm.expand * cfg.d_model} "
+                    f"channels split over {lspecs['conv'][2]}, their heads "
+                    f"over {lspecs['h'][1]}")
+            out["mamba_axes"] = lspecs["h"][1]
+        else:
+            rows = next(iter(lspecs.values()))[0]
+        out["rows"] = block(rows, mesh, batch)
+        out["specs"].append(lspecs)
+        out["shapes"].append({k: local_shape(s, lspecs[k], mesh)
+                              for k, s in leaves.items()})
+    start, size = block(out["seq_axes"], mesh, max_len)
+    out.update(seq_blocks=max_len // size, seq_offset=start)
+    return out

@@ -14,7 +14,11 @@ stream meets a mixer or FFN whose heads / hidden columns are split over
                  all-gathered (the K / V of models/attention.py);
   tp_project     TP -> SP: the weight [D / g, H / data] all-gathered over
                  ``data``, the partial product in the model dtype, and a
-                 reduce-scatter of it back to the rank's sequence slice.
+                 reduce-scatter of it back to the rank's sequence slice;
+  decode_project the decode step's one token, replicated over ``model``:
+                 no sequence to gather or scatter, so the rank's columns
+                 times its rows of the whole weight, summed over the
+                 ranks in rank order.
 
 The collectives are comm/collectives.py's ``AllGather`` / ``ReduceScatter``
 (each the other's backward, as the JAX package's ``all_gather_bf16`` /
@@ -151,6 +155,23 @@ def tp_project(y: torch.Tensor, w: torch.Tensor, mesh,
                           mesh, 1)
     part = y @ fsdp_gather(w, spec, mesh, 1)
     return collectives.ReduceScatter.apply(part, mesh.tp_group(), 1)
+
+
+def decode_project(y: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
+    """The decode step's output projection over heads split over
+    ``model``: y [B, D / g], this rank's columns of one replicated token;
+    w the whole [D, out] weight.  Returns the whole [B, out] on every
+    rank: the ranks' y @ (their rows of w), all-gathered and summed in
+    rank order (no reduce-scatter: the token is not split by sequence;
+    no all-reduce: the sum's order, so its bits, is fixed)."""
+    part = y @ rank_slice(w, mesh, 0)
+    g = sharding.axis_size(mesh, "model")
+    got = collectives.raw_all_gather(part[None].contiguous(),
+                                     mesh.tp_group(), 0)
+    out = got[0]
+    for r in range(1, g):
+        out = out + got[r]
+    return out
 
 
 def tp_rmsnorm(params, y: torch.Tensor, mesh,

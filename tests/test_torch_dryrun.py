@@ -26,7 +26,11 @@ batch.
   16 x 16 and 2 x 16 x 16 meshes equal the bytes a rank holds by JAX's
   ``param_specs`` / ``moment_specs`` / ``batch_specs`` on an
   ``AbstractMesh`` under ``parallelism_profile(cfg.dp_only)`` (params,
-  both moments, the step and skip counters, the batch).
+  both moments, the step and skip counters, the batch); so do those of
+  every decode_32k and long_500k cell by ``param_specs`` /
+  ``decode_state_specs`` / ``batch_specs`` (params, the decode state,
+  the tokens; the position is a Python int in the port's state), but for
+  xlstm-350m's xLSTM states, which the port keeps whole over ``model``.
 - (d) the counter on a toy: a matmul chain's FLOPs 2 m n k each, bytes
   inputs plus outputs, a ``repro_torch`` op one op with its own bytes and
   operations; each kernel op's fake output shapes and dtypes equal its
@@ -64,6 +68,8 @@ SMOKE_SHAPES = {"train": ShapeSpec("smoke_train", 8, 64, "train"),
                 "decode": ShapeSpec("smoke_decode", 8, 8, "decode")}
 SMOKE_MESHES = ((2, 4), (2, 2, 2))
 FULL = ("granite-moe-3b-a800m", "train_4k", "single")
+ARG_SHAPES = ("train_4k", "prefill_32k")
+DECODE_SHAPES = ("decode_32k", "long_500k")
 KINDS = ("all-gather", "reduce-scatter", "all-reduce", "all-to-all")
 GROUPS = (2, 4, 16)
 
@@ -130,7 +136,7 @@ def _dry_main(out_path):
     from repro_torch.configs.registry import ARCH_IDS
     tasks = [("full", FULL), ("collectives", ())]
     tasks += [("args", (a, s, m)) for m in ("single", "multi")
-              for a in ARCH_IDS for s in ("train_4k", "prefill_32k")]
+              for a in ARCH_IDS for s in ARG_SHAPES + DECODE_SHAPES]
     tasks += [("smoke", (a, k, d)) for d in SMOKE_MESHES for a in ARCH_IDS
               for k in SMOKE_SHAPES]
     res = {}
@@ -161,7 +167,7 @@ def runs(tmp_path_factory):
                               store=str(tmp / "store"), env=env,
                               timeout_s=300)
         jax_bytes = {(a, s, m): _jax_arg_bytes(a, s, m == "multi")
-                     for a in ARCH_IDS for s in ("train_4k", "prefill_32k")
+                     for a in ARCH_IDS for s in ARG_SHAPES + DECODE_SHAPES
                      for m in ("single", "multi")}
         _, err = proc.communicate(timeout=600)
     finally:
@@ -239,7 +245,12 @@ def test_collective_wire_bytes_follow_jax_formulas(dry):
 
 def _jax_arg_bytes(arch, shape_name, multi):
     """Bytes a rank holds of a cell's TrainState (train) or params
-    (prefill) and batch by the JAX package's specs on an AbstractMesh."""
+    (prefill, decode) and batch by the JAX package's specs on an
+    AbstractMesh; a decode cell's state by ``decode_state_specs`` and
+    its tokens by ``batch_specs``: {"jax": those bytes, "whole_xlstm":
+    the same with the xLSTM state leaves split by rows only, as the
+    port keeps them} (None where ``shape_applicable`` rules the cell
+    out)."""
     from jax.sharding import AbstractMesh, PartitionSpec as P
     from repro.configs import base as jbase
     from repro.configs import registry as jreg
@@ -268,8 +279,29 @@ def _jax_arg_bytes(arch, shape_name, multi):
         assert len(ls) == len(ss)
         return sum(local(leaf, s) for leaf, s in zip(ls, ss))
 
+    if not jbase.shape_applicable(cfg, shape)[0]:
+        return None
     with jsharding.parallelism_profile(cfg.dp_only):
         key = jax.random.PRNGKey(0)
+        if shape.kind == "decode":
+            params = jax.eval_shape(lambda k: jmodel.init_params(
+                k, cfg, amesh), key)
+            total = tree(params, jparams.param_specs(params, amesh))
+            B, L = shape.global_batch, shape.seq_len
+            state = jax.eval_shape(lambda: jmodel.init_decode_state(
+                cfg, B, L, amesh))
+            specs = jparams.decode_state_specs(cfg, B, amesh, max_len=L)
+            tok = local(jax.ShapeDtypeStruct((B, 1), np.int32),
+                        jparams._divisible(jsharding.resolve(
+                            amesh, "batch", None), (B, 1), amesh))
+            rows_only = dict(specs, entries=[
+                {k: P(*s[:2]) if mixer in ("mlstm", "slstm") else s
+                 for k, s in e.items()}
+                for e, (mixer, _) in zip(specs["entries"], cfg.layout)])
+            # the position: a Python int in the port's state
+            return {k: total + tok + tree(state["entries"], sp["entries"])
+                    for k, sp in (("jax", specs),
+                                  ("whole_xlstm", rows_only))}
         if shape.kind == "train":
             st = jax.eval_shape(lambda k: jstep.init_train_state(
                 k, cfg, opt, amesh), key)
@@ -301,10 +333,48 @@ def _jax_arg_bytes(arch, shape_name, multi):
 
 def test_arg_bytes_equal_jax_specs(runs):
     cells, want = _cells(runs[0], "args"), runs[2]
+    cells = {c: a for c, a in cells.items() if c[1] in ARG_SHAPES}
+    want = {c: w for c, w in want.items() if c[1] in ARG_SHAPES}
     assert set(cells) == set(want) and len(want) == 40
     for cell, art in sorted(cells.items()):
         assert art["arg_bytes"] == want[cell], (cell, art["arg_bytes"],
                                                 want[cell])
+
+
+def test_decode_arg_bytes_equal_jax_specs(runs):
+    """Every decode_32k and long_500k cell on 16 x 16 and 2 x 16 x 16: the
+    params, the rank's block of the decode state and its tokens equal
+    what JAX's ``param_specs``, ``decode_state_specs`` and
+    ``batch_specs`` give a rank, and ``decode_state_bytes`` equals
+    ``jax_decode_state_bytes``.  xlstm-350m's xLSTM states stay whole
+    over ``model`` in the port (ROADMAP item 7 step 5): there the port
+    holds JAX's bytes plus, for each xLSTM leaf, its rows' whole width
+    less JAX's block of it (16x the leaf's JAX bytes over the model axis
+    of 16, less those), and its ``decode_state_bytes`` exceed JAX's by
+    the same."""
+    cells = {c: a for c, a in _cells(runs[0], "args").items()
+             if c[1] in DECODE_SHAPES}
+    want = {c: w for c, w in runs[2].items() if c[1] in DECODE_SHAPES}
+    assert set(cells) == set(want) and len(want) == 40
+    checked = 0
+    for cell, art in sorted(cells.items()):
+        if want[cell] is None:
+            assert "skipped" in art, cell
+            continue
+        assert "error" not in art, (cell, art["error"])
+        w = want[cell]
+        extra = w["whole_xlstm"] - w["jax"]
+        state_extra = art["decode_state_bytes"] - art[
+            "jax_decode_state_bytes"]
+        if cell[0] == "xlstm-350m":
+            assert extra > 0 and state_extra == extra, (cell, extra,
+                                                        state_extra)
+        else:
+            assert extra == state_extra == 0, (cell, extra, state_extra)
+        assert art["arg_bytes"] == w["whole_xlstm"], (
+            cell, art["arg_bytes"], w)
+        checked += 1
+    assert checked == 24
 
 
 # --------------------------------------------------------------- (d) --
