@@ -40,11 +40,11 @@ to build the state and batch and ``compile_s`` those of the traced step,
 count; tests/test_torch_dryrun.py holds them equal).  Decode cells
 build the rank's block of the state by JAX's ``decode_state_specs``
 (``models.model.init_decode_state(mesh=)``: the caches' sequence over
-``model``, or over (dp axes, model) at batch 1, the Mamba state by
-heads), and the rank's rows of the tokens; their ``decode_state_bytes``
+``model``, or over (dp axes, model) at batch 1, the Mamba and mLSTM
+states by heads, or the mLSTM's by head dimension, the sLSTM's by
+width), and the rank's rows of the tokens; their ``decode_state_bytes``
 (the port's) stand beside ``jax_decode_state_bytes``, JAX's specs
-applied to every leaf, which differ only where the xLSTM states stay
-whole over ``model``.  A cell that fails is recorded with its
+applied to every leaf, its check.  A cell that fails is recorded with its
 ``error`` and the run exits 1; a cell ``shape_applicable`` rules out is
 ``skipped``.  ``--workers`` cells run at once, each in a process of its
 own.
@@ -163,8 +163,8 @@ def fake_params(cfg, mesh):
 def jax_decode_state_bytes(cfg, batch: int, max_len: int, mesh) -> int:
     """The bytes a rank would hold of the decode state laid out by JAX's
     ``decode_state_specs`` (the port's per-layer state shapes, every
-    leaf by its spec, the xLSTM leaves too): the check of the port's own
-    layout (``init_decode_state(mesh=)``)."""
+    leaf by its spec): the check of the port's own layout
+    (``init_decode_state(mesh=)``)."""
     specs = params_lib.decode_state_specs(cfg, batch, mesh, max_len)
     state = model_lib.init_decode_state(cfg, batch, max_len,
                                         device=FAKE_DEVICE)

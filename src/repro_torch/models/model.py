@@ -34,21 +34,23 @@ layer's weights gathered whole just before it; its state
 combines the ranks' partial softmax, and the Mamba state by heads.
 
 Supported: every architecture of the JAX package.  Attention, Mamba-2
-(models/ssm.py; over a mesh its heads split over ``model``,
-runtime/tp.py) and the xLSTM mixers (models/xlstm.py; mesh-free or under
-``dp_only``), mixed in one layout, with MoE, dense or no FFN; RoPE, no
-position embedding, or the fixed sinusoid (``pos_emb="learned"``, the
-JAX name: a table, no parameter, models/layers.sinusoidal); the patch
+(models/ssm.py) and the xLSTM mixers (models/xlstm.py), over a mesh
+with their heads split over ``model`` (runtime/tp.py; the sLSTM, and
+heads that do not split, replicated over it; under ``dp_only`` the
+xLSTM mixers over their weights gathered whole), mixed in one layout,
+with MoE, dense or no FFN; RoPE, no position embedding, or the fixed
+sinusoid (``pos_emb="learned"``, the JAX name: a table, no parameter,
+models/layers.sinusoidal); the patch
 frontend (``patch_embeds`` [B, P, H] prepended to the token embeddings,
 the loss over the token positions only; over a mesh the combined P + S
 sequence is what splits over ``model``, runtime/sharding.shard_batch);
 and the encoder-decoder stack (whisper): ``params["encoder"] =
 {"layers", "final_norm"}``, a bidirectional (attention, dense) stack over
 ``frames`` [B, S_enc, H], and in every decoder attention layer a
-cross-attention (``cross_norm``, ``cross``) over its output.  An
-encoder-decoder forward on a ``model`` axis > 1 raises (whisper-base is
-``dp_only``, ROADMAP Queue 1 item 7), as does its pipeline staging
-(runtime/pipeline_schedule.py), as in JAX.
+cross-attention (``cross_norm``, ``cross``) over its output; over a
+mesh ``frames`` splits by its own sequence over ``model``, and the
+cross-attention gathers the encoder's output (``tp_in_project``).  Its
+pipeline staging raises (runtime/pipeline_schedule.py), as in JAX.
 """
 from __future__ import annotations
 
@@ -217,16 +219,18 @@ def _apply_mixer(p: Dict, h: torch.Tensor, cfg: ModelConfig, mixer: str,
         return ssm_lib.mamba_apply(p["mixer"], h, cfg.ssm, cfg.norm_eps,
                                    mesh=mesh, specs=_sub(specs, "mixer"))
     if mixer in (MLSTM, SLSTM):
-        _check_xlstm_mesh(mixer, mesh)
-        mp = p["mixer"]
-        if mesh is not None:
+        mp, mspecs = p["mixer"], _sub(specs, "mixer")
+        if mesh is not None and cfg.dp_only:
             # the mixer runs as on one card on the rank's rows, over its
             # weights gathered whole (their gradients reduce-scattered back)
-            mp = gather_params(mp, mesh, specs["mixer"], grad=True)
+            mp = gather_params(mp, mesh, mspecs, grad=True)
+            mesh = mspecs = None
         if mixer == MLSTM:
             return xlstm_lib.mlstm_apply(mp, h, cfg.resolved_head_dim,
-                                         cfg.xlstm.chunk_size, cfg.norm_eps)
-        return xlstm_lib.slstm_apply(mp, h, cfg.norm_eps)
+                                         cfg.xlstm.chunk_size, cfg.norm_eps,
+                                         mesh=mesh, specs=mspecs)
+        return xlstm_lib.slstm_apply(mp, h, cfg.norm_eps, mesh=mesh,
+                                     specs=mspecs)
     heads = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
                  head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta,
                  kv_chunk=cfg.kv_chunk, mesh=mesh)
@@ -239,15 +243,6 @@ def _apply_mixer(p: Dict, h: torch.Tensor, cfg: ModelConfig, mixer: str,
                                          use_rope=False, kv_x=enc_states,
                                          specs=_sub(specs, "cross"), **heads)
     return y
-
-
-def _check_xlstm_mesh(mixer: str, mesh) -> None:
-    if sharding.axis_size(mesh, "model") > 1:
-        raise NotImplementedError(
-            f"the {mixer} forward on a mesh whose 'model' axis is > 1: "
-            "the residual stream is sharded by sequence there, and the "
-            "port runs the xLSTM mixers mesh-free or under dp_only "
-            "(ROADMAP Queue 1 item 7)")
 
 
 def _sub(specs: Optional[Dict], key: str) -> Optional[Dict]:
@@ -522,18 +517,10 @@ def forward(params: Dict, cfg: ModelConfig, tokens: torch.Tensor, *,
     check_supported(cfg)
     enc_states = None
     if cfg.encoder_decoder:
-        if sharding.axis_size(mesh, "model") > 1:
-            raise NotImplementedError(
-                "the encoder-decoder forward on a mesh whose 'model' axis "
-                "is > 1: the port runs it mesh-free or under dp_only "
-                "(ROADMAP Queue 1 item 7)")
         if frames is None:
             raise ValueError(f"{cfg.name} is an encoder-decoder model: its "
                              "forward needs frames [B, S_enc, d_model]")
         enc_states = _encode(params, cfg, frames, mesh)
-    for mixer, _ in cfg.layout:
-        if mixer in (MLSTM, SLSTM):
-            _check_xlstm_mesh(mixer, mesh)
     x = _embed_inputs(params, cfg, tokens, patch_embeds, mesh)
     x, stats = _stack_forward(params["layers"], x, cfg, use_lsh=use_lsh,
                               mesh=mesh, moe_mode=moe_mode,
@@ -753,7 +740,8 @@ def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *,
     (runtime/params.decode_layout): big-batch decode splits the rows
     over the dp axes and the caches' sequence over ``model``, batch 1
     the sequence over (dp axes, model), the Mamba state by heads over
-    ``model``; the xLSTM states split by rows only.  The layout goes
+    ``model``, the mLSTM state by heads (or by its first head-dimension
+    index) and the sLSTM state by width.  The layout goes
     into the state as plain values under "layout", where
     ``decode_step`` reads it.  ``device`` "meta" builds the shapes only
     (the dry run)."""
@@ -805,8 +793,9 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
     the model axis on the rank's experts (``moe_dense_dispatch``).  A
     state of ``init_decode_state(mesh=)`` is the rank's block by JAX's
     ``decode_state_specs`` (its "layout"): attention combines its
-    partial softmax over the sequence split (``attention.CacheSplit``)
-    and the Mamba layers step the rank's heads.  A state without a
+    partial softmax over the sequence split (``attention.CacheSplit``),
+    and the Mamba and xLSTM layers step the rank's block of their state
+    (its heads or width).  A state without a
     layout holds the rank's rows with the whole sequence and every head,
     and the step computes what one card computes on them
     (tests/test_torch_hybrid.py holds a (1, 2) mesh to that within
@@ -819,6 +808,9 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
     specs = None if mesh is None else params_lib.model_specs(cfg, mesh)
     split = None if layout is None else cache_split(mesh, layout)
     ssm_mesh = mesh if layout is not None and layout["mamba_axes"] else None
+    mlstm_split = "" if layout is None else layout["mlstm_split"]
+    slstm_mesh = mesh if layout is not None and layout["slstm_axes"] \
+        else None
 
     def whole(*path):
         """params at ``path``, gathered whole over the mesh."""
@@ -859,11 +851,13 @@ def decode_step(params: Dict, cfg: ModelConfig, state: Dict,
                 y, new = ssm_lib.mamba_decode(p["mixer"], h, cache, cfg.ssm,
                                               cfg.norm_eps, mesh=ssm_mesh)
             elif mixer == MLSTM:
-                y, new = xlstm_lib.mlstm_decode(p["mixer"], h, cache, dh,
-                                                cfg.norm_eps)
+                y, new = xlstm_lib.mlstm_decode(
+                    p["mixer"], h, cache, dh, cfg.norm_eps,
+                    mesh=mesh if mlstm_split else None, split=mlstm_split)
             else:
                 y, new = xlstm_lib.slstm_decode(p["mixer"], h, cache,
-                                                cfg.norm_eps)
+                                                cfg.norm_eps,
+                                                mesh=slstm_mesh)
             for k, v in new.items():    # the serve loop keeps the tensors
                 cache[k].copy_(v)
         x = x + y

@@ -29,8 +29,11 @@ head: each rank projects its own tokens and all-gathers the result, so
 that their gradient is counted once.  The
 norm over d_inner sums each rank's mean of squares across the ranks
 (``tp.tp_rmsnorm``); ``w_out``'s partial products are reduce-scattered
-back to the sequence slices.  In decode the token is replicated over
-``model`` and the state split by heads: ``mamba_decode(mesh=)`` steps
+back to the sequence slices.  Heads that do not split over ``model`` (or
+rows over ``data``) take the JAX package's fallback: the layer runs
+replicated over ``model`` (``tp.replicated``).  In decode the token is
+replicated over ``model`` and the state split by heads:
+``mamba_decode(mesh=)`` steps
 the rank's heads and sums ``w_out``'s partial products over the ranks
 (``tp.decode_project``).
 """
@@ -161,16 +164,17 @@ def mamba_apply(params: Dict, x: torch.Tensor, cfg, norm_eps: float = 1e-5,
         Cm = x @ params["w_c"]
         dt = x @ params["w_dt"]
     else:
-        # w_dt's nh columns must split over the axis, so the d_inner
-        # columns of the rank's shards fall on whole heads; the head
-        # vectors and conv_w are the rank's shards too (runtime/params.py)
+        # where w_dt's nh columns split over the axis, the d_inner
+        # columns of the rank's shards fall on whole heads, and the head
+        # vectors and conv_w are the rank's shards too (runtime/params.py);
+        # heads that do not split run replicated (the JAX fallback)
         g = sharding.axis_size(mesh, "model")
         names = ("w_z", "w_x", "w_b", "w_c", "w_dt")
         rep = (False, False, True, True, False)
         if tp.projects_whole(mesh, [specs[k] for k in names], rep):
-            raise ValueError(
-                f"Mamba projections of {nh} heads that do not split over a "
-                f"model axis of {g} (or rows over data)")
+            return tp.replicated(
+                lambda p, xs: mamba_apply(p, xs, cfg, norm_eps), params,
+                specs, x, mesh)
         z, xr, Bm, Cm, dt = tp.tp_in_project(
             x, [params[k] for k in names], mesh, [specs[k] for k in names],
             replicate=rep, whole=False)

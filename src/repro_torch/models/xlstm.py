@@ -21,19 +21,39 @@ JAX's ``max`` and ``maximum`` do; ``log_sigmoid`` is JAX's
 (``jax.nn.gelu``'s default).  The masked (s > t) pair weights are -inf before their exp,
 whose value and gradient there are 0, so no NaN reaches the backward.
 
-These mixers run on one rank's whole sequence: the port runs them
-mesh-free and under the data-parallel profile (``cfg.dp_only``); on a
-``model`` axis > 1 models/model.py raises (ROADMAP Queue 1 item 7).
+Over a (data, model) mesh (``mesh=``, ``specs=``: the rank's shards of
+the params, runtime/params.py) the mLSTM follows the JAX
+``mlstm_apply(mesh)``: u whole over the gathered sequence, the rank's
+heads of q, k, v and z (runtime/tp.py's ``tp_in_project``), its heads'
+gates from ``w_if`` gathered whole (its ``2 nh`` columns are [i | f], so
+the split of the leaf does not fall on the rank's heads), the chunkwise
+mLSTM on those heads, the norm over the split d_in (``tp_rmsnorm``) and
+``w_down`` through ``tp_project``; where the heads do not split over
+``model`` it runs replicated (``tp.replicated``).  The sLSTM has no
+heads, and its gates [z | i | f | o] do not align with a split of the
+width: it always runs replicated over ``model``, on the whole sequence.
+
+Decode (``mesh=`` with the state's split, runtime/params.decode_layout)
+steps the rank's block of JAX's ``decode_state_specs``: the mLSTM by
+heads (as models/ssm.mamba_decode does: the rank's columns, the split
+norm, ``tp.decode_project``), or on the first head-dimension index of
+``C`` and ``n`` (their update is local; ``q C`` and ``q n`` are partial
+over that index and summed over ``model`` in rank order); the sLSTM
+gathers its state whole, steps it as one card does and keeps the rank's
+slice of the width.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.comm import collectives
 from repro_torch.models.layers import fanin_init, rmsnorm, rmsnorm_init
+from repro_torch.runtime import params as params_lib
+from repro_torch.runtime import sharding, tp
 
 NEG_INF = float("-inf")
 
@@ -147,8 +167,14 @@ def _mlstm_out(params: Dict, y: torch.Tensor, z: torch.Tensor, dtype,
 
 
 def mlstm_apply(params: Dict, x: torch.Tensor, head_dim: int, chunk: int,
-                norm_eps: float = 1e-5) -> torch.Tensor:
-    """Full-sequence forward.  x: [B, S, H] -> [B, S, H]."""
+                norm_eps: float = 1e-5, mesh=None,
+                specs: Optional[Dict] = None) -> torch.Tensor:
+    """Full-sequence forward.  x: [B, S, H] -> [B, S, H]; over a mesh,
+    the rank's sequence slice [B, S / g, H] -> [B, S / g, H], the params
+    the rank's shards of ``specs`` (module docstring)."""
+    if mesh is not None:
+        return _mlstm_apply_tp(params, x, head_dim, chunk, norm_eps, mesh,
+                               specs)
     B, S, _ = x.shape
     d_in = params["w_up"].shape[1]
     nh = d_in // head_dim
@@ -163,6 +189,40 @@ def mlstm_apply(params: Dict, x: torch.Tensor, head_dim: int, chunk: int,
     return _mlstm_out(params, y.reshape(B, S, d_in), z, x.dtype, norm_eps)
 
 
+def _mlstm_apply_tp(params: Dict, x: torch.Tensor, head_dim: int,
+                    chunk: int, norm_eps: float, mesh, specs: Dict
+                    ) -> torch.Tensor:
+    d_in = params["norm"]["scale"].shape[0]
+    nh = d_in // head_dim
+    g = sharding.axis_size(mesh, "model")
+    names = ("w_up", "w_z", "w_q", "w_k", "w_v")
+    if nh % g or tp.projects_whole(mesh, [specs[k] for k in names],
+                                   (True,) + (False,) * 4):
+        return tp.replicated(
+            lambda p, xs: mlstm_apply(p, xs, head_dim, chunk, norm_eps),
+            params, specs, x, mesh)
+    # u whole (each rank's slice times the whole w_up, gathered), z and
+    # q / k / v on the rank's columns: its nh / g heads
+    u, z = tp.tp_in_project(x, [params["w_up"], params["w_z"]], mesh,
+                            [specs["w_up"], specs["w_z"]],
+                            replicate=(True, False), whole=False)
+    B, S = u.shape[:2]
+    nl = nh // g
+    q, k, v = ((u @ tp.fsdp_gather(params[w], specs[w], mesh, 0)).reshape(
+        B, S, nl, head_dim) for w in ("w_q", "w_k", "w_v"))
+    whole = {k: params_lib.gather(params[k], specs[k], mesh, grad=True)
+             for k in ("w_if", "b_if")}
+    log_i, log_f = _mlstm_gates(whole, u, nh)
+    log_i, log_f = (tp.rank_slice(t, mesh) for t in (log_i, log_f))
+    state = init_mlstm_state(B, nl, head_dim, x.device)
+    y, _ = _mlstm_chunk(q, k, v, log_i, log_f,
+                        (state["C"], state["n"], state["m"]), chunk)
+    y = tp.tp_rmsnorm(params["norm"], y.reshape(B, S, nl * head_dim).to(
+        x.dtype), mesh, norm_eps)
+    y = y * F.silu(z.to(torch.float32)).to(x.dtype)
+    return tp.tp_project(y, params["w_down"], mesh, specs["w_down"])
+
+
 def init_mlstm_state(batch: int, nh: int, head_dim: int, device) -> Dict:
     """{"C": [B, nh, dh, dh], "n": [B, nh, dh], "m": [B, nh]}, f32 zeros."""
     f32 = dict(dtype=torch.float32, device=device)
@@ -172,30 +232,56 @@ def init_mlstm_state(batch: int, nh: int, head_dim: int, device) -> Dict:
 
 
 def mlstm_decode(params: Dict, x: torch.Tensor, state: Dict, head_dim: int,
-                 norm_eps: float = 1e-5) -> Tuple[torch.Tensor, Dict]:
+                 norm_eps: float = 1e-5, mesh=None, split: str = ""
+                 ) -> Tuple[torch.Tensor, Dict]:
     """One step.  x: [B, 1, H] -> ([B, 1, H], the new state, new
-    tensors)."""
+    tensors).  ``mesh`` with ``split`` "heads" or "dh": the state is the
+    rank's block of it over ``model`` (runtime/params.decode_layout), the
+    params are whole and x is the same on every rank of ``model``; the
+    result is whole on every rank (module docstring)."""
     B = x.shape[0]
     d_in = params["w_up"].shape[1]
     nh = d_in // head_dim
+    heads = mesh is not None and split == "heads"
+    on_dh = mesh is not None and split == "dh"
+    nl = nh // sharding.axis_size(mesh, "model") if heads else nh
     u = x[:, 0, :] @ params["w_up"]
-    z = x[:, 0, :] @ params["w_z"]
-    q, k, v = ((u @ params[w]).reshape(B, nh, head_dim).to(torch.float32)
+
+    def cols(w):                    # the rank's heads' columns of w
+        return tp.rank_slice(params[w], mesh) if heads else params[w]
+    z = x[:, 0, :] @ cols("w_z")
+    q, k, v = ((u @ cols(w)).reshape(B, nl, head_dim).to(torch.float32)
                for w in ("w_q", "w_k", "w_v"))
     log_i, log_f = _mlstm_gates(params, u, nh)
+    if heads:
+        log_i, log_f = (tp.rank_slice(t, mesh) for t in (log_i, log_f))
     C, n, m = state["C"], state["n"], state["m"]
     m_new = torch.maximum(log_f + m, log_i)
     f_s = torch.exp(log_f + m - m_new)
     i_s = torch.exp(log_i - m_new)
+    scale = head_dim ** -0.5
+    qs = q * scale
+    if on_dh:
+        # C and n hold the rank's block of their first dh index
+        k, qs = (tp.rank_slice(t, mesh) for t in (k, qs))
     C = C * f_s[..., None, None] + torch.einsum("bhd,bhe,bh->bhde", k, v,
                                                 i_s)
     n = n * f_s[..., None] + k * i_s[..., None]
-    scale = head_dim ** -0.5
-    num = torch.einsum("bhd,bhde->bhe", q * scale, C)
-    den = torch.abs(torch.einsum("bhd,bhd->bh", q * scale, n))
-    y = num / torch.maximum(den, torch.exp(-m_new))[..., None]
-    out = _mlstm_out(params, y.reshape(B, d_in), z, x.dtype, norm_eps)
-    return out[:, None, :], {"C": C, "n": n, "m": m_new}
+    num = torch.einsum("bhd,bhde->bhe", qs, C)
+    den = torch.einsum("bhd,bhd->bh", qs, n)
+    if on_dh:
+        # partial over the split index: summed over model in rank order
+        part = tp.rank_sum(torch.cat([num, den[..., None]], -1), mesh)
+        num, den = part[..., :-1], part[..., -1]
+    y = num / torch.maximum(torch.abs(den), torch.exp(-m_new))[..., None]
+    new = {"C": C, "n": n, "m": m_new}
+    if not heads:
+        out = _mlstm_out(params, y.reshape(B, d_in), z, x.dtype, norm_eps)
+        return out[:, None, :], new
+    y = tp.tp_rmsnorm(params["norm"], y.reshape(B, nl * head_dim).to(
+        x.dtype), mesh, norm_eps)
+    y = y * F.silu(z.to(torch.float32)).to(x.dtype)
+    return tp.decode_project(y, params["w_down"], mesh)[:, None, :], new
 
 
 # ----------------------------------------------------------------- sLSTM --
@@ -246,9 +332,14 @@ def _slstm_out(params: Dict, y: torch.Tensor, norm_eps: float):
     return y @ params["w_down"]
 
 
-def slstm_apply(params: Dict, x: torch.Tensor,
-                norm_eps: float = 1e-5) -> torch.Tensor:
-    """The recurrence over the sequence.  x: [B, S, H] -> [B, S, H]."""
+def slstm_apply(params: Dict, x: torch.Tensor, norm_eps: float = 1e-5,
+                mesh=None, specs: Optional[Dict] = None) -> torch.Tensor:
+    """The recurrence over the sequence.  x: [B, S, H] -> [B, S, H]; over
+    a mesh, replicated over ``model`` on the whole sequence (the rank's
+    slice in and out, the params the rank's shards of ``specs``)."""
+    if mesh is not None:
+        return tp.replicated(lambda p, xs: slstm_apply(p, xs, norm_eps),
+                             params, specs, x, mesh)
     B, S, H = x.shape
     xw = (x @ params["w_gates"]).to(torch.float32)            # [B, S, 4H]
     st = tuple(init_slstm_state(B, H, x.device).values())
@@ -275,12 +366,21 @@ def init_slstm_state(batch: int, d_model: int, device) -> Dict:
 
 
 def slstm_decode(params: Dict, x: torch.Tensor, state: Dict,
-                 norm_eps: float = 1e-5) -> Tuple[torch.Tensor, Dict]:
-    """One step.  x: [B, 1, H] -> ([B, 1, H], the new state)."""
+                 norm_eps: float = 1e-5, mesh=None
+                 ) -> Tuple[torch.Tensor, Dict]:
+    """One step.  x: [B, 1, H] -> ([B, 1, H], the new state).  ``mesh``:
+    the state is the rank's slice of the width [B, H / g] over ``model``;
+    it is gathered whole, stepped as on one card, and the rank's slice
+    of the new state returned (the output is whole)."""
+    keys = ("c", "n", "h", "m")
+    st = tuple(state[k] for k in keys)
+    if mesh is not None:
+        got = collectives.raw_all_gather(torch.stack(st).contiguous(),
+                                         mesh.tp_group(), 2)
+        st = tuple(got.unbind(0))
     xw = (x[:, 0, :] @ params["w_gates"]).to(torch.float32)
-    st = _slstm_cell(params, xw, tuple(state[k] for k in ("c", "n", "h",
-                                                           "m")),
-                     *_loop_constants(params, x.device))
+    st = _slstm_cell(params, xw, st, *_loop_constants(params, x.device))
     y = st[2].to(x.dtype)[:, None, :]
-    return _slstm_out(params, y, norm_eps), dict(zip(("c", "n", "h", "m"),
-                                                     st))
+    if mesh is not None:
+        st = tuple(tp.rank_slice(t, mesh) for t in st)
+    return _slstm_out(params, y, norm_eps), dict(zip(keys, st))

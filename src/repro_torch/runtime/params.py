@@ -408,8 +408,7 @@ def decode_state_specs(cfg, batch: int, mesh, max_len: int = 0) -> Dict:
     without JAX's stacked leading dimension) and the position.  Big-batch
     decode (the batch divides over the dp axes): batch over them, the
     cache's sequence over ``model``; batch 1: the sequence over (dp axes,
-    model).  The port's decode state lies by it (``decode_layout``),
-    except the xLSTM states, which stay whole over ``model``."""
+    model).  The port's decode state lies by it (``decode_layout``)."""
     dp = sharding.dp_axes(mesh)
     n_dp = sharding.dp_size(mesh)
     n_model = sharding.axis_size(mesh, "model")
@@ -474,9 +473,7 @@ def decode_layout(cfg, batch: int, mesh, max_len: int, shapes) -> Dict:
     state; layer i is layout entry i % len(cfg.layout)).
 
       "specs", "shapes"  each layer's {leaf: spec} and {leaf: local
-                         shape}; the xLSTM leaves split by rows only
-                         (their mixers do not run on a model axis > 1
-                         outside ``dp_only``: ROADMAP item 7 step 5);
+                         shape};
       "rows"             (start, count) of the rank's batch rows;
       "seq_axes"         the attention caches' sequence axes: ("model",),
                          dp axes + ("model",), dp axes or ();
@@ -488,20 +485,23 @@ def decode_layout(cfg, batch: int, mesh, max_len: int, shapes) -> Dict:
                          dimension (``model`` where it is not on the
                          sequence and the width divides);
       "mamba_axes"       the axes of the Mamba heads of ``h`` and the
-                         channels of ``conv``."""
+                         channels of ``conv``;
+      "mlstm_axes", "mlstm_split"  the axes of the mLSTM state's split
+                         and what they split: "heads" (``C``, ``n``,
+                         ``m`` by heads), "dh" (``C`` and ``n`` on their
+                         first head-dimension index, ``m`` whole) or "";
+      "slstm_axes"       the axes of the sLSTM state's width.
+    """
     specs = decode_state_specs(cfg, batch, mesh, max_len)
     out: Dict[str, Any] = {"specs": [], "shapes": [], "rows": (0, batch),
                            "seq_axes": (), "kv_axes": (), "dh_axes": (),
-                           "mamba_axes": ()}
+                           "mamba_axes": (), "mlstm_axes": (),
+                           "mlstm_split": "", "slstm_axes": ()}
     for i, leaves in enumerate(shapes):
         mixer = cfg.layout[i % len(cfg.layout)][0]
         entry = specs["entries"][i % len(cfg.layout)]
-        lspecs = {}
-        for k, shape in leaves.items():
-            spec = _divisible(entry[k], tuple(shape), mesh)
-            if mixer in ("mlstm", "slstm"):
-                spec = spec[:1] + ((),) * (len(spec) - 1)
-            lspecs[k] = spec
+        lspecs = {k: _divisible(entry[k], tuple(shape), mesh)
+                  for k, shape in leaves.items()}
         if mixer == "attn":
             rows, seq, kv, dh = lspecs["k"]
             out.update(seq_axes=seq, kv_axes=kv, dh_axes=dh)
@@ -513,8 +513,12 @@ def decode_layout(cfg, batch: int, mesh, max_len: int, shapes) -> Dict:
                     f"channels split over {lspecs['conv'][2]}, their heads "
                     f"over {lspecs['h'][1]}")
             out["mamba_axes"] = lspecs["h"][1]
+        elif mixer == "mlstm":
+            rows, heads, dhs = lspecs["C"][:3]
+            out.update(mlstm_axes=heads or dhs, mlstm_split="heads" if heads
+                       else "dh" if dhs else "")
         else:
-            rows = next(iter(lspecs.values()))[0]
+            rows, out["slstm_axes"] = lspecs["h"]
         out["rows"] = block(rows, mesh, batch)
         out["specs"].append(lspecs)
         out["shapes"].append({k: local_shape(s, lspecs[k], mesh)

@@ -18,7 +18,9 @@ stream meets a mixer or FFN whose heads / hidden columns are split over
   decode_project the decode step's one token, replicated over ``model``:
                  no sequence to gather or scatter, so the rank's columns
                  times its rows of the whole weight, summed over the
-                 ranks in rank order.
+                 ranks in rank order (``rank_sum``);
+  replicated     a mixer run whole on every rank of ``model`` (the
+                 fallback below, for a whole mixer at once).
 
 The collectives are comm/collectives.py's ``AllGather`` / ``ReduceScatter``
 (each the other's backward, as the JAX package's ``all_gather_bf16`` /
@@ -49,7 +51,10 @@ then multiplies the whole [B, S, D] by the whole weight and keeps the
 rank's sequence slice.  The slice makes the cotangents that flow back
 into the replicated region the rank's own tokens' terms, so every
 gather's backward (a reduce-scatter) sums them over the ranks as on the
-split path.  JAX's ``REPRO_DISABLE_TP_OPT`` switch has no counterpart.
+split path.  ``replicated`` is that fallback for a whole mixer: every
+leaf gathered whole, the mesh-free function over the whole sequence, the
+rank's slice kept.  JAX's ``REPRO_DISABLE_TP_OPT`` switch has no
+counterpart.
 """
 from __future__ import annotations
 
@@ -157,6 +162,18 @@ def tp_project(y: torch.Tensor, w: torch.Tensor, mesh,
     return collectives.ReduceScatter.apply(part, mesh.tp_group(), 1)
 
 
+def replicated(fn, params, specs, x: torch.Tensor, mesh) -> torch.Tensor:
+    """``fn(whole params, whole x)`` replicated over ``model``: every leaf
+    of ``params`` gathered whole by its spec in ``specs`` (with its
+    gradient), x [B, S / g, H] gathered to the whole sequence, and the
+    rank's slice [B, S / g, out] of fn's [B, S, out] kept (the module
+    docstring's fallback; on a one-rank axis the mesh-free function, bit
+    for bit)."""
+    whole = params_lib.map_specs(
+        lambda t, s: params_lib.gather(t, s, mesh, grad=True), params, specs)
+    return rank_slice(fn(whole, sp_gather(x, mesh)), mesh, 1)
+
+
 def decode_project(y: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
     """The decode step's output projection over heads split over
     ``model``: y [B, D / g], this rank's columns of one replicated token;
@@ -164,12 +181,17 @@ def decode_project(y: torch.Tensor, w: torch.Tensor, mesh) -> torch.Tensor:
     rank: the ranks' y @ (their rows of w), all-gathered and summed in
     rank order (no reduce-scatter: the token is not split by sequence;
     no all-reduce: the sum's order, so its bits, is fixed)."""
-    part = y @ rank_slice(w, mesh, 0)
-    g = sharding.axis_size(mesh, "model")
-    got = collectives.raw_all_gather(part[None].contiguous(),
-                                     mesh.tp_group(), 0)
+    return rank_sum(y @ rank_slice(w, mesh, 0), mesh)
+
+
+def rank_sum(t: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over the ranks of ``model`` of each rank's ``t``, the same
+    bits on every rank: one all-gather, then the parts added in rank
+    order (no all-reduce, whose order is not fixed)."""
+    got = collectives.raw_all_gather(t[None].contiguous(), mesh.tp_group(),
+                                     0)
     out = got[0]
-    for r in range(1, g):
+    for r in range(1, got.shape[0]):
         out = out + got[r]
     return out
 

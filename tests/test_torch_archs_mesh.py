@@ -34,6 +34,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # parallel test workers share the cores
 
 HERE = Path(__file__).resolve()
 SRC = HERE.parents[1] / "src"

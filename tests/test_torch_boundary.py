@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # parallel test workers share the cores
 
 from repro.configs import base as jbase
 from repro.configs.registry import get_config as j_get_config

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # parallel test workers share the cores
 
 from repro_torch.kernels import (dispatch, fused_wire, lsh_hash, ref,
                                  residual_apply, scatter_gather,

@@ -29,8 +29,7 @@ batch.
   both moments, the step and skip counters, the batch); so do those of
   every decode_32k and long_500k cell by ``param_specs`` /
   ``decode_state_specs`` / ``batch_specs`` (params, the decode state,
-  the tokens; the position is a Python int in the port's state), but for
-  xlstm-350m's xLSTM states, which the port keeps whole over ``model``.
+  the tokens; the position is a Python int in the port's state).
 - (d) the counter on a toy: a matmul chain's FLOPs 2 m n k each, bytes
   inputs plus outputs, a ``repro_torch`` op one op with its own bytes and
   operations; each kernel op's fake output shapes and dtypes equal its
@@ -54,6 +53,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # parallel test workers share the cores
 jax = pytest.importorskip("jax")
 
 HERE = Path(__file__).resolve()
@@ -247,10 +247,8 @@ def _jax_arg_bytes(arch, shape_name, multi):
     """Bytes a rank holds of a cell's TrainState (train) or params
     (prefill, decode) and batch by the JAX package's specs on an
     AbstractMesh; a decode cell's state by ``decode_state_specs`` and
-    its tokens by ``batch_specs``: {"jax": those bytes, "whole_xlstm":
-    the same with the xLSTM state leaves split by rows only, as the
-    port keeps them} (None where ``shape_applicable`` rules the cell
-    out)."""
+    its tokens by ``batch_specs`` (None where ``shape_applicable`` rules
+    the cell out)."""
     from jax.sharding import AbstractMesh, PartitionSpec as P
     from repro.configs import base as jbase
     from repro.configs import registry as jreg
@@ -294,14 +292,8 @@ def _jax_arg_bytes(arch, shape_name, multi):
             tok = local(jax.ShapeDtypeStruct((B, 1), np.int32),
                         jparams._divisible(jsharding.resolve(
                             amesh, "batch", None), (B, 1), amesh))
-            rows_only = dict(specs, entries=[
-                {k: P(*s[:2]) if mixer in ("mlstm", "slstm") else s
-                 for k, s in e.items()}
-                for e, (mixer, _) in zip(specs["entries"], cfg.layout)])
             # the position: a Python int in the port's state
-            return {k: total + tok + tree(state["entries"], sp["entries"])
-                    for k, sp in (("jax", specs),
-                                  ("whole_xlstm", rows_only))}
+            return total + tok + tree(state["entries"], specs["entries"])
         if shape.kind == "train":
             st = jax.eval_shape(lambda k: jstep.init_train_state(
                 k, cfg, opt, amesh), key)
@@ -346,12 +338,9 @@ def test_decode_arg_bytes_equal_jax_specs(runs):
     params, the rank's block of the decode state and its tokens equal
     what JAX's ``param_specs``, ``decode_state_specs`` and
     ``batch_specs`` give a rank, and ``decode_state_bytes`` equals
-    ``jax_decode_state_bytes``.  xlstm-350m's xLSTM states stay whole
-    over ``model`` in the port (ROADMAP item 7 step 5): there the port
-    holds JAX's bytes plus, for each xLSTM leaf, its rows' whole width
-    less JAX's block of it (16x the leaf's JAX bytes over the model axis
-    of 16, less those), and its ``decode_state_bytes`` exceed JAX's by
-    the same."""
+    ``jax_decode_state_bytes``: xlstm-350m's too, whose mLSTM state
+    splits over ``model`` on its head dimension (8 heads over 16) and
+    its sLSTM state by width."""
     cells = {c: a for c, a in _cells(runs[0], "args").items()
              if c[1] in DECODE_SHAPES}
     want = {c: w for c, w in runs[2].items() if c[1] in DECODE_SHAPES}
@@ -362,17 +351,11 @@ def test_decode_arg_bytes_equal_jax_specs(runs):
             assert "skipped" in art, cell
             continue
         assert "error" not in art, (cell, art["error"])
-        w = want[cell]
-        extra = w["whole_xlstm"] - w["jax"]
-        state_extra = art["decode_state_bytes"] - art[
-            "jax_decode_state_bytes"]
-        if cell[0] == "xlstm-350m":
-            assert extra > 0 and state_extra == extra, (cell, extra,
-                                                        state_extra)
-        else:
-            assert extra == state_extra == 0, (cell, extra, state_extra)
-        assert art["arg_bytes"] == w["whole_xlstm"], (
-            cell, art["arg_bytes"], w)
+        assert art["decode_state_bytes"] == art[
+            "jax_decode_state_bytes"], (cell, art["decode_state_bytes"],
+                                        art["jax_decode_state_bytes"])
+        assert art["arg_bytes"] == want[cell], (cell, art["arg_bytes"],
+                                                want[cell])
         checked += 1
     assert checked == 24
 

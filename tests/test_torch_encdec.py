@@ -17,8 +17,16 @@ package on the CPU, and the six new archs' configs and launchers.
   ``state_from_jax`` (the encoder's stack and the cross-attention leaves
   included), and the port's save of it read back by the JAX package, bit
   for bit.
-- An encoder-decoder forward without frames raises a ValueError (on a
-  model axis of 2 and in pipeline stages it raises NotImplementedError:
+- whisper's smoke config with tensor parallelism on at (1, 2)
+  (tests/_torch_mesh_cases.py: two gloo ranks against JAX on two forced
+  host devices, started with the file's first test): the loss within
+  1e-5 relative and every gradient leaf within 1e-4 relative L2 of JAX's
+  on the same mesh; 4 teacher-forced decode steps over caches split by
+  sequence, the logits within 1e-5 relative L2 of JAX's and of the
+  port's mesh-free decode, each state leaf's shape on a rank JAX's shard
+  shape.
+- An encoder-decoder forward without frames raises a ValueError (in
+  pipeline stages it raises NotImplementedError:
   tests/test_torch_hybrid.py).
 - For all six archs: the configs and param counts equal JAX's,
   ``init_params`` gives JAX's leaves, shapes and dtypes (``encoder`` and
@@ -36,6 +44,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # parallel test workers share the cores
 
 HERE = Path(__file__).resolve()
 SRC = HERE.parents[1] / "src"
@@ -45,6 +54,7 @@ if str(SRC) not in sys.path:
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
+import _torch_mesh_cases as cases  # noqa: E402
 import test_torch_archs as archs  # noqa: E402
 from repro.compat import set_mesh  # noqa: E402
 from repro.configs import base as jbase  # noqa: E402
@@ -54,6 +64,7 @@ from repro.models import attention as jattn  # noqa: E402
 from repro.models import model as jmodel  # noqa: E402
 from repro.runtime import step as jstep  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.configs import registry as tregistry  # noqa: E402
 from repro_torch.configs.registry import ARCH_IDS  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.configs.registry import get_smoke_config  # noqa: E402
@@ -65,6 +76,7 @@ from repro_torch.optim import adam as tadam  # noqa: E402
 ARCH = "whisper-base"
 ARCHS = archs.ARCHS
 RTOL = 1e-5
+MESH = (1, 2)
 
 
 def _flat(tree, prefix=""):
@@ -249,10 +261,54 @@ def test_whisper_checkpoint_from_jax_and_back(tmp_path, monkeypatch, mesh):
         np.testing.assert_array_equal(_bits(v), _bits(fb[k]), err_msg=k)
 
 
+# ------------------------------------------- on a model axis of 2 --
+
+def test_mesh_train_step_matches_jax(refs):
+    """whisper's smoke config with tensor parallelism on (``dp_only``
+    off) at (1, 2): frames and tokens split by their sequences, the
+    cross-attention gathering the encoder's output; the loss and every
+    gradient leaf against JAX's on the same mesh."""
+    jax_out, port_out = (dict(np.load(refs / f"{who}_1x2.npz"))
+                         for who in ("jax", "port"))
+    print("whisper smoke at (1, 2): "
+          + cases.check_train(jax_out, port_out, RTOL, 1e-4))
+
+
+def test_mesh_decode_matches_jax(refs):
+    """Teacher-forced decode with the self- and cross-attention caches
+    split by sequence over ``model`` (JAX's decode_state_specs)."""
+    jax_out, port_out = (dict(np.load(refs / f"{who}_1x2.npz"))
+                         for who in ("jax", "port"))
+    layout = json.loads(str(port_out["layout"]))
+    assert layout["seq_axes"] == ["model"] and layout["seq_blocks"] == 2
+    cfg = cases.case_cfg(tregistry, ARCH, {})
+    print("whisper smoke at (1, 2): "
+          + cases.check_decode(cfg, jax_out, port_out, RTOL))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _background(request, tmp_path_factory):
+    """With the file's first test: JAX on two forced host devices and two
+    gloo ranks, at once."""
+    yield from cases.background(
+        request, tmp_path_factory, HERE, 2, (2,),
+        lambda tmp: cases.write_inputs(tmp, "1x2", ARCH, {}))
+
+
+@pytest.fixture(scope="module")
+def refs(_background):
+    return _background.wait()
+
+
+def _port_main(rank, world, args):
+    cases.port_case(Path(args[0]), "1x2", ARCH, MESH, {}, rank)
+    return 0
+
+
 # ------------------------------------------------------------ raises --
 
 def test_encoder_decoder_forward_without_frames_raises():
-    """(The model-axis and pipeline raises: tests/test_torch_hybrid.py's
+    """(The pipeline staging's raise: tests/test_torch_hybrid.py's
     ``test_check_supported_raises_for_other_item7_archs``.)"""
     cfg = get_smoke_config(ARCH).replace(dtype="float32")
     params = tmodel.init_params(cfg, device="cpu")
@@ -318,3 +374,11 @@ def test_serve_and_train_cli_on_cpu(arch, capsys):
              if e["kind"] == "step"]
     assert [e["step"] for e in steps] == [0, 1]
     assert all(np.isfinite(e["loss"]) and e["skips"] == 0 for e in steps)
+
+
+if __name__ == "__main__":
+    if sys.argv[1] == "jax":
+        cases.jax_case(Path(sys.argv[2]), "1x2", ARCH, MESH, {})
+    else:                                   # RANK WORLD STORE args...
+        from repro_torch.launch import mesh as tmesh
+        sys.exit(tmesh.run_cpu_rank(sys.argv[1:], _port_main))

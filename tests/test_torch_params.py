@@ -22,6 +22,7 @@ from pathlib import Path
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # parallel test workers share the cores
 jax = pytest.importorskip("jax")
 
 HERE = Path(__file__).resolve()

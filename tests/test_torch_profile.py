@@ -41,6 +41,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # parallel test workers share the cores
 pytest.importorskip("jax")
 
 from hypothesis import given, settings  # noqa: E402

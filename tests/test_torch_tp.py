@@ -36,14 +36,18 @@ four), and against the port's own mesh-free path.
   relative, gradients within 1e-4 relative L2 (f32 wire).
 - ``prefill`` at (1, 2): the last logits within 1e-5 relative L2 of JAX's
   prefill on the same mesh.
-- A width that does not split over the model axis raises a ValueError
-  that names the shapes.
+- Mamba heads that do not split over the model axis (3 over 2) run
+  replicated over it (the JAX package's fallback): output and every
+  gradient within 1e-5 relative L2 of JAX's on (1, 2) and of the
+  port's mesh-free function; ``projects_whole`` says where the fallback
+  is taken.
 - At a one-rank model axis the mesh path (whose collectives then run over
   a one-rank group) is bit-equal to the mesh-free one: loss and every
   gradient, f32 and bf16, for jamba and for granite-8b (the placement,
   the FSDP / TP helpers of attention and the dense FFN, the vocabulary
   split of the embedding, head and loss, all at data = model = 1).
 """
+import concurrent.futures
 import dataclasses
 import json
 import os
@@ -55,6 +59,7 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # parallel test workers share the cores
 if __name__ != "__main__":
     pytest.importorskip("jax")
 
@@ -69,6 +74,10 @@ ARCH = "jamba-1.5-large-398b"
 HELPER_MODELS = (2, 4)
 X, W_IN, W_REP, W_OUT = (2, 8, 16), (16, 32), (16, 8), (32, 16)
 MAMBA_X = (2, 16, 128)
+# Mamba heads that do not split over a model axis of 2: d_model 48,
+# d_inner 96 in 3 heads of 32
+MAMBA3_D, MAMBA3_HEAD_DIM = 48, 32
+MAMBA3_X = (2, 16, MAMBA3_D)
 TRAIN_MESHES = ((1, 2), (2, 2))
 BATCH, SEQ = 2, 16
 WIRES = {"f32": "float32", "bf16": "bfloat16"}
@@ -136,7 +145,12 @@ def _inputs():
             "w_out": f(W_OUT, 0.2), "h": f(X[:2] + (W_OUT[0],)),
             "ct_gather": f(X), "ct_in": f(X[:2] + (W_IN[1],)),
             "ct_rep": f(X[:2] + (W_REP[1],)), "ct_out": f(X),
-            "mx": f(MAMBA_X), "mct": f(MAMBA_X)}
+            "mx": f(MAMBA_X), "mct": f(MAMBA_X),
+            "m3x": f(MAMBA3_X), "m3ct": f(MAMBA3_X)}
+
+
+def _ssm3(cfg):
+    return dataclasses.replace(cfg.ssm, head_dim=MAMBA3_HEAD_DIM)
 
 
 # ------------------------------------------------- the JAX reference --
@@ -156,41 +170,57 @@ def _jax_main(inp_path, out_path):
     from repro.runtime.tp import sp_gather, tp_in_project, tp_project
 
     inp = {k: jnp.asarray(v) for k, v in np.load(inp_path).items()}
-    params = jax.tree.map(jnp.asarray, _unflat(
-        {k[2:]: v for k, v in np.load(inp_path).items()
-         if k.startswith("p/")}))
+    params, mp3 = (jax.tree.map(jnp.asarray, _unflat(
+        {k[len(pre):]: v for k, v in np.load(inp_path).items()
+         if k.startswith(pre)})) for pre in ("p/", "p3/"))
     out = {}
     for g in HELPER_MODELS:
         mesh = make_host_mesh(1, 1, g)
-        with set_mesh(mesh):
+
+        # each forward and its VJP in one jit (an eager VJP compiles its
+        # ops one at a time)
+        def helpers(inp, mesh=mesh):
+            res = {}
             y, vjp = jax.vjp(lambda x: sp_gather(x, mesh), inp["x"])
-            out[f"g{g}/gather"] = y
-            (out[f"g{g}/gather/dx"],) = vjp(inp["ct_gather"])
+            res["gather"] = y
+            (res["gather/dx"],) = vjp(inp["ct_gather"])
 
             def fin(x, w1, w2):
                 return tp_in_project(x, (w1, w2), mesh, replicate=(False,
                                                                    True))
             (h1, h2), vjp = jax.vjp(fin, inp["x"], inp["w_in"],
                                     inp["w_rep"])
-            out[f"g{g}/in"], out[f"g{g}/rep"] = h1, h2
-            (out[f"g{g}/in/dx"], out[f"g{g}/in/dw"],
-             out[f"g{g}/rep/dw"]) = vjp((inp["ct_in"], inp["ct_rep"]))
+            res["in"], res["rep"] = h1, h2
+            res["in/dx"], res["in/dw"], res["rep/dw"] = vjp(
+                (inp["ct_in"], inp["ct_rep"]))
             y, vjp = jax.vjp(lambda h, w: tp_project(h, w, mesh), inp["h"],
                              inp["w_out"])
-            out[f"g{g}/out"] = y
-            out[f"g{g}/out/dh"], out[f"g{g}/out/dw"] = vjp(inp["ct_out"])
+            res["out"] = y
+            res["out/dh"], res["out/dw"] = vjp(inp["ct_out"])
+            return res
+        with set_mesh(mesh):
+            out.update({f"g{g}/{k}": v
+                        for k, v in jax.jit(helpers)(inp).items()})
 
     cfg = _cfg(jreg, jbase)
     mesh = make_host_mesh(1, 1, 2)
     mp = params["blocks"][0]["mixer"]
     mp = jax.tree.map(lambda a: a[0], mp)            # super-block 0
-    with set_mesh(mesh):
-        y, vjp = jax.vjp(lambda p, x: jssm.mamba_apply(
-            p, x, cfg.ssm, cfg.norm_eps, mesh=mesh), mp, inp["mx"])
-        dp, dx = vjp(inp["mct"])
-    out["mamba/y"], out["mamba/dx"] = y, dx
-    out.update({f"mamba/dp/{k}": v for k, v in _flat(
-        jax.tree.map(np.asarray, dp)).items()})
+    # the jamba smoke widths, then 3 heads over 2, which JAX's
+    # tp_in_project projects whole (in a jit: its sharding constraints
+    # on 3 heads over 2, which only the partitioner takes)
+    for tag, p, ssm, key in (("mamba", mp, cfg.ssm, "m"),
+                             ("mamba3", mp3, _ssm3(cfg), "m3")):
+        def fn(p, x, ct, ssm=ssm):
+            y, vjp = jax.vjp(lambda p, x: jssm.mamba_apply(
+                p, x, ssm, cfg.norm_eps, mesh=mesh), p, x)
+            return (y,) + vjp(ct)
+        with set_mesh(mesh):
+            y, dp, dx = jax.jit(fn)(
+                p, inp[f"{key}x"], inp[f"{key}ct"])
+        out[f"{tag}/y"], out[f"{tag}/dx"] = y, dx
+        out.update({f"{tag}/dp/{k}": v for k, v in _flat(
+            jax.tree.map(np.asarray, dp)).items()})
 
     from repro.data.synthetic import SyntheticLMDataset
     batch = {k: jnp.asarray(v) for k, v in SyntheticLMDataset(
@@ -287,34 +317,42 @@ def _port_main(rank, world, args):
     batch = tstep.batch_to_device(SyntheticLMDataset(
         cfg.vocab_size, SEQ, BATCH).batch_at(0), cpu)
     if world == 2:
-        # mamba_apply, mesh and mesh-free
+        # mamba_apply, mesh and mesh-free, at jamba's smoke widths and with
+        # 3 heads that do not split over the axis
         # (the mesh reads the rank's shards; a split leaf's gradient is
         # gathered whole, a whole one's summed as the step sums it)
-        mp = full["layers"][0]["mixer"]
-        specs = tparams.param_specs(mp, mesh)
-        ms = slice(m * MAMBA_X[1] // g, (m + 1) * MAMBA_X[1] // g)
-        for tag, xm, mm, ct in (
-                ("mamba", t["mx"][:, ms], mesh, t["mct"][:, ms]),
-                ("mamba_free", t["mx"], None, t["mct"])):
-            mine = mp if mm is None else shard_params(mp, mesh, specs)
-            leaves = tadam.leaves(mine)
-            for p in leaves:
-                p.requires_grad_(True)
-            xm = xm.clone().requires_grad_(True)
-            y = tssm.mamba_apply(mine, xm, cfg.ssm, cfg.norm_eps, mesh=mm,
-                                 specs=None if mm is None else specs)
-            gs = grad(y, [xm] + leaves, ct)
-            out[f"{tag}/y"], out[f"{tag}/dx"] = y.detach(), gs[0]
-            it = iter(gs[1:])
-            dp = tadam._map(lambda p: next(it), mine)
-            if mm is not None:
-                dp = tparams.map_specs(
-                    lambda d, s: tparams.gather(d, s, mesh)
-                    if tparams.split_axes(s, mesh) else model_sum(d, mesh),
-                    dp, specs)
-            out.update({f"{tag}/dp/{k}": v for k, v in _flat(dp).items()})
-            for p in leaves:
-                p.requires_grad_(False)
+        mp3 = {k: torch.from_numpy(v) for k, v in _flat(_unflat(
+            {k[3:]: v for k, v in inp.items() if k.startswith("p3/")}
+        )).items()}
+        for pre, mp, ssm, key, width in (
+                ("mamba", full["layers"][0]["mixer"], cfg.ssm, "m",
+                 MAMBA_X[1]),
+                ("mamba3", _unflat(mp3), _ssm3(cfg), "m3", MAMBA3_X[1])):
+            specs = tparams.param_specs(mp, mesh)
+            ms = slice(m * width // g, (m + 1) * width // g)
+            for tag, xm, mm, ct in (
+                    (pre, t[f"{key}x"][:, ms], mesh, t[f"{key}ct"][:, ms]),
+                    (f"{pre}_free", t[f"{key}x"], None, t[f"{key}ct"])):
+                mine = mp if mm is None else shard_params(mp, mesh, specs)
+                leaves = tadam.leaves(mine)
+                for p in leaves:
+                    p.requires_grad_(True)
+                xm = xm.clone().requires_grad_(True)
+                y = tssm.mamba_apply(mine, xm, ssm, cfg.norm_eps, mesh=mm,
+                                     specs=None if mm is None else specs)
+                gs = grad(y, [xm] + leaves, ct)
+                out[f"{tag}/y"], out[f"{tag}/dx"] = y.detach(), gs[0]
+                it = iter(gs[1:])
+                dp = tadam._map(lambda p: next(it), mine)
+                if mm is not None:
+                    dp = tparams.map_specs(
+                        lambda d, s: tparams.gather(d, s, mesh)
+                        if tparams.split_axes(s, mesh)
+                        else model_sum(d, mesh), dp, specs)
+                out.update({f"{tag}/dp/{k}": v
+                            for k, v in _flat(dp).items()})
+                for p in leaves:
+                    p.requires_grad_(False)
         # prefill
         logits, _ = tmodel.prefill(shard_params(full, mesh), cfg,
                                    {"tokens": batch["tokens"]}, mesh=mesh)
@@ -366,13 +404,18 @@ def runs(tmp_path_factory):
     from repro.configs import registry as jreg
     from repro.launch.mesh import make_host_mesh
     from repro.models import model as jmodel
+    from repro.models import ssm as jssm
 
     tmp = tmp_path_factory.mktemp("tp")
-    params = jmodel.init_params(jax.random.PRNGKey(0), _cfg(jreg, jbase),
+    cfg = _cfg(jreg, jbase)
+    params = jmodel.init_params(jax.random.PRNGKey(0), cfg,
                                 make_host_mesh(1, 1, 1))
+    mp3 = jssm.mamba_init(jax.random.PRNGKey(3), MAMBA3_D, _ssm3(cfg),
+                          jax.numpy.float32)
     inp = dict(_inputs())
-    inp.update({f"p/{k}": np.asarray(v) for k, v in _flat(
-        jax.tree.map(np.asarray, params)).items()})
+    for pre, tree in (("p", params), ("p3", mp3)):
+        inp.update({f"{pre}/{k}": np.asarray(v) for k, v in _flat(
+            jax.tree.map(np.asarray, tree)).items()})
     inp_path = tmp / "inputs.npz"
     np.savez(inp_path, **inp)
     env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu",
@@ -383,14 +426,16 @@ def runs(tmp_path_factory):
         stderr=subprocess.PIPE, text=True)
     port_env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
     try:
-        for world in (2, 4):
-            tmesh.spawn_cpu_ranks(
-                str(HERE), world,
-                [str(inp_path), str(tmp / "port_{world}_{rank}.npz")],
-                store=str(tmp / f"store{world}"), env=port_env,
-                timeout_s=300)
+        # the world-2 and world-4 ranks at once
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            for r in [pool.submit(
+                    tmesh.spawn_cpu_ranks, str(HERE), world,
+                    [str(inp_path), str(tmp / "port_{world}_{rank}.npz")],
+                    store=str(tmp / f"store{world}"), env=port_env,
+                    timeout_s=600) for world in (2, 4)]:
+                r.result()
     finally:
-        _, err = jax_proc.communicate(timeout=600)
+        _, err = jax_proc.communicate(timeout=900)
     assert jax_proc.returncode == 0, err[-4000:]
     return {"jax": dict(np.load(tmp / "jax.npz")),
             "port": {w: [dict(np.load(tmp / f"port_{w}_{r}.npz"))
@@ -431,28 +476,43 @@ def test_helpers_match_jax(runs, g):
             _close(got[key], want, HELPER_RTOL, (g, m, key))
 
 
-def test_mamba_apply_on_a_model_axis_of_two(runs):
-    """Output and gradients against JAX's on (1, 2) and the port's
-    mesh-free function."""
+def _check_mamba(runs, tag, seq_len):
+    """Rank by rank, ``tag``'s output and gradients against JAX's on
+    (1, 2) and the port's mesh-free function -> the worst rel L2."""
     ref, ranks = runs["jax"], runs["port"][2]
     worst = 0.0
+    free_tag = f"{tag}_free"
     for m, got in enumerate(ranks):
-        seq = slice(m * MAMBA_X[1] // 2, (m + 1) * MAMBA_X[1] // 2)
-        free = {k: v[:, seq] if k in ("mamba_free/y", "mamba_free/dx")
+        seq = slice(m * seq_len // 2, (m + 1) * seq_len // 2)
+        free = {k: v[:, seq] if k in (f"{free_tag}/y", f"{free_tag}/dx")
                 else v for k, v in got.items()}
-        for want, pre in ((ref, "mamba"), (free, "mamba_free")):
+        for want, pre in ((ref, tag), (free, free_tag)):
             for key in ("y", "dx"):
                 w = want[f"{pre}/{key}"]
-                w = w[:, seq] if pre == "mamba" else w
-                worst = max(worst, _close(got[f"mamba/{key}"], w,
+                w = w[:, seq] if pre == tag else w
+                worst = max(worst, _close(got[f"{tag}/{key}"], w,
                                           MAMBA_RTOL, (m, pre, key)))
             keys = [k for k in want if k.startswith(f"{pre}/dp/")]
             assert len(keys) == 11
             for k in keys:
                 worst = max(worst, _close(
-                    got["mamba/dp/" + k[len(f"{pre}/dp/"):]], want[k],
+                    got[f"{tag}/dp/" + k[len(f"{pre}/dp/"):]], want[k],
                     MAMBA_RTOL, (m, k)))
+    return worst
+
+
+def test_mamba_apply_on_a_model_axis_of_two(runs):
+    """Output and gradients against JAX's on (1, 2) and the port's
+    mesh-free function."""
+    worst = _check_mamba(runs, "mamba", MAMBA_X[1])
     print(f"mamba_apply at (1, 2): worst rel L2 {worst:.3g}")
+
+
+def test_mamba_heads_that_do_not_split_match_jax(runs):
+    """3 heads over a model axis of 2: the layer runs replicated over it
+    (JAX's fallback); output and gradients as above."""
+    worst = _check_mamba(runs, "mamba3", MAMBA3_X[1])
+    print(f"mamba_apply, 3 heads at (1, 2): worst rel L2 {worst:.3g}")
 
 
 def _grads(store, pre):
@@ -507,16 +567,14 @@ def test_prefill_matches_jax(runs):
     print(f"prefill at (1, 2): last logits rel L2 {r:.3g}")
 
 
-def test_a_width_that_does_not_split_raises():
-    """Mamba heads that do not split over ``model`` raise.  Attention and
-    the dense FFN take the replicated fallback instead (runtime/tp.py;
-    tests/test_torch_dryrun.py holds it against JAX): ``projects_whole``
-    says so for a projection whose columns, or rows over ``data``, do not
-    split."""
+def test_a_width_that_does_not_split_takes_the_fallback():
+    """``projects_whole`` says where runtime/tp.py's replicated fallback
+    is taken: for a projection whose columns, or rows over ``data``, do
+    not split; Mamba heads that do not split take it too (against JAX:
+    ``test_mamba_heads_that_do_not_split_match_jax``)."""
     from repro_torch.configs import base as tbase
     from repro_torch.configs import registry as treg
     from repro_torch.models import ssm as tssm
-    from repro_torch.convert import shard_params
     from repro_torch.runtime import params as tparams
     from repro_torch.runtime import tp
     mesh = tmesh.Mesh((1, 4))           # shapes are checked before a call
@@ -525,16 +583,14 @@ def test_a_width_that_does_not_split_raises():
     assert not tp.projects_whole(mesh, [(("data",), ("model",))])
     assert not tp.projects_whole(mesh, [(("data",), ())], [True])
     assert not tp.projects_whole(tmesh.Mesh((2, 1)), [((), ())])
-    cfg = _cfg(treg, tbase)
-    ssm = dataclasses.replace(cfg.ssm, head_dim=32)     # 8 heads of 32 ...
-    cfg = cfg.replace(ssm=ssm, d_model=96)              # ... 6 at d 96
-    p = tssm.mamba_init(torch.Generator().manual_seed(0), 96, ssm,
+    ssm = _ssm3(_cfg(treg, tbase))
+    p = tssm.mamba_init(torch.Generator().manual_seed(0), MAMBA3_D, ssm,
                         torch.float32, "cpu")
-    specs = tparams.param_specs(p, mesh)
-    p = shard_params(p, mesh, specs)
-    with pytest.raises(ValueError, match=r"6 heads that do not split"):
-        tssm.mamba_apply(p, torch.zeros((1, 2, 96)), ssm, mesh=mesh,
-                         specs=specs)
+    specs = tparams.param_specs(p, tmesh.Mesh((1, 2)))
+    assert "model" not in specs["w_dt"][1] and "model" in specs["w_x"][1]
+    assert tp.projects_whole(tmesh.Mesh((1, 2)), [
+        specs[k] for k in ("w_z", "w_x", "w_b", "w_c", "w_dt")],
+        (False, False, True, True, False))
 
 
 @pytest.mark.parametrize("arch,dtype", [

@@ -18,7 +18,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # parallel test workers share the cores
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 COMMON = ["--arch", "granite-moe-3b-a800m", "--smoke", "--device", "cpu",

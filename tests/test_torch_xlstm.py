@@ -16,7 +16,7 @@ carried with ``params_from_jax``.  Tolerances, at f32:
 - The port's decode against its own forward (the recurrences against
   the chunkwise mLSTM and the sLSTM loop): 16 steps within 1e-4.
 - One train step of the smoke config (2 super-blocks of mLSTM + sLSTM),
-  JAX in a subprocess with ``--xla_allow_excess_precision=false`` (as
+  JAX with ``--xla_allow_excess_precision=false`` (as
   tests/test_torch_ssm.py runs it): loss within 1e-5 relative and every
   gradient leaf within 1e-4 relative L2 in f32 (measured 7e-8, 8e-6); in
   bf16 loss within 1e-3 and gradients within 2e-2 (measured 9.7e-5 and
@@ -36,7 +36,21 @@ carried with ``params_from_jax``.  Tolerances, at f32:
   sum in other orders) the element moves by another amount, and the
   xLSTM's zero-initialised biases (``b_if``, ``b_gates``) hold nothing
   but their updates (5.9e-4 relative to themselves).
+- On a ``model`` axis > 1 outside ``dp_only`` (tests/_torch_mesh_cases.py):
+  the smoke config at (1, 2) with head_dim 32 (4 heads, 2 a rank) and at
+  (1, 4) with head_dim 64 (2 heads that do not split: the mLSTM runs
+  replicated, and its decode state splits on the head dimension), f32,
+  gloo ranks against JAX on as many forced host devices: the loss within
+  1e-5 relative and every gradient leaf within 1e-4 relative L2
+  (tests/test_torch_tp.py's bounds); 4 teacher-forced decode steps on
+  the state of JAX's ``decode_state_specs``, the logits within 1e-5
+  relative L2 of JAX's and of the port's mesh-free decode, every state
+  leaf's shape on a rank JAX's shard shape.
 - Serve and train run through the CLIs with ``--device cpu``.
+- All the JAX references come from one subprocess (four forced host
+  devices, ``--xla_allow_excess_precision=false``) that starts with the
+  file's first test, beside the gloo ranks of 2 and 4 (the ``dp_only``
+  step and the mesh cases).
 - The config and param count equal JAX's; ``init_params`` gives JAX's
   leaves, shapes and dtypes (f32 ``b_if`` / ``b_gates`` in a bf16
   model); ``params_from_jax`` and ``load_jax_checkpoint`` carry JAX's
@@ -45,22 +59,26 @@ carried with ``params_from_jax``.  Tolerances, at f32:
 """
 import dataclasses
 import json
+import math
 import os
-import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)   # parallel test workers share the cores
 
 HERE = Path(__file__).resolve()
 SRC = HERE.parents[1] / "src"
 if str(SRC) not in sys.path:
     sys.path.insert(0, str(SRC))
 
+import _torch_mesh_cases as cases  # noqa: E402
 from repro_torch.configs import base as tbase  # noqa: E402
+from repro_torch.configs import registry as tregistry  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.configs.registry import get_smoke_config  # noqa: E402
 from repro_torch.data.synthetic import SyntheticLMDataset  # noqa: E402
@@ -90,6 +108,12 @@ CPU = torch.device("cpu")
 RTOL = 1e-5
 OPT = dict(lr=1e-3, warmup_steps=0, total_steps=10)
 DP_MESH, DP_BATCH, DP_SEQ, DP_STEPS = (2, 1), 4, 16, 2
+# name: ((data, model), config overrides); 4 heads of 32 split 2 a rank,
+# 2 heads of 64 do not split over 4 (the training forward replicated, the
+# decode state on the head dimension)
+MESH_CASES = {"1x2": ((1, 2), {"head_dim": 32}),
+              "1x4": ((1, 4), {"head_dim": 64})}
+DTYPES = ("float32", "bfloat16")
 
 
 def _configs(dtype="float32"):
@@ -358,19 +382,12 @@ def test_params_and_checkpoint_from_jax_bitwise(tmp_path, monkeypatch, mesh):
             assert fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k]), k
 
 
-def test_mesh_made_mamba_params_carry_across(tmp_path):
+def test_mesh_made_mamba_params_carry_across(refs):
     """jamba's smoke params made by JAX on a (1, 1, 2) mesh, whose model
     axis splits the Mamba weights' columns: params_from_jax gives every
     leaf's bits, in the port's layout, with the shapes of the port's own
     init_params."""
-    out = tmp_path / "mesh_params.npz"
-    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=2")
-    proc = subprocess.run([sys.executable, str(HERE), "jax_mesh_params",
-                           str(out)], env=env, capture_output=True,
-                          text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    flat = dict(np.load(out))
+    flat = dict(np.load(refs / "mesh_params.npz"))
     sharded = json.loads(str(flat.pop("__sharded__")))
     assert any("w_x" in k for k in sharded)       # split over the devices
     jtree = _unflat(flat)
@@ -445,19 +462,13 @@ def _jax_grads(out_path, dtype):
 
 @pytest.mark.parametrize("dtype,loss_tol,grad_tol", [
     ("float32", 1e-5, 1e-4), ("bfloat16", 1e-3, 2e-2)])
-def test_train_step_matches_jax(tmp_path, dtype, loss_tol, grad_tol):
+def test_train_step_matches_jax(refs, dtype, loss_tol, grad_tol):
     """The gradient half of the step: JAX's make_accum_grad_fn (in a
     subprocess with XLA's excess bf16 precision off, ROADMAP Queue 3: with
     it on XLA skips bf16 roundings inside fused chains that the port
     makes, and the bf16 gradients drift 7e-2 apart) against the port's
     loss_fn and autograd, from JAX's params."""
-    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_allow_excess_precision=false")
-    proc = subprocess.run([sys.executable, str(HERE), "jax_grads",
-                           str(tmp_path / "jax.npz"), dtype], env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    ref = dict(np.load(tmp_path / "jax.npz"))
+    ref = dict(np.load(refs / f"jax_grads_{dtype}.npz"))
     _, tcfg = _configs(dtype)
 
     def tree(pre):
@@ -484,7 +495,7 @@ def test_train_step_matches_jax(tmp_path, dtype, loss_tol, grad_tol):
     assert loss_rel < loss_tol and worst < grad_tol
 
 
-def _jax_dp(out_path):
+def _jax_dp(tmp):
     import jax
     import jax.numpy as jnp
 
@@ -504,6 +515,9 @@ def _jax_dp(out_path):
         params = jm.init_params(jax.random.PRNGKey(0), cfg, mesh)
         out.update({f"p0/{k}": np.asarray(v) for k, v in
                     _flat(params).items()})
+        # the ranks start from these as soon as they are written
+        np.savez(tmp / "dp_p0.part.npz", **out)
+        os.replace(tmp / "dp_p0.part.npz", tmp / "dp_p0.npz")
         state = js.init_train_state(jax.random.PRNGKey(0), cfg, opt, mesh)
         step = jax.jit(js.make_train_step(cfg, opt, mesh))
         for s in range(DP_STEPS):
@@ -512,15 +526,14 @@ def _jax_dp(out_path):
             out[f"loss{s}"] = np.asarray(m["loss"])
     out.update({f"p/{k}": np.asarray(v) for k, v in
                 _flat(state.params).items()})
-    np.savez(out_path, **out)
+    np.savez(tmp / "jax_dp.npz", **out)
 
 
-def _port_dp(rank, world, args):
+def _port_dp(jax_out, out_path):
     from repro_torch.convert import gather_params, params_from_jax, \
         shard_params
     from repro_torch.optim.adam import adamw_init
     from repro_torch.runtime import params as tparams
-    jax_out, out_path = args
     ref = dict(np.load(jax_out))
     cfg = get_smoke_config(ARCH).replace(dtype="float32")
     opt = tbase.OptimizerConfig(**OPT)
@@ -539,24 +552,12 @@ def _port_dp(rank, world, args):
         out[f"loss{s}"] = _np(m["loss"])
     out.update({f"p/{k}": _np(v) for k, v in _flat(
         gather_params(state.params, mesh, specs)).items()})
-    np.savez(out_path.format(rank=rank), **out)
-    return 0
+    np.savez(out_path, **out)
 
 
-def test_dp_only_step_on_two_ranks_matches_jax(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(SRC), JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=2")
-    proc = subprocess.run([sys.executable, str(HERE), "jax_dp",
-                           str(tmp_path / "jax.npz")], env=env,
-                          capture_output=True, text=True, timeout=300)
-    assert proc.returncode == 0, proc.stderr[-4000:]
-    tmesh.spawn_cpu_ranks(str(HERE), 2, [str(tmp_path / "jax.npz"),
-                                         str(tmp_path / "port_{rank}.npz")],
-                          store=str(tmp_path / "store"),
-                          env=dict(os.environ, PYTHONPATH=str(SRC),
-                                   OMP_NUM_THREADS="1"), timeout_s=240)
-    ref = dict(np.load(tmp_path / "jax.npz"))
-    port = [dict(np.load(tmp_path / f"port_{r}.npz")) for r in range(2)]
+def test_dp_only_step_on_two_ranks_matches_jax(refs):
+    ref = dict(np.load(refs / "jax_dp.npz"))
+    port = [dict(np.load(refs / f"port_dp_{r}.npz")) for r in range(2)]
     for s in range(DP_STEPS):
         np.testing.assert_allclose(port[0][f"loss{s}"], ref[f"loss{s}"],
                                    rtol=1e-5)
@@ -600,22 +601,86 @@ def test_serve_and_train_cli_on_cpu(capsys):
     assert sum(e["kind"] == "train_summary" for e in ev) == 1
 
 
-def test_mlstm_on_a_model_axis_raises():
-    """Outside dp_only an xLSTM mixer on a model axis > 1 is reachable by
-    no configuration; the port says so."""
-    cfg = get_smoke_config(ARCH).replace(dtype="float32", dp_only=False)
-    params = tmodel.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
-        tmodel.forward(params, cfg, torch.zeros((1, 8), dtype=torch.long),
-                       mesh=tmesh.Mesh((1, 2)))
+# ------------------------------------------------ on a model axis > 1 --
+
+@pytest.mark.parametrize("name", list(MESH_CASES))
+def test_mesh_train_step_matches_jax(refs, name):
+    """The gradient half of a train step at (1, 2) (the heads split) and
+    (1, 4) (2 heads over 4: the replicated forward) against JAX's on the
+    same mesh, with tests/test_torch_tp.py's f32 bounds."""
+    jax_out, port_out = (dict(np.load(refs / f"{who}_{name}.npz"))
+                         for who in ("jax", "port"))
+    print(f"xlstm smoke at {MESH_CASES[name][0]}: "
+          + cases.check_train(jax_out, port_out, RTOL, 1e-4))
+
+
+@pytest.mark.parametrize("name", list(MESH_CASES))
+def test_mesh_decode_matches_jax(refs, name):
+    """Teacher-forced decode on the state of JAX's decode_state_specs:
+    the mLSTM state by heads at (1, 2), by its first head-dimension
+    index at (1, 4), the sLSTM state by width at both."""
+    shape, over = MESH_CASES[name]
+    jax_out, port_out = (dict(np.load(refs / f"{who}_{name}.npz"))
+                         for who in ("jax", "port"))
+    layout = json.loads(str(port_out["layout"]))
+    assert (layout["mlstm_split"], layout["mlstm_axes"],
+            layout["slstm_axes"]) == ("heads" if name == "1x2" else "dh",
+                                      ["model"], ["model"])
+    cfg = cases.case_cfg(tregistry, ARCH, over)
+    print(f"xlstm smoke at {shape}: "
+          + cases.check_decode(cfg, jax_out, port_out, RTOL))
+
+
+# --------------------------------- the JAX subprocess and the gloo ranks --
+
+def _jax_main(tmp):
+    """Every JAX reference of this file, in one process."""
+    tmp = Path(tmp)
+    _jax_dp(tmp)
+    _jax_mesh_params(tmp / "mesh_params.npz")
+    for dtype in DTYPES:
+        _jax_grads(tmp / f"jax_grads_{dtype}.npz", dtype)
+    for name, (shape, over) in MESH_CASES.items():
+        cases.jax_case(tmp, name, ARCH, shape, over)
+
+
+def _port_main(rank, world, args):
+    tmp = Path(args[0])
+    for name, (shape, over) in MESH_CASES.items():
+        if shape[0] * shape[1] == world:
+            cases.port_case(tmp, name, ARCH, shape, over, rank)
+    if world == math.prod(DP_MESH):
+        deadline = time.monotonic() + 900
+        while not (tmp / "dp_p0.npz").exists():
+            if time.monotonic() > deadline:
+                raise TimeoutError("no JAX params for the dp_only step")
+            time.sleep(0.05)
+        _port_dp(tmp / "dp_p0.npz", tmp / f"port_dp_{rank}.npz")
+    return 0
+
+
+def _write_inputs(tmp):
+    for name, (_, over) in MESH_CASES.items():
+        cases.write_inputs(tmp, name, ARCH, over)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _background(request, tmp_path_factory):
+    """With the file's first test: the JAX subprocess (four forced host
+    devices, XLA's excess bf16 precision off) and the gloo ranks, 2 and
+    4 at once."""
+    yield from cases.background(
+        request, tmp_path_factory, HERE, 4, (2, 4), _write_inputs,
+        "--xla_allow_excess_precision=false")
+
+
+@pytest.fixture(scope="module")
+def refs(_background):
+    return _background.wait()
 
 
 if __name__ == "__main__":
-    if sys.argv[1] == "jax_dp":
-        _jax_dp(sys.argv[2])
-    elif sys.argv[1] == "jax_grads":
-        _jax_grads(*sys.argv[2:])
-    elif sys.argv[1] == "jax_mesh_params":
-        _jax_mesh_params(sys.argv[2])
+    if sys.argv[1] == "jax":
+        _jax_main(sys.argv[2])
     else:                                   # RANK WORLD STORE args...
-        sys.exit(tmesh.run_cpu_rank(sys.argv[1:], _port_dp))
+        sys.exit(tmesh.run_cpu_rank(sys.argv[1:], _port_main))
