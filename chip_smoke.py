@@ -331,6 +331,28 @@ Phases, each of which raises (and so exits non-zero) on failure:
               state leaf bit-equal, positions_in_expert, dispatch_scatter
               and combine_gather launched once a MoE layer a step (counts
               and profiler names).
+ 19. examples  the routing and LSH kernels and their backwards at the
+              shapes the examples launch them (a MoE layer of train_lm's
+              lm-100m, of the quickstart's and of elastic_restart's
+              step; serve_batch's MoE decode step) against their plain
+              versions; then the four scripts of
+              src/repro_torch/examples, each in a
+              subprocess that runs its module as `python -m` does and
+              then prints the kernels' launch counters and the peak
+              allocation: train_lm --steps 120 into a fresh directory of
+              the checkout, alone; then at once train_lm --steps 140,
+              which must resume at step 120 (its loss at step 100 below
+              step 0's, no skip, the same launches a step in both runs,
+              the steady step time read from the arrival of the first
+              run's step 20 and 80 lines), quickstart, serve_batch on
+              granite-moe-3b-a800m and
+              xlstm-350m (4 rows of 20 tokens in the vocabulary, the
+              routing kernels once a MoE layer a decode step, nothing
+              else); elastic_restart, and its run again in this process
+              against an uninterrupted 6-step run on a (1, 1) mesh:
+              every loss bit-equal.  Each exits 0 and prints finite
+              numbers; the training examples launch rows 1-6 of the
+              kernel table and no wire kernel.
 The line before the last is the kernels' JSON record (times at the
 training shape, int8 for the wire kernels; launches of the bf16-wire
 LSH-on training run for the routing and LSH kernels, of the int8 runs
@@ -1729,21 +1751,45 @@ def _port_kernels(avgs, names):
     return out
 
 
+PROFILE_EDGE_S = 0.1            # idle time on each side of a profile's edge
+
+
 def profile_second_step(torch, run_step):
-    """torch.profiler over two calls of ``run_step``, counting the second:
-    the first runs in the profiler's warm-up, whose events are dropped.  A
-    profile started just before the step it counts missed that step's
-    first 26-45 device events (the batch's copies, the embedding, the
-    first norm and projections), in six runs of phase obs, also after
-    waiting 0.5 s for it to settle."""
+    """torch.profiler over two calls of ``run_step`` (each ending in a
+    synchronize), counting the second: the first runs in the profiler's
+    warm-up, whose events are dropped.  A profile started just before the
+    step it counts missed that step's first 26-45 device events (the
+    batch's copies, the embedding, the first norm and projections), in six
+    runs of phase obs, also after waiting 0.5 s for it to settle.  With
+    the warm-up step, the device's clock as the profile maps it onto the
+    host's still strays by some ms, and with each step's last kernels
+    ending just before an edge, four profiles of one training step counted
+    29643, 29714, 29783 and 30038 device events in one run of this script.
+    So the device idles ``PROFILE_EDGE_S`` on each side of both edges
+    (``profile_edges`` reads the margins that a profile shows)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=1,
                                    repeat=1)) as prof:
         for _ in range(2):
+            time.sleep(PROFILE_EDGE_S)
             run_step()
+            time.sleep(PROFILE_EDGE_S)
             prof.step()
     return prof
+
+
+def profile_edges(prof):
+    """(ms from the profiled step's start to its first device event, ms
+    from its last device event to its end), by the profile's clock."""
+    from torch.autograd import DeviceType
+    evs = prof.events()
+    dev = [e.time_range for e in evs if e.device_type == DeviceType.CUDA]
+    step = next(e.time_range for e in evs
+                if e.name.startswith("ProfilerStep")
+                and e.device_type == DeviceType.CPU)
+    return ((min(r.start for r in dev) - step.start) / 1e3,
+            (step.end - max(r.end for r in dev)) / 1e3)
 
 
 TRAIN_PROFILES = 4               # profiles of the training step, at most
@@ -1777,21 +1823,23 @@ def phase_train_profile(torch, cfg, step_lib, data_lib, summarize,
     run(2, 2)
     wall_ms = (time.perf_counter() - t0) * 1e3 / 2
     # a profile of 30 thousand device events can lose or gain some at its
-    # edges (in one run of this script 71 fewer than every other profile
-    # of this step): steps 4 and 5 are profiled again until two profiles
-    # count the same device events, and the record is the first of them
+    # edges (see profile_second_step): steps 4 and 5 are profiled again
+    # until two profiles count the same device events, and the record is
+    # the first of them
     seen = {}
-    for _ in range(TRAIN_PROFILES):
+    for i in range(TRAIN_PROFILES):
         profiled = iter(range(4, 6))
         prof = profile_second_step(torch, lambda: run(next(profiled), 1))
         record, lines = summarize(prof, 1, wall_ms, top=15)
         n = record["device_kernels_per_step"]
+        first, last = profile_edges(prof)
+        log(f"[train-profile] profile {i + 1}: {n} device events a step; "
+            f"the first {first:.3f} ms after the step's start, the last "
+            f"{last:.3f} ms before its end")
         if n in seen:
             record, lines, prof = seen[n]
             break
         seen[n] = (record, lines, prof)
-        log(f"[train-profile] profile {len(seen)}: {n} device events a "
-            f"step")
     else:
         raise AssertionError(f"no two of {TRAIN_PROFILES} profiles of one "
                              f"training step counted the same device "
@@ -5031,6 +5079,307 @@ def phase_seqdecode(torch, model_lib, kernels, routing_kernels):
     return dict(combine=combine, path=path)
 
 
+# ---------------------------------------------------------- 19. examples --
+
+EX_TRAIN_STEPS = (120, 140)      # train_lm's first run, then its resume
+EX_TIMED = (20, 80)              # train_lm's logged steps timed between
+#                                  (no save between them: saves follow
+#                                  steps 99 and 119)
+EX_SERVE_ARCHS = ("granite-moe-3b-a800m", "xlstm-350m")
+EX_SERVE = (4, 12, 20)           # serve_batch's batch, prompt, generated
+EX_TIMEOUT_S = 300
+EX_NUMBER = re.compile(r"(?<![\w.])-?(?:\d+\.?\d*(?:e[-+]?\d+)?|nan|inf)\b",
+                       re.IGNORECASE)
+# A subprocess runs the example's module as `python -m` does (runpy, as
+# __main__, with its argv), then prints the kernels' launch counters,
+# which live in that process, and the card's peak allocation.
+EX_RUNNER = """
+import json, runpy, sys, torch
+from repro_torch.kernels import dispatch
+name = sys.argv[1]
+sys.argv = [name, *sys.argv[2:]]
+try:
+    runpy.run_module(name, run_name="__main__", alter_sys=True)
+finally:
+    print("[launches] " + json.dumps({
+        "launches": {k.name: k.launches for k in dispatch.KERNELS},
+        "peak_bytes": torch.cuda.max_memory_allocated()}), flush=True)
+"""
+
+
+def example_run(name, args=()):
+    """``repro_torch.examples.<name>`` in a subprocess on the card: its
+    stdout lines with the seconds since the start at which each arrived,
+    its launch counters and peak bytes; raises on a non-zero exit or a
+    printed number that is not finite."""
+    import tempfile
+    import threading
+    module = f"repro_torch.examples.{name}"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    t0 = time.monotonic()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", EX_RUNNER, module, *args], cwd=ROOT,
+            env=env, stdout=subprocess.PIPE, stderr=err, text=True)
+        timer = threading.Timer(EX_TIMEOUT_S, proc.kill)
+        timer.start()
+        try:
+            lines = [(time.monotonic() - t0, line.rstrip("\n"))
+                     for line in proc.stdout]
+            rc = proc.wait()
+        finally:
+            timer.cancel()
+        err.seek(0)
+        stderr = err.read()
+    if rc != 0:
+        raise AssertionError(f"[examples] {name} {list(args)} exited {rc}:\n"
+                             f"{stderr[-3000:]}")
+    record = json.loads(lines.pop()[1].split(" ", 1)[1])
+    text = [line for _, line in lines]
+    for line in text:
+        for num in EX_NUMBER.findall(line):
+            if not math.isfinite(float(num)):
+                raise AssertionError(f"[examples] {name}: {line!r}")
+    return dict(name=name, lines=lines, text=text,
+                wall_s=time.monotonic() - t0, **record)
+
+
+def _log_run(run):
+    for line in run["text"]:
+        log(f"[examples] {run['name']}: {line}")
+    log(f"[examples] {run['name']}: {run['wall_s']:.1f} s, peak "
+        f"{run['peak_bytes'] / 2 ** 30:.3f} GiB, launches {run['launches']}")
+
+
+def _launched(label, launches, kernels, want_on):
+    """Each kernel of ``want_on`` launched, every other one not."""
+    on = {k.name for k in want_on}
+    bad = {k.name: launches[k.name] for k in kernels
+           if (launches[k.name] > 0) != (k.name in on)}
+    if bad:
+        raise AssertionError(f"[examples] {label}: launches {bad}; want "
+                             f"{sorted(on)} launched and no other kernel")
+
+
+def examples_quickstart(run, kernels, path_kernels):
+    if len(run["text"]) != 3 or not run["text"][2].startswith(
+            "wire tensor: (1, 128, 64) tokens -> (1, 32, 64) centroids "
+            "(25% of the bytes)"):
+        raise AssertionError(f"[examples] quickstart printed {run['text']}")
+    _launched("quickstart", run["launches"], kernels, path_kernels)
+
+
+def examples_train_lm(runs, kernels, path_kernels):
+    """train_lm --steps 120 into a fresh directory, then --steps 140:
+    the second resumes at 120; the loss at step 100 below step 0's, no
+    skip; the same launches a step in both runs; the steady step time
+    from the arrival of the step 20 and step 80 lines of the first run,
+    which runs alone (each step ends reading its loss)."""
+    from repro_torch.examples import train_lm
+    steps = {}
+    for run in runs:
+        for t, line in run["lines"]:
+            m = re.fullmatch(r"step (\d+): loss (\S+) ce (\S+) skips (\d+)",
+                             line)
+            if m:
+                steps[int(m[1])] = (t, float(m[2]), int(m[4]))
+    first, resumed = runs
+    want_logged = set(range(0, EX_TRAIN_STEPS[1], train_lm.LOG_EVERY))
+    if set(steps) != want_logged or any(s[2] for s in steps.values()):
+        raise AssertionError(f"[examples] train_lm logged steps "
+                             f"{sorted(steps)} (skips "
+                             f"{[s[2] for s in steps.values()]})")
+    if f"resumed from step {EX_TRAIN_STEPS[0]}" not in resumed["text"] or \
+            any(line.startswith("resumed") for line in first["text"]):
+        raise AssertionError("[examples] train_lm did not resume at step "
+                             f"{EX_TRAIN_STEPS[0]} (or resumed a fresh "
+                             "directory)")
+    if not all(r["text"][-1].startswith("done. final loss") for r in runs):
+        raise AssertionError("[examples] a train_lm run did not finish: "
+                             f"{[r['text'][-1] for r in runs]}")
+    if not steps[100][1] < steps[0][1]:
+        raise AssertionError(f"[examples] train_lm loss at step 100 "
+                             f"{steps[100][1]} is not below step 0's "
+                             f"{steps[0][1]}")
+    per_step = [{k: run["launches"][k] / n for k in run["launches"]}
+                for run, n in zip(runs, (EX_TRAIN_STEPS[0],
+                                         EX_TRAIN_STEPS[1]
+                                         - EX_TRAIN_STEPS[0]))]
+    if per_step[0] != per_step[1]:
+        raise AssertionError(f"[examples] train_lm launches a step differ: "
+                             f"{per_step}")
+    _launched("train_lm", first["launches"], kernels, path_kernels)
+    a, b = EX_TIMED
+    step_s = (steps[b][0] - steps[a][0]) / (b - a)
+    tokens = train_lm.SEQ * train_lm.BATCH
+    out = dict(loss_0=steps[0][1], loss_100=steps[100][1],
+               step_ms=1e3 * step_s, tokens_per_s=tokens / step_s,
+               peak_bytes=[r["peak_bytes"] for r in runs],
+               launches_per_step=per_step[0],
+               wall_s=[r["wall_s"] for r in runs])
+    log(f"[examples] train_lm: steady step {out['step_ms']:.2f} ms (steps "
+        f"{a + 1}-{b} by the host clock), {out['tokens_per_s']:.1f} "
+        f"tokens/s, peak {out['peak_bytes']} bytes (first run, resumed "
+        f"run), loss step 0 {out['loss_0']} -> step 100 {out['loss_100']}")
+    return out
+
+
+def examples_serve(runs, kernels, routing_kernels, registry):
+    """serve_batch on a MoE arch and on xlstm-350m: 4 rows of 20 tokens
+    in the vocabulary; the routing kernels once a MoE layer a decode
+    step (12 prompt + 20 generated steps), nothing else launched."""
+    from repro_torch.configs.base import MOE
+    B, P, G = EX_SERVE
+    out = {}
+    for arch, run in zip(EX_SERVE_ARCHS, runs):
+        cfg = registry.get_smoke_config(arch)
+        head = re.fullmatch(rf"arch={arch} generated \({B}, {G}\) tokens "
+                            r"in (\S+)s", run["text"][0])
+        rows = [json.loads(line.split(":", 1)[1]) for line in run["text"][1:]]
+        if head is None or len(rows) != B or any(
+                len(r) != G or not all(0 <= t < cfg.vocab_size for t in r)
+                for r in rows):
+            raise AssertionError(f"[examples] serve_batch {arch} printed "
+                                 f"{run['text']}")
+        n_moe = cfg.num_super_blocks * sum(f == MOE for _, f in cfg.layout)
+        want = {k.name: n_moe * (P + G) if k in routing_kernels else 0
+                for k in kernels}
+        if run["launches"] != want:
+            raise AssertionError(f"[examples] serve_batch {arch} launches "
+                                 f"{run['launches']}, want {want}")
+        secs = float(head[1])               # printed to 2 decimals
+        tps = B * G / secs if secs > 0 else None
+        out[arch] = dict(seconds=secs, tokens_per_s=tps, moe_layers=n_moe)
+        log(f"[examples] serve_batch {arch}: {tps} tokens/s from the "
+            f"printed {secs} s ({B} x {G} generated after {P} prompt "
+            "steps, the first steps' warm-up included, beside the other "
+            "examples' processes)")
+    return out
+
+
+def examples_elastic(torch, run, kernels, path_kernels):
+    """The example's printed lines and launches, then its run in this
+    process against an uninterrupted 6-step run on a (1, 1) mesh from
+    the same seed: every loss bit-equal (the printed ones have 4
+    decimals)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import place
+    from repro_torch.data.synthetic import SyntheticLMDataset
+    from repro_torch.examples import elastic_restart as ex
+    from repro_torch.launch.mesh import init_distributed, make_mesh
+    from repro_torch.runtime.step import init_train_state, make_train_step
+    want_text = ["[mesh A {'data': 1, 'model': 1}] step 3 loss",
+                 "[mesh B {'data': 1, 'model': 1}] resumed at 3, step 6 "
+                 "loss", "elastic restore OK"]
+    if len(run["text"]) != 3 or not all(
+            line.startswith(w) for line, w in zip(run["text"], want_text)):
+        raise AssertionError(f"[examples] elastic_restart printed "
+                             f"{run['text']}")
+    _launched("elastic_restart", run["launches"], kernels, path_kernels)
+    dev = torch.device("cuda", 0)
+    cfg, opt = ex.build_config(), ex.build_optimizer()
+    with tempfile.TemporaryDirectory(prefix=".examples-", dir=ROOT) as d, \
+            contextlib.redirect_stdout(io.StringIO()):
+        got = ex.run(cfg, opt, d, dev)["losses"]
+    ds = SyntheticLMDataset(cfg.vocab_size, ex.SEQ, ex.BATCH)
+    init_distributed(dev, store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        state = init_train_state(cfg, opt, seed=0, device=dev, mesh=mesh)
+        step = make_train_step(cfg, opt, mesh=mesh)
+        want = {}
+        for s in range(2 * ex.STEPS):
+            state, m = step(state, place(ds.batch_at(s), dev))
+            want[s + 1] = float(m["loss"])
+    finally:
+        dist.destroy_process_group()
+    if got != want:
+        raise AssertionError(f"[examples] elastic_restart losses {got} are "
+                             f"not an uninterrupted run's {want}")
+    log(f"[examples] elastic_restart on the card: losses {got}, bit-equal "
+        "to an uninterrupted 6-step run on a (1, 1) mesh")
+    return dict(losses=got, launches=run["launches"])
+
+
+def examples_kernels(torch, mods, ref, moe_lib, hashing, registry):
+    """The path's kernels at the shapes the examples launch them, against
+    their plain versions: one MoE layer of each training example's step
+    (train_lm's lm-100m, 8 x 128 tokens: top-2 of E = 8, C = 320, H =
+    512, S = 64, L = 6, Dr = 64; the quickstart's 8 x 64: H = 64, Dr =
+    32; elastic_restart's qwen3 smoke config, 4 x 32: H = 96), routing,
+    LSH and the backwards, and serve_batch's MoE decode step (EX_SERVE's
+    4 slots, the decode capacity of core/moe.moe_dense_dispatch)."""
+    from repro_torch.configs.base import MOE
+    from repro_torch.examples import elastic_restart, quickstart, train_lm
+    for seed, ex in enumerate((train_lm, quickstart, elastic_restart), 51):
+        name = ex.__name__.rsplit(".", 1)[1]
+        config_kernels(torch, mods, ref, moe_lib, hashing, ex.build_config(),
+                       ex.SEQ * ex.BATCH, f"examples {name}", seed,
+                       wire=False)
+    slots = EX_SERVE[0]
+    for arch in EX_SERVE_ARCHS:
+        cfg = registry.get_smoke_config(arch)
+        if not any(f == MOE for _, f in cfg.layout):
+            continue
+        moe = cfg.moe
+        cap = max(4, math.ceil(slots * moe.top_k / moe.num_experts * 2))
+        decode = make_plan(torch, ref, T=slots, k=moe.top_k,
+                           E=moe.num_experts, C=cap, H=cfg.d_model,
+                           skew=False, bad_frac=0.0, seed=57)
+        check_kernels(torch, mods["token_position"], mods["scatter_gather"],
+                      ref, decode, f"examples serve_batch {arch} decode")
+
+
+def phase_examples(torch, mods, ref, moe_lib, hashing, registry, kernels,
+                   routing_kernels, path_kernels):
+    """Phase examples: the path's kernels at the examples' shapes
+    (examples_kernels), then the four scripts of repro_torch.examples on
+    the card, each in a subprocess as ``python -m`` runs it.  train_lm's
+    first run (the timed one) runs alone; then its resume and the other
+    examples run at once, each process on the card beside the others.
+    train_lm's checkpoints go to a directory of the checkout, removed
+    afterwards."""
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.time()
+    examples_kernels(torch, mods, ref, moe_lib, hashing, registry)
+    torch.cuda.empty_cache()
+    log(f"[time] examples kernels done at {time.time() - t0:.1f} s of the "
+        "phase")
+    workdir = ROOT / f".examples-{os.getpid()}"
+    ckpt = ["--ckpt", str(workdir / "train_lm")]
+    jobs = {"resumed": ("train_lm", ["--steps", str(EX_TRAIN_STEPS[1]),
+                                     *ckpt]),
+            "quickstart": ("quickstart", []),
+            **{arch: ("serve_batch", ["--arch", arch])
+               for arch in EX_SERVE_ARCHS},
+            "elastic_restart": ("elastic_restart", [])}
+    try:
+        first = example_run("train_lm",
+                            ["--steps", str(EX_TRAIN_STEPS[0]), *ckpt])
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            futures = {k: pool.submit(example_run, *job)
+                       for k, job in jobs.items()}
+            runs = {k: f.result() for k, f in futures.items()}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    for run in (first, *runs.values()):
+        _log_run(run)
+    examples_quickstart(runs["quickstart"], kernels, path_kernels)
+    out = {"train_lm": examples_train_lm([first, runs["resumed"]], kernels,
+                                         path_kernels),
+           "serve_batch": examples_serve(
+               [runs[a] for a in EX_SERVE_ARCHS], kernels, routing_kernels,
+               registry),
+           "elastic_restart": examples_elastic(
+               torch, runs["elastic_restart"], kernels, path_kernels)}
+    log(f"[examples] phase time {time.time() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5154,6 +5503,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_seqdecode(torch, model_lib, kernels, routing_k)
     log(f"[time] seqdecode done at {time.time() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+    phase_examples(torch, mods, ref, moe_lib, hashing, registry, kernels,
+                   routing_k, routing_k + lsh_k)
+    log(f"[time] examples done at {time.time() - t_start:.1f} s")
 
     # launches of the main path's runs: the bf16 wire with LSH on for the
     # routing and LSH kernels, the int8 wire with LSH on for the kernels

@@ -43,6 +43,7 @@ from repro_torch.convert import params_from_jax, tensor_from_numpy
 from repro_torch.core import clustering as tclust
 from repro_torch.core.lsh_moe import lsh_moe_apply
 from repro_torch.data.synthetic import SyntheticLMDataset
+from repro_torch.examples import quickstart
 from repro_torch.kernels.lsh_hash import near_tie_margin
 from repro_torch.launch import train as train_cli
 from repro_torch.models import model as tmodel
@@ -294,12 +295,24 @@ def test_train_step_matches_jax(mesh, slot_spies, wire_dtype, grad_tol,
     assert worst < grad_tol and worst_p < param_tol
 
 
+def _quickstart_f32(wire_dtype):
+    """repro_torch.examples.quickstart's config in f32 with the given
+    LSH wire."""
+    cfg = quickstart.build_config()
+    moe = cfg.moe
+    return dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+        moe, lsh=dataclasses.replace(moe.lsh, wire_dtype=wire_dtype)))
+
+
 @pytest.mark.parametrize("wire_dtype,rtol", [("float32", 1e-4),
                                              ("bfloat16", 2e-2)])
 def test_quickstart_loss_trajectory_matches_jax(mesh, wire_dtype, rtol):
-    """examples/quickstart.py's config (built here, the example is not
-    imported) and its optimizer, 5 steps with LSH on at batch 8 x 64, at
-    f32 (the example's bf16 rounds products where each framework does).
+    """examples/quickstart.py's config (the JAX side built here, the JAX
+    example is not imported; the port side by
+    repro_torch.examples.quickstart.build_config, so the port's example
+    and this test cannot drift) and its optimizer, 5 steps with LSH on at
+    batch 8 x 64, at f32 (the example's bf16 rounds products where each
+    framework does).
 
     With the f32 wire every step's loss is within 1e-4 relative of JAX's
     (measured 4e-7): the gate of ROADMAP Queue 1 item 1.  With the bf16
@@ -308,19 +321,18 @@ def test_quickstart_loss_trajectory_matches_jax(mesh, wire_dtype, rtol):
     param by about lr * sign(g), so a gradient that the bf16 rounding of a
     cotangent flipped (see test_train_step_matches_jax) moves the hash
     inputs, and a token near a hash tie then changes slot."""
-    def cfg(b):
-        return b.ModelConfig(
-            name="quickstart-moe", family="moe", d_model=64, num_heads=4,
-            num_kv_heads=2, d_ff=128, vocab_size=512,
-            layout=((b.ATTN, b.MOE),), num_super_blocks=2,
-            moe=b.MoEConfig(num_experts=8, top_k=2, expert_ffn_dim=128,
-                            lsh=b.LSHConfig(enabled=True, num_hashes=6,
-                                            rotation_dim=32,
-                                            compression_rate=0.25,
-                                            wire_dtype=wire_dtype)),
-            remat_policy="dots", kv_chunk=32, dtype="float32")
+    jcfg = jbase.ModelConfig(
+        name="quickstart-moe", family="moe", d_model=64, num_heads=4,
+        num_kv_heads=2, d_ff=128, vocab_size=512,
+        layout=((jbase.ATTN, jbase.MOE),), num_super_blocks=2,
+        moe=jbase.MoEConfig(num_experts=8, top_k=2, expert_ffn_dim=128,
+                            lsh=jbase.LSHConfig(enabled=True, num_hashes=6,
+                                                rotation_dim=32,
+                                                compression_rate=0.25,
+                                                wire_dtype=wire_dtype)),
+        remat_policy="dots", kv_chunk=32, dtype="float32")
     jl, tl, *_ = _train_both(
-        mesh, cfg(jbase), cfg(tbase),
+        mesh, jcfg, _quickstart_f32(wire_dtype),
         dict(lr=1e-3, warmup_steps=5, total_steps=50), steps=5, batch=8,
         seq=64)
     print(f"quickstart losses, wire {wire_dtype}: jax {jl} torch {tl}")
